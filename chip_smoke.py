@@ -1,0 +1,479 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``src/repro_torch``) on one GPU and check it.
+
+    python3 chip_smoke.py            # from the root of the checkout
+
+Phases, each printing JSON lines:
+
+1. device: the card's name and power limit, and the kernel build
+   (``nvcc`` for ``sm_90a`` from ``src/repro_torch/kernels/csrc``).
+2. kernels: each CUDA kernel against its plain PyTorch version on the card,
+   over the reference's test grid (R in {4, 8, 32}, T in {2, 3, 8}, f32
+   and bf16, B = 33 and B = 0), at the main path's shapes, and at H = 64,
+   R = 32.  Tolerance: 1e-5 in f32, 0.1 in bf16 (rtol = atol); in bf16
+   also at most 2 bf16 ulps of the case's largest plain value, a limit
+   that scales with the data.
+3. golden: ``tests/golden/v2_nttd.bin`` decoded on the card against
+   ``tests/golden/expected.npz`` (rtol 1e-5, atol 1e-6), and the chunked
+   NTTD payload ``benchmarks/results/fig5_stream_payload.tcdc`` decoded
+   whole through the kernel against the plain version.
+4. main path: a PEMS-SF-shaped (963 x 144 x 440) NTTD payload at the
+   default architecture (rank 8, hidden 16) with random weights from a
+   seed is saved to a v3 container, loaded onto the card with
+   ``load_bytes``, answers 8 ``decode_at`` requests of 65,536 entries
+   through the fused kernel and 2 through ``lstm_scan`` + ``tt_contract``,
+   and reconstructs all 61,015,680 entries with ``to_dense``.  Everything
+   is compared with the plain version on the card, and every kernel must
+   have been launched by this phase.
+5. timing: each kernel, its plain version and, where one exists, one
+   PyTorch call computing the same function (cuDNN ``nn.LSTM`` for
+   ``lstm_scan``, one ``torch.einsum`` over the whole chain for
+   ``tt_contract``) at the main path's shapes, with CUDA events; the bound
+   is computed from the shapes against the H100 SXM's published peaks.
+
+The line before the last is the card's ``name, power.limit`` as
+``nvidia-smi`` reports them; the last line is the result object.  Any
+failure exits non-zero without printing it.  Without CUDA, or without the
+rest of the checkout beside this file, it exits non-zero at once.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+import traceback
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+SRC = os.path.join(ROOT, "src")
+SEED = 0
+PEMS_SHAPE = (963, 144, 440)  # paper Table II, PEMS-SF
+RANK, HIDDEN = 8, 16          # the repo's default NTTD architecture
+REQUEST = 65_536              # entries per decode_at request
+TOL = {"float32": 1e-5, "bfloat16": 0.1}
+BF16_ULPS = 2                 # bf16 also within 2 ulps of the case's largest |value|
+PEAK_FP32 = 67e12             # H100 SXM, FP32 outside the tensor cores
+PEAK_BYTES = 3.35e12          # H100 SXM HBM3
+SOURCES = {
+    "decode_tile": ("src/repro_torch/kernels/csrc/decode_tile.cu",
+                    "src/repro/kernels/decode_tile.py:147"),
+    "lstm_scan": ("src/repro_torch/kernels/csrc/lstm.cu",
+                  "src/repro/kernels/lstm.py:67"),
+    "tt_contract": ("src/repro_torch/kernels/csrc/tt_contract.cu",
+                    "src/repro/kernels/tt_contract.py:60"),
+}
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def require(cond: bool, what: str) -> None:
+    if not cond:
+        raise SmokeFailure(what)
+
+
+def nvidia_smi_line() -> str:
+    res = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    require(res.returncode == 0, f"nvidia-smi failed: {res.stderr.strip()}")
+    return res.stdout.strip().splitlines()[0]
+
+
+# ---------------------------------------------------------------------------
+# helpers
+# ---------------------------------------------------------------------------
+def time_ms(torch, fn, iters: int, warmup: int = 2) -> float:
+    """Mean device time of ``fn`` over ``iters`` back-to-back calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+def bf16_ulp(x: float) -> float:
+    """Spacing of bf16 values (8 significant bits) in the binade of ``x``."""
+    return math.ldexp(1.0, math.frexp(x)[1] - 8) if x else 0.0
+
+
+def compare(torch, got, want, dtype_name: str) -> tuple[float, float]:
+    """(max abs error, in bf16 that error in ulps of the largest |want|).
+
+    Fails beyond the dtype's tolerance (rtol = atol) and, in bf16, beyond
+    ``BF16_ULPS`` ulps of the largest |want|: both versions compute in f32
+    and round once, so they may differ by the last bit only.
+    """
+    require(got.shape == want.shape, f"shape {tuple(got.shape)} != {tuple(want.shape)}")
+    require(got.dtype == want.dtype, f"dtype {got.dtype} != {want.dtype}")
+    g, w = got.float(), want.float()
+    require(bool(torch.isfinite(g).all()), "non-finite kernel output")
+    tol = TOL[dtype_name]
+    err = (g - w).abs()
+    max_err = float(err.max()) if err.numel() else 0.0
+    bad = int((err > tol + tol * w.abs()).sum())
+    require(bad == 0, f"{bad} values beyond tolerance {tol}, max abs err {max_err}")
+    ulps = 0.0
+    if dtype_name == "bfloat16" and w.numel():
+        ulp = bf16_ulp(float(w.abs().max()))
+        ulps = max_err / ulp if ulp else (0.0 if max_err == 0 else math.inf)
+        require(ulps <= BF16_ULPS,
+                f"bf16 max abs err {max_err} is {ulps} ulps of the largest value")
+    return max_err, ulps
+
+
+def chain_equation(k: int) -> str:
+    """``torch.einsum`` equation of first . mid_1 ... mid_k . last -> [B]."""
+    chain = "acdefghijklmnopqrstuvwxyz"[: k + 1]
+    terms = ["b" + chain[0]] + ["b" + chain[j : j + 2] for j in range(k)] + ["b" + chain[k]]
+    return ",".join(terms) + "->b"
+
+
+def decode_inputs(torch, gen, b, t, m, hid, rank, dtype, device):
+    """Random operands of the fused decode, scaled as the reference's tests."""
+    def mk(*shape, scale=0.3):
+        return (torch.randn(shape, generator=gen) * scale).to(device=device, dtype=dtype)
+
+    idx = torch.randint(0, m, (b, t), generator=gen, dtype=torch.int32).to(device)
+    return idx, (
+        mk(t, m, hid),
+        mk(hid, 4 * hid), mk(hid, 4 * hid), mk(4 * hid, scale=0.1),
+        mk(hid, rank), mk(rank, scale=0.1),
+        mk(hid, rank * rank, scale=0.5 / rank**0.5), mk(rank * rank, scale=0.1),
+        mk(hid, rank), mk(rank, scale=0.1),
+    )
+
+
+# ---------------------------------------------------------------------------
+# phases
+# ---------------------------------------------------------------------------
+def phase_device(torch):
+    from repro_torch.kernels import _build
+
+    smi = nvidia_smi_line()
+    path, seconds, log = _build.build()
+    resources = [line.strip() for line in log.splitlines()
+                 if "registers" in line or "spill" in line]
+    _build.library()
+    emit({"phase": "device", "name_power_limit": smi,
+          "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "build_seconds": seconds, "library": os.path.relpath(path, ROOT),
+          "ptxas": resources})
+    return smi
+
+
+def phase_kernels(torch, device):
+    """Every kernel against its plain version on the card."""
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator().manual_seed(SEED)
+    errs = {name: {"float32": 0.0, "bfloat16": 0.0, "bfloat16_ulps": 0.0}
+            for name in SOURCES}
+    cases = 0
+
+    def record(name, dt_name, got, want):
+        nonlocal cases
+        err, ulps = compare(torch, got, want, dt_name)
+        errs[name][dt_name] = max(errs[name][dt_name], err)
+        errs[name]["bfloat16_ulps"] = max(errs[name]["bfloat16_ulps"], ulps)
+        cases += 1
+
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[-1]
+        # the reference's decode grid (tests/test_kernels.py), B = 33 and 0
+        for rank in (4, 8, 32):
+            for t in (2, 3, 8):
+                for b in (33, 0):
+                    idx, ws = decode_inputs(torch, gen, b, t, 10, 16, rank, dtype, device)
+                    got = ops.nttd_decode_tile(idx, *ws, impl="cuda")
+                    want = ops.nttd_decode_tile(idx, *ws, impl="ref")
+                    record("decode_tile", dn, got, want)
+                    x = (torch.randn((b, t, 16), generator=gen)).to(device, dtype)
+                    record("lstm_scan", dn, ops.lstm_scan(x, *ws[1:4], impl="cuda"),
+                           ref.lstm_scan(x, *ws[1:4]))
+                    k = max(t - 2, 1)
+                    first = torch.randn((b, rank), generator=gen).to(device, dtype)
+                    mid = (torch.randn((b, k, rank, rank), generator=gen)
+                           * (0.5 / rank**0.5)).to(device, dtype)
+                    last = torch.randn((b, rank), generator=gen).to(device, dtype)
+                    record("tt_contract", dn, ops.tt_contract(first, mid, last, impl="cuda"),
+                           ref.tt_contract(first, mid, last))
+        # the reference's lstm and tt grids
+        for b, t, h in ((16, 6, 8), (50, 9, 16), (33, 12, 32), (8, 3, 64)):
+            _, ws = decode_inputs(torch, gen, 1, 2, 2, h, 4, dtype, device)
+            x = torch.randn((b, t, h), generator=gen).to(device, dtype)
+            record("lstm_scan", dn, ops.lstm_scan(x, *ws[1:4], impl="cuda"),
+                   ref.lstm_scan(x, *ws[1:4]))
+        for b, k, r in ((64, 5, 8), (100, 10, 16), (7, 3, 8), (256, 8, 32)):
+            first = torch.randn((b, r), generator=gen).to(device, dtype)
+            mid = (torch.randn((b, k, r, r), generator=gen) * (0.5 / r**0.5)).to(device, dtype)
+            last = torch.randn((b, r), generator=gen).to(device, dtype)
+            record("tt_contract", dn, ops.tt_contract(first, mid, last, impl="cuda"),
+                   ref.tt_contract(first, mid, last))
+        # main-path shapes (T = 10, M = 8, H = 16, R = 8) and H = 64, R = 32
+        for b, t, m, h, r in ((REQUEST, 10, 8, HIDDEN, RANK), (4096, 10, 8, 64, 32)):
+            idx, ws = decode_inputs(torch, gen, b, t, m, h, r, dtype, device)
+            record("decode_tile", dn, ops.nttd_decode_tile(idx, *ws, impl="cuda"),
+                   ops.nttd_decode_tile(idx, *ws, impl="ref"))
+            x = torch.randn((b, t, h), generator=gen).to(device, dtype)
+            record("lstm_scan", dn, ops.lstm_scan(x, *ws[1:4], impl="cuda"),
+                   ref.lstm_scan(x, *ws[1:4]))
+            first = torch.randn((b, r), generator=gen).to(device, dtype)
+            mid = (torch.randn((b, t - 2, r, r), generator=gen) * (0.5 / r**0.5)).to(
+                device, dtype)
+            last = torch.randn((b, r), generator=gen).to(device, dtype)
+            record("tt_contract", dn, ops.tt_contract(first, mid, last, impl="cuda"),
+                   ref.tt_contract(first, mid, last))
+        # an index outside [0, M) gathers a zero row in both versions
+        idx, ws = decode_inputs(torch, gen, 33, 3, 10, 16, 8, dtype, device)
+        idx[0, 1] = 10
+        idx[1, 2] = -1
+        record("decode_tile", dn, ops.nttd_decode_tile(idx, *ws, impl="cuda"),
+               ops.nttd_decode_tile(idx, *ws, impl="ref"))
+    torch.cuda.synchronize()
+    emit({"phase": "kernels", "cases": cases, "tolerance": TOL, "bf16_ulps": BF16_ULPS,
+          "max_abs_err": errs})
+    return errs
+
+
+def phase_golden(torch, device):
+    import numpy as np
+
+    from repro_torch.codecs import load_bytes
+    from repro_torch.codecs.adapters import NTTDEncoded
+
+    npz = np.load(os.path.join(ROOT, "tests", "golden", "expected.npz"))
+    with open(os.path.join(ROOT, "tests", "golden", "v2_nttd.bin"), "rb") as f:
+        enc = load_bytes(f.read(), device=device)
+    got = np.asarray(enc.decode_at(npz["indices"]), np.float64)
+    np.testing.assert_allclose(got, npz["v2_nttd"], rtol=1e-5, atol=1e-6)
+    golden_err = float(np.abs(got - npz["v2_nttd"]).max())
+
+    with open(os.path.join(ROOT, "benchmarks", "results", "fig5_stream_payload.tcdc"),
+              "rb") as f:
+        enc5 = load_bytes(f.read(), device=device)
+    dense = enc5.to_dense()
+    plain = _with_impl(enc5, "ref", NTTDEncoded).to_dense()
+    require(dense.shape == (64, 32, 32) and bool(np.isfinite(dense).all()),
+            "fig5 payload decode shape or values")
+    np.testing.assert_allclose(dense, plain, rtol=1e-5, atol=1e-5)
+    emit({"phase": "golden", "v2_nttd_max_abs_err": golden_err,
+          "fig5_entries": int(dense.size),
+          "fig5_max_abs_err_vs_plain": float(np.abs(dense - plain).max())})
+
+
+def _with_impl(enc, impl, cls):
+    ct = enc.ct
+    return cls(dataclasses.replace(ct, cfg=dataclasses.replace(ct.cfg, kernel_impl=impl)))
+
+
+def phase_main(torch, device):
+    import numpy as np
+
+    from repro_torch.codecs import container, load_bytes
+    from repro_torch.codecs.adapters import NTTDEncoded
+    from repro_torch.core import nttd
+    from repro_torch.core.codec import CompressedTensor
+    from repro_torch.core.folding import make_folding_spec
+    from repro_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    spec = make_folding_spec(PEMS_SHAPE)
+    cfg = nttd.NTTDConfig(rank=RANK, hidden=HIDDEN)
+    params = nttd.init_params(torch.Generator().manual_seed(SEED), spec, cfg, device)
+    rng = np.random.default_rng(SEED)
+    pi = [rng.permutation(n) for n in PEMS_SHAPE]
+    ct = CompressedTensor(params, pi, spec, cfg, norm_mean=0.25, norm_std=2.0)
+    blob = container.save_bytes(NTTDEncoded(ct))
+    enc = load_bytes(blob)  # default device: the card
+    require(enc.ct.device.type == "cuda", "load_bytes did not load onto the card")
+    requests = [np.stack([rng.integers(0, n, REQUEST) for n in PEMS_SHAPE], axis=1)
+                for _ in range(10)]
+    setup_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+
+    enc_cuda = _with_impl(enc, "cuda", NTTDEncoded)
+    ops.reset_launch_counts()
+    answers, req_ms = [], []
+    for i, idx in enumerate(requests):
+        t = time.perf_counter()
+        answers.append((enc if i < 8 else enc_cuda).decode_at(idx))
+        req_ms.append((time.perf_counter() - t) * 1e3)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    dense = enc.to_dense()
+    dense_s = time.perf_counter() - t
+    launches = ops.launch_counts()
+    for name, n in launches.items():
+        require(n >= 1, f"{name} was not launched on the main path")
+
+    plain = _with_impl(enc, "ref", NTTDEncoded)
+    req_err = 0.0
+    for idx, got in zip(requests, answers):
+        require(got.shape == (REQUEST,) and bool(np.isfinite(got).all()), "request output")
+        want = plain.decode_at(idx)
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+        req_err = max(req_err, float(np.abs(got - want).max()))
+    t = time.perf_counter()
+    dense_plain = plain.to_dense()
+    plain_dense_s = time.perf_counter() - t
+    require(dense.shape == PEMS_SHAPE and bool(np.isfinite(dense).all()), "to_dense output")
+    np.testing.assert_allclose(dense, dense_plain, rtol=1e-5, atol=1e-5)
+    dense_err = float(np.abs(dense - dense_plain).max())
+    # a dense read-back agrees with point queries at the same entries
+    idx = requests[0][:1024]
+    np.testing.assert_allclose(dense[tuple(idx.T)], answers[0][:1024], rtol=1e-5, atol=1e-5)
+    n = int(np.prod(PEMS_SHAPE))
+    emit({"phase": "main", "shape": list(PEMS_SHAPE), "folded_shape": list(spec.folded_shape),
+          "rank": RANK, "hidden": HIDDEN, "payload_bytes": len(blob),
+          "setup_s": setup_s, "request_entries": REQUEST,
+          "request_ms_fused": req_ms[:8], "request_ms_cuda_unfused": req_ms[8:],
+          "to_dense_entries": n, "to_dense_s": dense_s,
+          "to_dense_entries_per_s": n / dense_s,
+          "plain_to_dense_s": plain_dense_s,
+          "max_abs_err_requests": req_err, "max_abs_err_to_dense": dense_err,
+          "launches": launches})
+    return enc, requests[0], launches
+
+
+def phase_timing(torch, device, enc, idx_np, launches, errs):
+    """Kernel, plain and library times at the main path's shapes."""
+    from repro_torch.core import nttd
+    from repro_torch.kernels import ops, ref
+
+    ct = enc.ct
+    spec, cfg, params = ct.spec, ct.cfg, ct.params
+    pos = torch.stack([torch.as_tensor(inv[idx_np[:, j]], device=device)
+                       for j, inv in enumerate(ct.inv_pi)], dim=1)
+    folded = spec.fold_indices(pos).to(torch.int32).contiguous()
+    ws = nttd.fused_decode_inputs(params, spec, cfg)
+    b, t = folded.shape
+    m, h, r = ws[0].shape[1], HIDDEN, RANK
+    lstm = params["lstm"]
+    x = torch.stack([params[f"embed_{mm}"][folded[:, j].long()]
+                     for j, mm in enumerate(spec.folded_shape)], dim=1).contiguous()
+    hs = ops.lstm_scan(x, lstm["wi"], lstm["wh"], lstm["b"], impl="ref")
+    first = (hs[:, 0] @ params["head_first"]["w"] + params["head_first"]["b"]).contiguous()
+    last = (hs[:, -1] @ params["head_last"]["w"] + params["head_last"]["b"]).contiguous()
+    mids = (hs[:, 1:-1] @ params["head_mid"]["w"] + params["head_mid"]["b"]).reshape(
+        b, t - 2, r, r).contiguous()
+
+    weight_elems = sum(int(w.numel()) for w in ws)
+    lstm_w = 8 * h * h + 4 * h
+    rows = []
+
+    # decode_tile: LSTM gates, head projections and the chain, per entry
+    ops_dt = b * (t * 16 * h * h + 2 * h * (2 * r + (t - 2) * r * r)
+                  + 2 * (t - 2) * r * r + 2 * r)
+    bytes_dt = b * t * 4 + b * 4 + weight_elems * 4
+    rows.append(("decode_tile", ops_dt, bytes_dt,
+                 lambda: ops.nttd_decode_tile(folded, *ws, impl="cuda"),
+                 lambda: ref.nttd_decode_tile(folded, *ws), None, None))
+
+    ops_l = b * t * 16 * h * h
+    bytes_l = 2 * b * t * h * 4 + lstm_w * 4
+    cudnn = torch.nn.LSTM(h, h, batch_first=True).to(device)
+    with torch.no_grad():
+        cudnn.weight_ih_l0.copy_(lstm["wi"].T)
+        cudnn.weight_hh_l0.copy_(lstm["wh"].T)
+        cudnn.bias_ih_l0.copy_(lstm["b"])
+        cudnn.bias_hh_l0.zero_()
+
+    def library_lstm():
+        with torch.no_grad():
+            return cudnn(x)[0]
+
+    rows.append(("lstm_scan", ops_l, bytes_l,
+                 lambda: ops.lstm_scan(x, lstm["wi"], lstm["wh"], lstm["b"], impl="cuda"),
+                 lambda: ref.lstm_scan(x, lstm["wi"], lstm["wh"], lstm["b"]), library_lstm,
+                 "cuDNN torch.nn.LSTM, gates (i, f, g, o)"))
+
+    ops_t = b * ((t - 2) * 2 * r * r + 2 * r)
+    bytes_t = (2 * b * r + b * (t - 2) * r * r) * 4 + b * 4
+    equation = chain_equation(t - 2)
+    mid_list = mids.unbind(1)
+    opt = torch.backends.opt_einsum
+    path = "opt_einsum path" if opt.enabled and opt.is_available() else "left to right"
+    rows.append(("tt_contract", ops_t, bytes_t,
+                 lambda: ops.tt_contract(first, mids, last, impl="cuda"),
+                 lambda: ref.tt_contract(first, mids, last),
+                 lambda: torch.einsum(equation, first, *mid_list, last),
+                 f"torch.einsum('{equation}'), {path}"))
+
+    kernels = []
+    for name, n_ops, n_bytes, kern, plain, library, library_name in rows:
+        t_ops, t_bytes = n_ops / PEAK_FP32 * 1e3, n_bytes / PEAK_BYTES * 1e3
+        lib_err = float((library() - plain()).abs().max()) if library else None
+        kernels.append({
+            "name": name, "route": "cuda", "source": SOURCES[name][0],
+            "replaces": SOURCES[name][1], "launches": launches[name],
+            "max_abs_err": errs[name]["float32"],
+            "max_abs_err_bf16": errs[name]["bfloat16"],
+            "ms": time_ms(torch, kern, 20),
+            "plain_ms": time_ms(torch, plain, 5),
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": time_ms(torch, library, 20) if library else None,
+            "library": library_name, "library_max_abs_err": lib_err,
+            "shape": {"B": b, "T": t, "M": m, "H": h, "R": r},
+            "ops": n_ops, "bytes": n_bytes,
+        })
+    emit({"kernels": kernels})
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs the port on a GPU",
+              file=sys.stderr)
+        return 2
+    if not os.path.isdir(os.path.join(SRC, "repro_torch")):
+        print(f"chip_smoke: {SRC}/repro_torch not found; run from a checkout",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, SRC)
+    # full f32 everywhere: no TF32 in matmuls (the unfused heads, the plain
+    # versions) or in cuDNN (the nn.LSTM yardstick)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda")
+    t0 = time.perf_counter()
+    try:
+        smi = phase_device(torch)
+        errs = phase_kernels(torch, device)
+        phase_golden(torch, device)
+        enc, idx, launches = phase_main(torch, device)
+        phase_timing(torch, device, enc, idx, launches, errs)
+        torch.cuda.synchronize()
+    except Exception:  # any failed phase fails the run, with its traceback
+        traceback.print_exc()
+        return 1
+    emit({"phase": "done", "seconds": time.perf_counter() - t0})
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,65 @@
+"""Carry weights between the JAX package and the port as numpy arrays.
+
+    np_tree = jax.tree.map(np.asarray, params)      # on the JAX side
+    params = params_from_numpy(np_tree, "cuda")     # the port's params
+
+``compressed_from_numpy`` rebuilds a port ``CompressedTensor`` from the
+numpy parts of a reference one.
+"""
+from __future__ import annotations
+
+from typing import Any, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core import nttd
+from repro_torch.core.codec import CompressedTensor
+from repro_torch.core.folding import spec_from_factors
+from repro_torch.devices import resolve_device
+
+
+def params_from_numpy(tree: dict[str, Any], device=None) -> nttd.Params:
+    """Nested dict of numpy arrays -> the same dict of tensors on ``device``
+    (CUDA unless given)."""
+    device = resolve_device(device)
+    if isinstance(tree, dict):
+        return {k: params_from_numpy(v, device) for k, v in tree.items()}
+    return torch.from_numpy(np.array(tree, copy=True)).to(device)
+
+
+def params_to_numpy(params: nttd.Params) -> dict[str, Any]:
+    """Inverse of :func:`params_from_numpy`."""
+    if isinstance(params, dict):
+        return {k: params_to_numpy(v) for k, v in params.items()}
+    return params.detach().cpu().numpy()
+
+
+def compressed_from_numpy(
+    params: dict[str, Any],
+    pi: Sequence[np.ndarray],
+    shape: Sequence[int],
+    factors: np.ndarray,
+    norm_mean: float = 0.0,
+    norm_std: float = 1.0,
+    *,
+    device=None,
+) -> CompressedTensor:
+    """A port ``CompressedTensor`` from a reference one's numpy parts:
+    ``params`` (numpy tree), ``pi``, ``spec.shape``, ``spec.factors`` and
+    the normalization.  Rank and hidden width are read off the params; the
+    kernel impl is ``nttd.default_impl()`` (replace ``cfg`` for another)."""
+    tparams = params_from_numpy(params, device)
+    cfg = nttd.NTTDConfig(
+        rank=int(tparams["head_first"]["b"].shape[0]),
+        hidden=int(tparams["lstm"]["wi"].shape[0]),
+        kernel_impl=nttd.default_impl(),
+    )
+    return CompressedTensor(
+        tparams,
+        [np.asarray(p, dtype=np.int64) for p in pi],
+        spec_from_factors(shape, np.asarray(factors)),
+        cfg,
+        float(norm_mean),
+        float(norm_std),
+    )

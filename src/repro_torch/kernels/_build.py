@@ -1,0 +1,130 @@
+"""Build and load the CUDA kernels of this package.
+
+The sources under ``csrc/`` are compiled by ``nvcc`` for Hopper
+(``sm_90a``), one ``nvcc -c`` per source, all started together, and
+linked into one shared library with a plain C interface that is loaded
+with ``ctypes``.  The library lands in ``build/repro_torch_kernels/`` at
+the root of the checkout, under a name keyed by a hash of the sources and
+flags, so an edited source is rebuilt and an unchanged one is reused.
+Nothing is built when the module is imported: ``library()`` builds on
+first use and raises when the build is impossible (no ``nvcc``) or fails.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = ("decode_tile.cu", "lstm.cu", "tt_contract.cu")
+HEADERS = ("common.cuh",)
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+)
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+_SIGNATURES = {
+    # idx, emb, wi, wh, b, wf, bf, wm, bm, wl, bl, out, B, T, M, H, R, dtype, stream
+    "repro_decode_tile": [_P] * 12 + [_L, _I, _I, _I, _I, _I, _P],
+    # x, wi, wh, b, out, B, T, H, dtype, stream
+    "repro_lstm_scan": [_P] * 5 + [_L, _I, _I, _I, _P],
+    # first, mid, last, out, B, K, R, dtype, stream
+    "repro_tt_contract": [_P] * 4 + [_L, _I, _I, _I, _P],
+}
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if home.exists():
+        return str(home)
+    raise RuntimeError(
+        "cannot build the repro_torch CUDA kernels: nvcc not found on PATH "
+        "or under CUDA_HOME"
+    )
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES + HEADERS:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def library_path() -> Path:
+    return BUILD_DIR / f"librepro_torch_{_digest()}.so"
+
+
+def build() -> tuple[Path, float, str]:
+    """Compile the sources if needed -> (library path, seconds, ptxas log).
+
+    The log holds ``-Xptxas -v``'s registers, shared memory and spills per
+    kernel; it is also written beside the library as ``<lib>.log``.
+    """
+    lib = library_path()
+    log_path = lib.with_suffix(".log")
+    if lib.exists():
+        return lib, 0.0, log_path.read_text() if log_path.exists() else ""
+    nvcc = nvcc_path()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        procs = []
+        for name in SOURCES:
+            obj = Path(tmp) / (Path(name).stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", str(CSRC / name), "-o", str(obj)]
+            procs.append((name, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+            )))
+        logs = []
+        for name, _, proc in procs:
+            out, _ = proc.communicate()
+            logs.append(f"== {name}\n{out}")
+            if proc.returncode != 0:
+                for _, _, other in procs:
+                    other.kill()
+                    other.wait()
+                raise RuntimeError(f"nvcc failed on {name}:\n{out}")
+        tmp_lib = Path(tmp) / lib.name
+        link = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp_lib),
+                *(str(obj) for _, obj, _ in procs)]
+        res = subprocess.run(link, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{res.stdout}{res.stderr}")
+        log = "\n".join(logs)
+        log_path.write_text(log)
+        os.replace(tmp_lib, lib)
+    return lib, time.perf_counter() - t0, log
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call; raises if it cannot be."""
+    lib = ctypes.CDLL(str(build()[0]))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.repro_error_string.argtypes = [ctypes.c_int]
+    lib.repro_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(lib: ctypes.CDLL, name: str, err: int) -> None:
+    """Raise if a launch returned a CUDA error."""
+    if err:
+        msg = lib.repro_error_string(err).decode()
+        raise RuntimeError(f"{name} launch failed: CUDA error {err} ({msg})")

@@ -1,0 +1,190 @@
+"""The port's plain kernels (``repro_torch.kernels.ref``) and dispatcher
+against the JAX package's oracles, on the CPU.
+
+Inputs are made by numpy from a seed and handed to both packages.  The
+grids are those of ``tests/test_kernels.py``.  Tolerance: 1e-5 in f32,
+0.1 in bf16 (rtol = atol).  In bf16 ``tt_contract`` is held against the
+JAX oracle run in f32 on the same bf16 inputs: the port contracts in f32
+like the Pallas kernel, while the JAX oracle contracts in bf16.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+
+DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+TOL = {"float32": 1e-5, "bfloat16": 0.1}
+# one compiled program per shape instead of one eager dispatch per op
+_J_DECODE = jax.jit(jref.nttd_decode_tile)
+_J_LSTM = jax.jit(jref.lstm_scan)
+_J_TT = jax.jit(jref.tt_contract)
+
+
+def _pair(arr: np.ndarray, dt: str):
+    jdt, tdt = DTYPES[dt]
+    return jnp.asarray(arr, jdt), torch.from_numpy(np.asarray(arr, np.float32)).to(tdt)
+
+
+def _close(got: torch.Tensor, want, dt: str) -> None:
+    np.testing.assert_allclose(
+        got.float().numpy(), np.asarray(want, np.float32), rtol=TOL[dt], atol=TOL[dt]
+    )
+
+
+def _decode_args(b, t, m, hid, rank, seed=1):
+    rng = np.random.default_rng(seed)
+
+    def mk(*shape, scale=0.3):
+        return rng.normal(size=shape) * scale
+
+    idx = rng.integers(0, m, size=(b, t)).astype(np.int32)
+    return idx, [
+        mk(t, m, hid),
+        mk(hid, 4 * hid), mk(hid, 4 * hid), mk(4 * hid, scale=0.1),
+        mk(hid, rank), mk(rank, scale=0.1),
+        mk(hid, rank * rank, scale=0.5 / np.sqrt(rank)), mk(rank * rank, scale=0.1),
+        mk(hid, rank), mk(rank, scale=0.1),
+    ]
+
+
+def _decode_pair(idx, ws, dt):
+    pairs = [_pair(w, dt) for w in ws]
+    return (
+        (jnp.asarray(idx), [p[0] for p in pairs]),
+        (torch.from_numpy(idx), [p[1] for p in pairs]),
+    )
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("t", [2, 3, 8])
+@pytest.mark.parametrize("rank", [4, 8, 32])
+def test_decode_tile_matches_jax_oracle(rank, t, dt):
+    idx, ws = _decode_args(33, t, 10, 16, rank)
+    (jidx, jws), (tidx, tws) = _decode_pair(idx, ws, dt)
+    want = _J_DECODE(jidx, *jws)
+    got = tref.nttd_decode_tile(tidx, *tws)
+    assert got.dtype == DTYPES[dt][1] and got.shape == (33,)
+    _close(got, want, dt)
+    # on the CPU every kernel impl runs the plain version
+    for impl in ("cuda", "fused", "auto"):
+        assert torch.equal(tops.nttd_decode_tile(tidx, *tws, impl=impl), got)
+
+
+@pytest.mark.parametrize("rank,t,dt", [(4, 2, "float32"), (8, 3, "bfloat16"), (32, 8, "float32")])
+def test_decode_tile_matches_pallas_interpret(rank, t, dt):
+    idx, ws = _decode_args(33, t, 7, 16, rank, seed=2)
+    (jidx, jws), (tidx, tws) = _decode_pair(idx, ws, dt)
+    want = jops.nttd_decode_tile(jidx, *jws, impl="pallas_interpret", tile_b=16)
+    _close(tops.nttd_decode_tile(tidx, *tws, impl="auto"), want, dt)
+
+
+def test_decode_tile_out_of_range_index_gathers_zero_row():
+    """An index outside [0, M) contributes a zero embedding, as the Pallas
+    kernel's one-hot gather does."""
+    idx, ws = _decode_args(33, 3, 7, 16, 8, seed=3)
+    idx[0, 1] = 7
+    idx[1, 2] = -1
+    (jidx, jws), (tidx, tws) = _decode_pair(idx, ws, "float32")
+    want = jops.nttd_decode_tile(jidx, *jws, impl="pallas_interpret", tile_b=16)
+    got = tops.nttd_decode_tile(tidx, *tws, impl="ref")
+    _close(got, want, "float32")
+    # the same as gathering an explicit zero row
+    emb = torch.cat([tws[0], torch.zeros(3, 1, 16, dtype=tws[0].dtype)], dim=1)
+    fixed = tidx.clone()
+    fixed[0, 1] = 7
+    fixed[1, 2] = 7
+    assert torch.allclose(tref.nttd_decode_tile(fixed, emb, *tws[1:]), got, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("impl", ["ref", "cuda", "fused", "auto"])
+def test_decode_tile_empty_batch(impl):
+    idx, ws = _decode_args(0, 3, 7, 16, 8)
+    for dt in ("float32", "bfloat16"):
+        _, (tidx, tws) = _decode_pair(idx, ws, dt)
+        out = tops.nttd_decode_tile(tidx, *tws, impl=impl)
+        assert out.shape == (0,) and out.dtype == DTYPES[dt][1]
+
+
+def test_decode_tile_rejects_short_chain():
+    idx, ws = _decode_args(8, 2, 7, 16, 8)
+    _, (tidx, tws) = _decode_pair(idx, ws, "float32")
+    tws[0] = tws[0][:1]
+    for impl in ("ref", "cuda"):
+        with pytest.raises(ValueError, match="T >= 2"):
+            tops.nttd_decode_tile(tidx[:, :1], *tws, impl=impl)
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize(
+    "b,k,r", [(32, 0, 4), (64, 5, 8), (100, 10, 16), (7, 3, 8), (256, 8, 32), (33, 1, 4)]
+)
+def test_tt_contract_matches_jax(b, k, r, dt):
+    rng = np.random.default_rng(10 * k + r)
+    jf, tf = _pair(rng.normal(size=(b, r)), dt)
+    jm, tm = _pair(rng.normal(size=(b, k, r, r)) * (0.5 / np.sqrt(r)), dt)
+    jl, tl = _pair(rng.normal(size=(b, r)), dt)
+    f32 = jnp.float32
+    want = _J_TT(jf.astype(f32), jm.astype(f32), jl.astype(f32)).astype(jf.dtype)
+    got = tref.tt_contract(tf, tm, tl)
+    assert got.dtype == DTYPES[dt][1]
+    _close(got, want, dt)
+    # K == 0 is a row dot in the dispatcher; every impl agrees on the CPU
+    for impl in ("cuda", "auto"):
+        _close(tops.tt_contract(tf, tm, tl, impl=impl), want, dt)
+
+
+def test_tt_contract_empty_batch():
+    for impl in ("ref", "cuda"):
+        out = tops.tt_contract(
+            torch.zeros(0, 4), torch.zeros(0, 3, 4, 4), torch.zeros(0, 4), impl=impl
+        )
+        assert out.shape == (0,)
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,t,h", [(16, 6, 8), (50, 9, 16), (33, 12, 32), (8, 3, 64), (0, 3, 16)])
+def test_lstm_scan_matches_jax(b, t, h, dt):
+    rng = np.random.default_rng(b + t + h)
+    jx, tx = _pair(rng.normal(size=(b, t, h)), dt)
+    jwi, twi = _pair(rng.normal(size=(h, 4 * h)) * 0.3, dt)
+    jwh, twh = _pair(rng.normal(size=(h, 4 * h)) * 0.3, dt)
+    jb, tb = _pair(rng.normal(size=(4 * h,)) * 0.1, dt)
+    want = _J_LSTM(jx, jwi, jwh, jb)
+    got = tref.lstm_scan(tx, twi, twh, tb)
+    assert got.dtype == DTYPES[dt][1] and got.shape == (b, t, h)
+    _close(got, want, dt)
+    assert torch.equal(tops.lstm_scan(tx, twi, twh, tb, impl="cuda"), got)
+
+
+def test_lstm_scan_matches_pallas_interpret():
+    rng = np.random.default_rng(7)
+    arrs = [rng.normal(size=(33, 9, 16)), rng.normal(size=(16, 64)) * 0.3,
+            rng.normal(size=(16, 64)) * 0.3, rng.normal(size=(64,)) * 0.1]
+    j, t = zip(*(_pair(a, "float32") for a in arrs))
+    want = jops.lstm_scan(*j, impl="pallas_interpret", tile_b=16)
+    _close(tops.lstm_scan(*t, impl="auto"), want, "float32")
+
+
+def test_unknown_impl_raises():
+    idx, ws = _decode_args(4, 3, 7, 16, 8)
+    _, (tidx, tws) = _decode_pair(idx, ws, "float32")
+    for impl in ("pallas", "pallas_interpret", "triton"):
+        with pytest.raises(ValueError, match="unknown kernel impl"):
+            tops.nttd_decode_tile(tidx, *tws, impl=impl)
+        with pytest.raises(ValueError, match="unknown kernel impl"):
+            tops.lstm_scan(torch.zeros(1, 2, 4), torch.zeros(4, 16), torch.zeros(4, 16),
+                           torch.zeros(16), impl=impl)
+
+
+def test_cpu_runs_count_no_launches():
+    tops.reset_launch_counts()
+    idx, ws = _decode_args(8, 3, 7, 16, 8)
+    _, (tidx, tws) = _decode_pair(idx, ws, "float32")
+    tops.nttd_decode_tile(tidx, *tws, impl="auto")
+    assert tops.launch_counts() == {"decode_tile": 0, "lstm_scan": 0, "tt_contract": 0}
