@@ -10,7 +10,10 @@ Phases, each printing JSON lines:
 2. kernels: each CUDA kernel against its plain PyTorch version on the card,
    over the reference's test grid (R in {4, 8, 32}, T in {2, 3, 8}, f32
    and bf16, B = 33 and B = 0), at the main path's shapes, and at H = 64,
-   R = 32.  Tolerance: 1e-5 in f32, 0.1 in bf16 (rtol = atol); in bf16
+   R = 32; ``flash_attention`` over the reference's attention grid,
+   ``q_offset`` 128, odd and ragged lengths (the pad path), starcoder2's
+   48/4 grouping, fully masked rows (``q_offset`` < 0), head dims 8, 64
+   and 128, and the serve path's shapes.  Tolerance: 1e-5 in f32, 0.1 in bf16 (rtol = atol); in bf16
    also at most 2 bf16 ulps of the case's largest plain value, a limit
    that scales with the data.
 3. golden: ``tests/golden/v2_nttd.bin`` decoded on the card against
@@ -25,11 +28,23 @@ Phases, each printing JSON lines:
    and reconstructs all 61,015,680 entries with ``to_dense``.  Everything
    is compared with the plain version on the card, and every kernel must
    have been launched by this phase.
-5. timing: each kernel, its plain version and, where one exists, one
+5. serve: the LM serving path, ``repro_torch.launch.serve.main`` on
+   qwen1.5-4b at full width (40 layers, d_model 2560, 20 heads of 128,
+   vocab 151,936) in bf16 with random weights from seed 0: 8 requests of
+   seeded prompt lengths (128, 2048 and six others, at least one not a
+   multiple of 128) over 4 slots, 16 new tokens each, max_len 4096.  Every
+   prefill attention must go through the flash kernel (40 launches per
+   prompt).  The same requests are served again through the oracle
+   (``--attn-impl ref``): the prefill logits must agree within
+   ``LOGIT_REL_TOL`` of max|logit|, and the greedy tokens wherever the
+   oracle run's top-2 margin exceeds twice the largest logit difference.
+6. timing: each kernel, its plain version and, where one exists, one
    PyTorch call computing the same function (cuDNN ``nn.LSTM`` for
    ``lstm_scan``, one ``torch.einsum`` over the whole chain for
-   ``tt_contract``) at the main path's shapes, with CUDA events; the bound
-   is computed from the shapes against the H100 SXM's published peaks.
+   ``tt_contract``, ``scaled_dot_product_attention`` for
+   ``flash_attention``) at the main paths' shapes, with CUDA events; the
+   bound is computed from the shapes against the H100 SXM's published
+   peaks.
 
 The line before the last is the card's ``name, power.limit`` as
 ``nvidia-smi`` reports them; the last line is the result object.  Any
@@ -56,6 +71,7 @@ REQUEST = 65_536              # entries per decode_at request
 TOL = {"float32": 1e-5, "bfloat16": 0.1}
 BF16_ULPS = 2                 # bf16 also within 2 ulps of the case's largest |value|
 PEAK_FP32 = 67e12             # H100 SXM, FP32 outside the tensor cores
+PEAK_BF16 = 989e12            # H100 SXM, dense bf16 on the tensor cores
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3
 SOURCES = {
     "decode_tile": ("src/repro_torch/kernels/csrc/decode_tile.cu",
@@ -64,7 +80,18 @@ SOURCES = {
                   "src/repro/kernels/lstm.py:67"),
     "tt_contract": ("src/repro_torch/kernels/csrc/tt_contract.cu",
                     "src/repro/kernels/tt_contract.py:60"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/attention.py:114"),
 }
+NTTD_KERNELS = ("decode_tile", "lstm_scan", "tt_contract")
+SERVE_ARCH = "qwen1.5-4b"
+SERVE_REQUESTS, SERVE_SLOTS, SERVE_NEW, SERVE_MAX_LEN = 8, 4, 16, 4096
+# The kernel and the oracle routes differ only in how attention rounds to
+# bf16 (1 ulp of an output, here and there); carried through 40 bf16
+# layers that stays well under 5 % of the largest logit, about 13 bf16
+# ulps at the top of the logits.
+LOGIT_REL_TOL = 5e-2
+FLASH_SHAPE = (1, 2048, 20, 128)  # B, S, H, D of one full-width prefill
 
 
 class SmokeFailure(RuntimeError):
@@ -159,6 +186,36 @@ def decode_inputs(torch, gen, b, t, m, hid, rank, dtype, device):
     )
 
 
+def flash_inputs(torch, gen, b, sq, skv, hq, hkv, d, dtype, device):
+    """q, k, v padded to the 128 tile as ``ops.attention`` pads them, and
+    the ``kv_valid`` it passes."""
+    def mk(s, h):
+        x = torch.randn((b, s, h, d), generator=gen)
+        x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, (-s) % 128))
+        return x.to(device=device, dtype=dtype)
+
+    return mk(sq, hq), mk(skv, hkv), mk(skv, hkv), (skv if skv % 128 else None)
+
+
+# (b, sq, skv, hq, hkv, d, q_offset, causal)
+FLASH_CASES = (
+    (1, 128, 128, 4, 4, 64, 0, True),     # the reference's grid
+    (2, 256, 256, 8, 2, 64, 0, True),
+    (2, 128, 128, 4, 1, 128, 0, True),
+    (2, 128, 256, 4, 4, 64, 128, True),   # q_offset = 128
+    (1, 130, 130, 2, 2, 64, 0, True),     # odd Sq and Skv: the pad path
+    (1, 130, 130, 2, 2, 64, 0, False),
+    (1, 128, 130, 2, 2, 64, 0, True),     # ragged kv only
+    (1, 200, 200, 48, 4, 128, 0, True),   # starcoder2's 48 / 4 grouping
+    (1, 128, 128, 2, 2, 64, -64, True),   # rows 0..63 fully masked
+    (1, 130, 130, 2, 1, 8, -100, True),   # fully masked rows, padded grid
+    (1, 256, 256, 6, 6, 8, 0, True),      # the smoke configs' head dim
+    (1, 128, 128, 20, 20, 128, 0, True),  # the serve path's shapes
+    (1, 300, 300, 20, 20, 128, 0, True),
+    (1, 2048, 2048, 20, 20, 128, 0, True),
+)
+
+
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
@@ -180,6 +237,7 @@ def phase_device(torch):
 
 def phase_kernels(torch, device):
     """Every kernel against its plain version on the card."""
+    from repro_torch.kernels import attention as _attention
     from repro_torch.kernels import ops, ref
 
     gen = torch.Generator().manual_seed(SEED)
@@ -246,6 +304,11 @@ def phase_kernels(torch, device):
         idx[1, 2] = -1
         record("decode_tile", dn, ops.nttd_decode_tile(idx, *ws, impl="cuda"),
                ops.nttd_decode_tile(idx, *ws, impl="ref"))
+        for b, sq, skv, hq, hkv, d, q_offset, causal in FLASH_CASES:
+            q, k, v, kv_valid = flash_inputs(torch, gen, b, sq, skv, hq, hkv, d, dtype, device)
+            kw = dict(causal=causal, q_offset=q_offset, kv_valid=kv_valid)
+            record("flash_attention", dn, _attention.flash_attention(q, k, v, **kw),
+                   ref.flash_attention(q, k, v, **kw))
     torch.cuda.synchronize()
     emit({"phase": "kernels", "cases": cases, "tolerance": TOL, "bf16_ulps": BF16_ULPS,
           "max_abs_err": errs})
@@ -320,8 +383,8 @@ def phase_main(torch, device):
     dense = enc.to_dense()
     dense_s = time.perf_counter() - t
     launches = ops.launch_counts()
-    for name, n in launches.items():
-        require(n >= 1, f"{name} was not launched on the main path")
+    for name in NTTD_KERNELS:
+        require(launches[name] >= 1, f"{name} was not launched on the main path")
 
     plain = _with_impl(enc, "ref", NTTDEncoded)
     req_err = 0.0
@@ -350,6 +413,123 @@ def phase_main(torch, device):
           "max_abs_err_requests": req_err, "max_abs_err_to_dense": dense_err,
           "launches": launches})
     return enc, requests[0], launches
+
+
+def phase_serve(torch, device):
+    """The LM serving path at qwen1.5-4b's full width, through the flash
+    kernel, held against the same requests served through the oracle."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.dist.sharding import leaves
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import model
+
+    rng = np.random.default_rng(SEED)
+    lens = [128, 2048] + [int(n) for n in rng.integers(1, 2048, size=SERVE_REQUESTS - 2)]
+    rng.shuffle(lens)
+    require(any(n % 128 for n in lens), "no prompt length off the 128 tile")
+    argv = ["--arch", SERVE_ARCH, "--requests", str(SERVE_REQUESTS),
+            "--slots", str(SERVE_SLOTS), "--prompt-len", ",".join(map(str, lens)),
+            "--max-new", str(SERVE_NEW), "--max-len", str(SERVE_MAX_LEN), "--keep-logits"]
+    cfg = configs.get(SERVE_ARCH)
+    weights = model.abstract_params(
+        dataclasses.replace(cfg, param_dtype=cfg.compute_dtype))
+    weight_bytes = sum(t.numel() * t.element_size() for t in leaves(weights))
+
+    runs = {}
+    for route in ("kernel", "plain"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        results = serve.main(argv + (["--attn-impl", "ref"] if route == "plain" else []))
+        torch.cuda.synchronize()
+        runs[route] = (sorted(results, key=lambda r: r.uid), time.perf_counter() - t0,
+                       ops.launch_counts(), torch.cuda.max_memory_allocated())
+    (got, wall, launches, peak), (want, plain_wall, plain_launches, _) = (
+        runs["kernel"], runs["plain"])
+    require(launches["flash_attention"] == cfg.n_layers * SERVE_REQUESTS,
+            f"flash_attention launched {launches['flash_attention']} times, expected "
+            f"{cfg.n_layers} per prefill x {SERVE_REQUESTS}")
+    require(plain_launches["flash_attention"] == 0, "the oracle route launched the kernel")
+
+    diff = rel = 0.0
+    for a, b in zip(got, want):
+        require(len(a.tokens) == SERVE_NEW and a.prefill_logits.shape == (cfg.vocab,)
+                and bool(torch.isfinite(a.prefill_logits).all()), f"request {a.uid} output")
+        d = float((a.prefill_logits - b.prefill_logits).abs().max())
+        diff = max(diff, d)
+        rel = max(rel, d / float(b.prefill_logits.abs().max()))
+    require(rel <= LOGIT_REL_TOL,
+            f"prefill logits differ by {rel} of max|logit| (limit {LOGIT_REL_TOL})")
+    # greedy tokens: equal wherever the oracle run's margin exceeds twice the
+    # largest logit difference; after the first allowed divergence the two
+    # runs continue from different prefixes and are not compared further
+    agree = compared = 0
+    for a, b in zip(got, want):
+        for ta, tb, margin in zip(a.tokens, b.tokens, b.margins):
+            if ta != tb:
+                require(margin <= 2 * diff,
+                        f"request {a.uid}: tokens {ta} != {tb} at margin {margin}")
+                break
+            agree += 1
+        compared += len(a.tokens)
+    decode = [ms for r in got for ms in r.decode_ms]
+    plain_decode = [ms for r in want for ms in r.decode_ms]
+    n_new = sum(len(r.tokens) for r in got)
+    emit({"phase": "serve", "arch": SERVE_ARCH, "dtype": cfg.compute_dtype,
+          "requests": SERVE_REQUESTS, "slots": SERVE_SLOTS, "new_tokens": SERVE_NEW,
+          "max_len": SERVE_MAX_LEN, "prompt_lens": lens, "weight_bytes": weight_bytes,
+          "peak_bytes": peak, "seconds": wall, "plain_seconds": plain_wall,
+          "prefill_len_ms": [[lens[r.uid], r.prefill_ms] for r in got],
+          "plain_prefill_len_ms": [[lens[r.uid], r.prefill_ms] for r in want],
+          "decode_ms_per_token": sum(decode) / len(decode),
+          "plain_decode_ms_per_token": sum(plain_decode) / len(plain_decode),
+          "tokens_per_s": n_new / wall, "launches": launches,
+          "prefill_logits_max_abs_diff": diff, "prefill_logits_rel_diff": rel,
+          "logit_rel_tol": LOGIT_REL_TOL, "greedy_tokens_agree": agree,
+          "greedy_tokens": compared,
+          "tokens_uid0": got[0].tokens, "plain_tokens_uid0": want[0].tokens})
+    return launches
+
+
+def flash_timing_row(torch, device, launches, errs):
+    """flash_attention at one full-width prefill: kernel, plain and SDPA."""
+    from repro_torch.kernels import attention as _attention
+    from repro_torch.kernels import ref
+
+    b, s, h, d = FLASH_SHAPE
+    gen = torch.Generator().manual_seed(SEED)
+    q, k, v = (torch.randn((b, s, h, d), generator=gen).to(device, torch.bfloat16)
+               for _ in range(3))
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))  # [B, H, S, D]
+
+    def library():
+        return torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+
+    plain = ref.flash_attention(q, k, v, causal=True)
+    lib_err = float((library().transpose(1, 2).float() - plain.float()).abs().max())
+    visible = s * (s + 1) // 2  # causal: query i sees keys 0..i
+    n_ops = 4 * b * h * d * visible
+    n_bytes = 4 * b * s * h * d * 2  # q, k, v read once, out written once, bf16
+    t_ops, t_bytes = n_ops / PEAK_BF16 * 1e3, n_bytes / PEAK_BYTES * 1e3
+    return {
+        "name": "flash_attention", "route": "cuda", "source": SOURCES["flash_attention"][0],
+        "replaces": SOURCES["flash_attention"][1], "launches": launches["flash_attention"],
+        "max_abs_err": errs["flash_attention"]["float32"],
+        "max_abs_err_bf16": errs["flash_attention"]["bfloat16"],
+        "ms": time_ms(torch, lambda: _attention.flash_attention(q, k, v, causal=True), 20),
+        "plain_ms": time_ms(torch, lambda: ref.flash_attention(q, k, v, causal=True), 5),
+        "bound_ms": max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": time_ms(torch, library, 20),
+        "library": "torch.nn.functional.scaled_dot_product_attention(is_causal=True) "
+                   "on [B, H, S, D] bf16", "library_max_abs_err": lib_err,
+        "shape": {"B": b, "S": s, "H": h, "D": d, "dtype": "bfloat16", "causal": True},
+        "ops": n_ops, "bytes": n_bytes,
+    }
 
 
 def phase_timing(torch, device, enc, idx_np, launches, errs):
@@ -434,7 +614,7 @@ def phase_timing(torch, device, enc, idx_np, launches, errs):
             "shape": {"B": b, "T": t, "M": m, "H": h, "R": r},
             "ops": n_ops, "bytes": n_bytes,
         })
-    emit({"kernels": kernels})
+    return kernels
 
 
 def main() -> int:
@@ -463,8 +643,11 @@ def main() -> int:
         errs = phase_kernels(torch, device)
         phase_golden(torch, device)
         enc, idx, launches = phase_main(torch, device)
-        phase_timing(torch, device, enc, idx, launches, errs)
+        serve_launches = phase_serve(torch, device)
+        kernels = phase_timing(torch, device, enc, idx, launches, errs)
+        kernels.append(flash_timing_row(torch, device, serve_launches, errs))
         torch.cuda.synchronize()
+        emit({"kernels": kernels})
     except Exception:  # any failed phase fails the run, with its traceback
         traceback.print_exc()
         return 1

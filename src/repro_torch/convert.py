@@ -2,6 +2,12 @@
 
     np_tree = jax.tree.map(np.asarray, params)      # on the JAX side
     params = params_from_numpy(np_tree, "cuda")     # the port's params
+    lm = params_from_numpy(np_tree, "cuda", dtype=torch.bfloat16)  # serve dtype
+
+The same call carries an NTTD params tree and an LM params tree
+(``repro.models.model.init_params``): both are nested dicts whose keys the
+port mirrors.  numpy has no bf16 of its own; a JAX bf16 leaf arrives as an
+``ml_dtypes`` bfloat16 array and is carried over exactly.
 
 ``compressed_from_numpy`` rebuilds a port ``CompressedTensor`` from the
 numpy parts of a reference one.
@@ -19,13 +25,26 @@ from repro_torch.core.folding import spec_from_factors
 from repro_torch.devices import resolve_device
 
 
-def params_from_numpy(tree: dict[str, Any], device=None) -> nttd.Params:
+def _leaf(arr, device: torch.device, dtype: torch.dtype | None) -> torch.Tensor:
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":  # ml_dtypes: widen exactly, narrow on the torch side
+        t = torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(arr, copy=True))
+    if dtype is not None and t.is_floating_point():
+        t = t.to(dtype)
+    return t.to(device)
+
+
+def params_from_numpy(tree: dict[str, Any], device=None,
+                      dtype: torch.dtype | None = None) -> nttd.Params:
     """Nested dict of numpy arrays -> the same dict of tensors on ``device``
-    (CUDA unless given)."""
+    (CUDA unless given).  ``dtype`` casts every floating leaf (the serving
+    dtype of an LM whose masters are f32); integer leaves keep theirs."""
     device = resolve_device(device)
     if isinstance(tree, dict):
-        return {k: params_from_numpy(v, device) for k, v in tree.items()}
-    return torch.from_numpy(np.array(tree, copy=True)).to(device)
+        return {k: params_from_numpy(v, device, dtype) for k, v in tree.items()}
+    return _leaf(tree, device, dtype)
 
 
 def params_to_numpy(params: nttd.Params) -> dict[str, Any]:

@@ -1,3 +1,3 @@
-"""Decode kernels: hand-written CUDA C++ for Hopper (``csrc/``), their
-ctypes wrappers, the plain PyTorch oracles (``ref``) and the dispatcher
-(``ops``)."""
+"""Kernels: hand-written CUDA C++ for Hopper (``csrc/``), their ctypes
+wrappers, the plain PyTorch versions and oracles (``ref``) and the
+dispatcher (``ops``)."""

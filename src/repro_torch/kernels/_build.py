@@ -22,7 +22,7 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("decode_tile.cu", "lstm.cu", "tt_contract.cu")
+SOURCES = ("decode_tile.cu", "lstm.cu", "tt_contract.cu", "flash_attention.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -40,6 +40,8 @@ _SIGNATURES = {
     "repro_lstm_scan": [_P] * 5 + [_L, _I, _I, _I, _P],
     # first, mid, last, out, B, K, R, dtype, stream
     "repro_tt_contract": [_P] * 4 + [_L, _I, _I, _I, _P],
+    # q, k, v, out, B, Sq, Skv, Hq, Hkv, D, q_offset, kv_valid, causal, scale, dtype, stream
+    "repro_flash_attention": [_P] * 4 + [_I] * 9 + [ctypes.c_float, _I, _P],
 }
 
 

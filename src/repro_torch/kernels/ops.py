@@ -1,16 +1,18 @@
 """Backend-dispatching wrappers around the CUDA kernels.
 
 ``impl`` selects the execution path, as in ``repro.kernels.ops``:
-  * "ref"   — the plain PyTorch oracle (``ref.py``), on whatever device
-              the tensors are on.  ``chip_smoke.py`` holds the kernels
-              against it on the card this way.
-  * "cuda"  — the kernel (the reference's unfused "pallas" path).
-  * "fused" — the kernel; for ``nttd_decode_tile`` the one-launch decode.
-  * "auto"  — the kernel.
-Every name but "ref" goes to the kernel's wrapper, which launches the
-kernel on a CUDA tensor or raises, and runs the plain version on a CPU
-tensor.  So "auto" and "fused" resolve by the tensors' device.  No path
-falls back from the kernel to the plain version.
+  * "ref"     — the plain PyTorch oracle (``ref.py``), on whatever device
+                the tensors are on.  ``chip_smoke.py`` holds the kernels
+                against it on the card this way.
+  * "chunked" — ``attention`` only: the q-chunked oracle.
+  * "cuda"    — the kernel (the reference's unfused "pallas" path).
+  * "fused"   — the kernel; for ``nttd_decode_tile`` the one-launch decode.
+  * "auto"    — the kernel.
+Every name but "ref" and "chunked" goes to the kernel's wrapper, which
+launches the kernel on a CUDA tensor or raises, and runs the plain version
+on a CPU tensor.  So "auto" and "fused" resolve by the tensors' device.
+No path falls back from the kernel to the plain version: ``attention``
+pads any length to the kernel's tile instead.
 
 ``launch_counts`` / ``reset_launch_counts`` read and clear the wrappers'
 launch counters.
@@ -19,18 +21,20 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import attention as _attention
 from repro_torch.kernels import decode_tile as _dt
 from repro_torch.kernels import lstm as _lstm
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import tt_contract as _tt
 
 IMPLS = ("ref", "cuda", "fused", "auto")
-_KERNELS = {"decode_tile": _dt, "lstm_scan": _lstm, "tt_contract": _tt}
+_KERNELS = {"decode_tile": _dt, "lstm_scan": _lstm, "tt_contract": _tt,
+            "flash_attention": _attention}
 
 
-def _check_impl(impl: str) -> None:
-    if impl not in IMPLS:
-        raise ValueError(f"unknown kernel impl {impl!r}; expected one of {IMPLS}")
+def _check_impl(impl: str, impls: tuple[str, ...] = IMPLS) -> None:
+    if impl not in impls:
+        raise ValueError(f"unknown kernel impl {impl!r}; expected one of {impls}")
 
 
 def launch_counts() -> dict[str, int]:
@@ -96,3 +100,44 @@ def nttd_decode_tile(
     if impl == "ref":
         return _ref.nttd_decode_tile(idx, emb, wi, wh, b, *heads)
     return _dt.decode_tile(idx, emb, wi, wh, b, *heads)
+
+
+CHUNKED_THRESHOLD = 2048  # the oracle switches to q-chunked attention here
+
+
+def _pad_seq(x: torch.Tensor, mult: int) -> torch.Tensor:
+    pad = (-x.shape[1]) % mult
+    return torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad)) if pad else x.contiguous()
+
+
+def attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    q_offset: int = 0,
+    kv_len: torch.Tensor | None = None,
+    impl: str = "auto",
+) -> torch.Tensor:
+    """Causal GQA attention, q: [B, Sq, Hq, D]; k, v: [B, Skv, Hkv, D].
+
+    "ref"/"chunked" and any call with ``kv_len`` (decode) run the oracle,
+    which turns q-chunked from Sq >= ``CHUNKED_THRESHOLD``.  Every other
+    impl pads q and kv to the kernel's 128 tile, masks the padded kv
+    columns with ``kv_valid``, runs the flash kernel's wrapper and slices
+    the padded rows off.
+    """
+    _check_impl(impl, IMPLS + ("chunked",))
+    if impl in ("ref", "chunked") or kv_len is not None:
+        if kv_len is None and (impl == "chunked" or q.shape[1] >= CHUNKED_THRESHOLD):
+            return _ref.mha_attention_chunked(q, k, v, causal=causal, q_offset=q_offset)
+        return _ref.mha_attention(q, k, v, causal=causal, q_offset=q_offset, kv_len=kv_len)
+    sq, skv = q.shape[1], k.shape[1]
+    kv_valid = skv if skv % _attention.TILE_KV else None
+    out = _attention.flash_attention(
+        _pad_seq(q, _attention.TILE_Q), _pad_seq(k, _attention.TILE_KV),
+        _pad_seq(v, _attention.TILE_KV), causal=causal, q_offset=q_offset,
+        kv_valid=kv_valid,
+    )
+    return out[:, :sq] if out.shape[1] != sq else out

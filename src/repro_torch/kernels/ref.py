@@ -1,10 +1,13 @@
-"""Plain PyTorch oracles for every CUDA kernel in this package.
+"""Plain PyTorch versions of every CUDA kernel in this package, and the
+LM's attention oracles.
 
-Each wrapper (``decode_tile``, ``lstm``, ``tt_contract``) runs the function
-of the same name here for a tensor on the CPU, and ``chip_smoke.py``
+Each wrapper (``decode_tile``, ``lstm``, ``tt_contract``, ``attention``)
+runs its plain version here for a tensor on the CPU, and ``chip_smoke.py``
 holds each kernel against it on the card.  They are ports of
 ``repro.kernels.ref``: every function computes in f32 whatever the input
-dtype and casts the result back, as the kernels do.
+dtype and casts the result back, as the kernels do.  ``flash_attention``
+is the flash kernel's plain version; ``mha_attention`` and
+``mha_attention_chunked`` are the oracles the LM's ``ref`` route runs.
 """
 from __future__ import annotations
 
@@ -103,3 +106,115 @@ def nttd_decode_tile(
             mid = (h @ w_mid.to(F32) + b_mid.to(F32)).reshape(bsz, rank, rank)
             v = (v[:, :, None] * mid).sum(1)
     return out.to(emb.dtype)
+
+
+# ----------------------------------------------------------------------------
+# Causal GQA attention (LM serving path)
+# ----------------------------------------------------------------------------
+NEG_INF = -1e30  # the flash kernel's masked-score sentinel (repro.kernels.attention)
+
+
+def mha_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    q_offset: int = 0,
+    kv_len: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Grouped-query attention oracle.
+
+    q: [B, Sq, Hq, D]; k, v: [B, Skv, Hkv, D] with Hq % Hkv == 0.
+    ``q_offset``: absolute position of q[0] (decode: cache length so far).
+    ``kv_len``: optional [B] valid kv lengths (entries beyond are masked).
+    Softmax in f32; masked logits are f32's lowest value, so a fully
+    masked row is a uniform softmax.  Output in ``q.dtype``.
+    """
+    bq, sq, hq, dim = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    group = hq // hkv
+    qf = q.to(F32) / torch.sqrt(torch.tensor(dim, dtype=F32))
+    qg = qf.reshape(bq, sq, hkv, group, dim)
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.to(F32))
+    mask = None
+    if causal:
+        qpos = torch.arange(sq, device=q.device) + q_offset
+        kpos = torch.arange(skv, device=q.device)
+        mask = (qpos[:, None] >= kpos[None, :])[None, None, None]
+    if kv_len is not None:
+        valid = torch.arange(skv, device=q.device)[None, :] < kv_len.to(q.device)[:, None]
+        valid = valid[:, None, None, None, :]
+        mask = valid if mask is None else mask & valid
+    if mask is not None:
+        logits = torch.where(mask, logits, torch.finfo(F32).min)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v.to(F32))
+    return out.reshape(bq, sq, hq, dim).to(q.dtype)
+
+
+def mha_attention_chunked(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    q_offset: int = 0,
+    chunk: int = 512,
+) -> torch.Tensor:
+    """Memory-bounded exact attention: ``mha_attention`` over q chunks.
+
+    The [B, H, chunk, Skv] score block is the peak transient instead of
+    [B, H, Sq, Skv].  A ragged tail (Sq % chunk) is attended as its own
+    chunk, as in the reference.
+    """
+    sq = q.shape[1]
+    if sq <= chunk:
+        return mha_attention(q, k, v, causal=causal, q_offset=q_offset)
+    outs = [
+        mha_attention(q[:, s : s + chunk], k, v, causal=causal, q_offset=q_offset + s)
+        for s in range(0, sq, chunk)
+    ]
+    return torch.cat(outs, dim=1)
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    q_offset: int = 0,
+    kv_valid: int | None = None,
+) -> torch.Tensor:
+    """Plain version of the flash kernel (``attention.flash_attention``).
+
+    q: [B, Sq, Hq, D]; k, v: [B, Skv, Hkv, D], already padded to the tile.
+    Computes the kernel's function, not the oracle's: q is scaled by
+    1/sqrt(D) in f32 before the product, masked scores (columns >=
+    ``kv_valid``; when ``causal``, qpos + q_offset < kpos) are the -1e30
+    sentinel, and the softmax is taken over the whole padded kv grid.  A
+    row whose every column is masked therefore gets p = 1 everywhere and
+    becomes the mean of v over all Skv columns (the ``l == 0`` guard of the
+    kernel never fires).  Output in ``q.dtype``.
+    """
+    bq, sq, hq, dim = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    group = hq // hkv
+    qg = (q.to(F32) * (1.0 / dim**0.5)).reshape(bq, sq, hkv, group, dim)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.to(F32))
+    kpos = torch.arange(skv, device=q.device)
+    keep = None
+    if causal:
+        qpos = torch.arange(sq, device=q.device)
+        keep = qpos[:, None] + q_offset >= kpos[None, :]
+    if kv_valid is not None:
+        pad_keep = (kpos < kv_valid)[None, :]
+        keep = pad_keep if keep is None else keep & pad_keep
+    if keep is not None:
+        s = torch.where(keep, s, NEG_INF)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    denom = p.sum(-1, keepdim=True)
+    denom = torch.where(denom == 0.0, 1.0, denom)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", p, v.to(F32)) / denom.permute(0, 3, 1, 2, 4)
+    return out.reshape(bq, sq, hq, dim).to(q.dtype)

@@ -1,0 +1,117 @@
+"""Shared layers: RMSNorm, RoPE, SwiGLU MLP, embedding/unembedding.
+
+Port of ``repro.models.layers``.  Plain functions over a params dict that
+mirrors the JAX tree key for key.  Compute runs in ``compute_dtype``;
+norms, rotary angles and the loss accumulate in f32.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.dist.sharding import ParamSpec
+
+F32 = torch.float32
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
+
+
+def dtype_of(name: str) -> torch.dtype:
+    return _DTYPES[name]
+
+
+# ---------------------------------------------------------------------------
+# RMSNorm
+# ---------------------------------------------------------------------------
+def rmsnorm_spec(d: int, stacked: tuple[int, ...] = ()) -> ParamSpec:
+    lead = tuple("layers" for _ in stacked)
+    return ParamSpec(stacked + (d,), lead + ("act_embed",), init="ones")
+
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    xf = x.to(F32)
+    var = xf.square().mean(-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    return (out * w.to(F32)).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings
+# ---------------------------------------------------------------------------
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: [B, S, H, D]; positions: [S] or [B, S] absolute positions."""
+    half = x.shape[-1] // 2
+    freqs = 1.0 / (theta ** (torch.arange(half, dtype=F32, device=x.device) / half))
+    ang = positions[..., None].to(F32) * freqs  # [S, half] or [B, S, half]
+    if ang.ndim == 2:  # [S, half] -> broadcast over batch
+        ang = ang[None]
+    cos = torch.cos(ang)[:, :, None, :]  # [B_or_1, S, 1, half]
+    sin = torch.sin(ang)[:, :, None, :]
+    xf1, xf2 = x[..., :half].to(F32), x[..., half:].to(F32)
+    out = torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# SwiGLU MLP
+# ---------------------------------------------------------------------------
+def mlp_specs(d: int, f: int, stacked: tuple[int, ...] = ()) -> dict:
+    lead = tuple("layers" for _ in stacked)
+    return {
+        "w_gate": ParamSpec(stacked + (d, f), lead + ("ffn_in", "mlp")),
+        "w_up": ParamSpec(stacked + (d, f), lead + ("ffn_in", "mlp")),
+        "w_down": ParamSpec(stacked + (f, d), lead + ("mlp", "ffn_in")),
+    }
+
+
+def mlp(p: dict, x: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
+    h = x @ p["w_gate"].to(compute_dtype)
+    u = x @ p["w_up"].to(compute_dtype)
+    return (torch.nn.functional.silu(h) * u) @ p["w_down"].to(compute_dtype)
+
+
+# ---------------------------------------------------------------------------
+# Embedding / unembedding
+# ---------------------------------------------------------------------------
+VOCAB_PAD = 128  # Megatron-style: pad vocab so TP always divides
+
+
+def padded_vocab(vocab: int) -> int:
+    return ((vocab + VOCAB_PAD - 1) // VOCAB_PAD) * VOCAB_PAD
+
+
+def embed_specs(vocab: int, d: int, tie: bool) -> dict:
+    pv = padded_vocab(vocab)
+    out = {"embed": ParamSpec((pv, d), ("vocab", "embed"), init="embed")}
+    if not tie:
+        out["unembed"] = ParamSpec((d, pv), ("embed", "vocab"))
+    return out
+
+
+def embed_lookup(p: dict, tokens: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
+    # gather the rows, then cast them: the same values as casting the whole
+    # [vocab, d] table first, as the reference does
+    return p["embed"][tokens].to(compute_dtype)
+
+
+def unembed(p: dict, x: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
+    if "unembed" in p:
+        w = p["unembed"].to(compute_dtype)
+    else:
+        w = p["embed"].to(compute_dtype).T
+    return x @ w
+
+
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+def softmax_xent(
+    logits: torch.Tensor, labels: torch.Tensor, valid_vocab: int | None = None
+) -> torch.Tensor:
+    """Mean token cross-entropy; logits promoted to f32.  ``valid_vocab``
+    masks padded vocabulary columns out of the partition function."""
+    logits = logits.to(F32)
+    if valid_vocab is not None and valid_vocab < logits.shape[-1]:
+        mask = torch.arange(logits.shape[-1], device=logits.device) < valid_vocab
+        logits = torch.where(mask, logits, -1e30)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return (logz - gold).mean()

@@ -1,0 +1,103 @@
+"""Model API over the ported (dense) architectures, port of
+``repro.models.model``.
+
+    specs  = param_specs(cfg)                          # ParamSpec tree
+    params = init_params(cfg, seed, device)            # real weights
+    logits, aux   = forward(params, cfg, tokens=...)   # teacher-forced
+    logits, cache = prefill(params, cfg, tokens, cache)
+    logits, cache = decode_step(params, cfg, token, cache, cache_len)
+
+Params are a nested dict mirroring the JAX tree key for key.  Caches are
+preallocated by ``init_cache`` and updated in place by ``prefill`` and
+``decode_step``, which return the same dict.
+"""
+from __future__ import annotations
+
+import math
+
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.devices import resolve_device
+from repro_torch.dist import sharding
+from repro_torch.models import layers, transformer
+
+
+# ---------------------------------------------------------------------------
+# params
+# ---------------------------------------------------------------------------
+def param_specs(cfg: ModelConfig) -> dict:
+    return transformer.param_specs(cfg)
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
+    """Random weights from ``seed``, each leaf built in ``cfg.param_dtype``
+    on ``device`` (CUDA unless given)."""
+    return sharding.materialize(
+        seed, param_specs(cfg), layers.dtype_of(cfg.param_dtype), resolve_device(device)
+    )
+
+
+def abstract_params(cfg: ModelConfig) -> dict:
+    return sharding.tree_abstract(param_specs(cfg), layers.dtype_of(cfg.param_dtype))
+
+
+def cache_specs(cfg: ModelConfig, batch: int, max_len: int, long_ctx: bool = False):
+    return transformer.cache_specs(cfg, batch, max_len, long_ctx)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, long_ctx: bool = False,
+               device=None) -> dict:
+    """Zero KV cache in ``cfg.compute_dtype`` on ``device`` (CUDA unless given)."""
+    return sharding.materialize(
+        0, cache_specs(cfg, batch, max_len, long_ctx), layers.dtype_of(cfg.compute_dtype),
+        resolve_device(device),
+    )
+
+
+# ---------------------------------------------------------------------------
+# forward paths
+# ---------------------------------------------------------------------------
+def _embed_in(params, cfg: ModelConfig, tokens, embeds):
+    dt = layers.dtype_of(cfg.compute_dtype)
+    if embeds is not None:
+        return embeds.to(dt)
+    return layers.embed_lookup(params["tok"], tokens, dt)
+
+
+def forward(params, cfg: ModelConfig, tokens=None, embeds=None):
+    """Teacher-forced full-sequence forward.  Returns (logits, aux)."""
+    x = _embed_in(params, cfg, tokens, embeds)
+    x, _, aux = transformer.run_stack(params, x, cfg, mode="full")
+    x = layers.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    return layers.unembed(params["tok"], x, layers.dtype_of(cfg.compute_dtype)), aux
+
+
+def prefill(params, cfg: ModelConfig, tokens=None, cache=None, embeds=None):
+    """Process the prompt, fill the cache.  Returns (last-position logits, cache)."""
+    x = _embed_in(params, cfg, tokens, embeds)
+    x, cache, _ = transformer.run_stack(params, x, cfg, cache=cache, mode="prefill")
+    x = layers.rmsnorm(x[:, -1:, :], params["final_norm"], cfg.norm_eps)
+    logits = layers.unembed(params["tok"], x, layers.dtype_of(cfg.compute_dtype))
+    return logits, cache
+
+
+def decode_step(params, cfg: ModelConfig, token=None, cache=None, cache_len: int = 0,
+                embeds=None):
+    """One decode step.  token: [B, 1] ids (or embeds [B, 1, d]);
+    cache_len: tokens already in the cache.  Returns (logits, cache)."""
+    x = _embed_in(params, cfg, token, embeds)
+    x, cache, _ = transformer.run_stack(
+        params, x, cfg, cache=cache, cache_len=int(cache_len), mode="decode"
+    )
+    x = layers.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    logits = layers.unembed(params["tok"], x, layers.dtype_of(cfg.compute_dtype))
+    return logits, cache
+
+
+# ---------------------------------------------------------------------------
+# analytic parameter counts
+# ---------------------------------------------------------------------------
+def param_count(cfg: ModelConfig, active_only: bool = False) -> int:
+    """Total parameters (dense stacks: every parameter is active)."""
+    specs = sharding.leaves(param_specs(cfg))
+    return sum(math.prod(s.shape) for s in specs)

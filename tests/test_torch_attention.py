@@ -1,0 +1,190 @@
+"""The port's attention (``repro_torch.kernels``) against the JAX package, on
+the CPU.
+
+Inputs are made by numpy from a seed and handed to both packages.  The
+grids are those of ``tests/test_kernels.py``.  Tolerances: 2e-5 in f32
+(rtol = atol, the reference's own for its flash kernel against its
+oracle); in bf16 at most 2 bf16 ulps of the case's largest |value|, since
+both sides compute in f32 and round once.
+
+On the CPU the flash wrapper runs its plain version, so
+``ops.attention(impl="cuda")`` here checks the padding, the ``kv_valid``
+mask and the kernel's exact function (``-1e30`` sentinel, softmax over the
+padded grid) against ``impl="pallas_interpret"``.  The CUDA kernel itself is
+held against the same plain version on the card by ``chip_smoke.py``.
+"""
+import math
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch.kernels import attention as tattention
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+
+F32_TOL = 2e-5
+BF16_ULPS = 2
+GRID = [(1, 128, 4, 4, 64), (2, 256, 8, 2, 64), (2, 128, 4, 1, 128)]
+
+
+def _qkv(b, sq, skv, hq, hkv, d, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(b, sq, hq, d)), rng.normal(size=(b, skv, hkv, d)),
+            rng.normal(size=(b, skv, hkv, d)))
+
+
+def _pair(arrays, dtype: str):
+    jdt, tdt = {"float32": (jnp.float32, torch.float32),
+                "bfloat16": (jnp.bfloat16, torch.bfloat16)}[dtype]
+    return ([jnp.asarray(a, jdt) for a in arrays],
+            [torch.from_numpy(np.asarray(a, np.float32)).to(tdt) for a in arrays])
+
+
+def _close(got: torch.Tensor, want, dtype: str) -> None:
+    g = got.float().numpy()
+    w = np.asarray(want, np.float32)
+    assert g.shape == w.shape
+    if dtype == "float32":
+        np.testing.assert_allclose(g, w, rtol=F32_TOL, atol=F32_TOL)
+    else:
+        top = float(np.abs(w).max())
+        ulp = math.ldexp(1.0, math.frexp(top)[1] - 8)
+        assert float(np.abs(g - w).max()) <= BF16_ULPS * ulp
+
+
+# ---------------------------------------------------------------------------
+# the oracles
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,hq,hkv,d", GRID)
+def test_mha_attention_matches_jax(b, s, hq, hkv, d, dtype):
+    (jq, jk, jv), (tq, tk, tv) = _pair(_qkv(b, s, s, hq, hkv, d), dtype)
+    _close(tref.mha_attention(tq, tk, tv), jref.mha_attention(jq, jk, jv), dtype)
+
+
+@pytest.mark.parametrize("q_offset", [0, 128])
+def test_mha_attention_offset_and_kv_len_match_jax(q_offset):
+    (jq, jk, jv), (tq, tk, tv) = _pair(_qkv(3, 8, 256, 4, 2, 16, seed=1), "float32")
+    kv_len = np.asarray([10, 137, 256], np.int32)
+    want = jref.mha_attention(jq, jk, jv, causal=True, q_offset=q_offset,
+                              kv_len=jnp.asarray(kv_len))
+    got = tref.mha_attention(tq, tk, tv, causal=True, q_offset=q_offset,
+                             kv_len=torch.from_numpy(kv_len))
+    _close(got, want, "float32")
+
+
+def test_kv_len_masks_the_tail():
+    """Only the first kv_len[b] positions take part (the reference's check)."""
+    _, (tq, tk, tv) = _pair(_qkv(3, 1, 64, 2, 2, 16, seed=2), "float32")
+    kv_len = torch.tensor([10, 32, 64], dtype=torch.int32)
+    out = tref.mha_attention(tq, tk, tv, causal=False, kv_len=kv_len)
+    out0 = tref.mha_attention(tq[:1], tk[:1, :10], tv[:1, :10], causal=False)
+    torch.testing.assert_close(out[:1], out0, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [False, True])
+def test_chunked_attention_ragged_tail_matches_jax(causal, dtype):
+    """sq = 2049 = 4 * 512 + 1: the ragged tail is attended on its own."""
+    (jq, jk, jv), (tq, tk, tv) = _pair(_qkv(1, 2049, 2049, 2, 1, 32, seed=3), dtype)
+    want = jref.mha_attention_chunked(jq, jk, jv, causal=causal, chunk=512)
+    got = tref.mha_attention_chunked(tq, tk, tv, causal=causal, chunk=512)
+    _close(got, want, dtype)
+    if dtype == "float32":
+        _close(got, jref.mha_attention(jq, jk, jv, causal=causal), dtype)
+
+
+# ---------------------------------------------------------------------------
+# the kernel route: pad, mask, the kernel's function
+# ---------------------------------------------------------------------------
+KERNEL_CASES = [
+    # (b, sq, skv, hq, hkv, d, q_offset, causal)
+    *[(b, s, s, hq, hkv, d, 0, True) for b, s, hq, hkv, d in GRID],
+    (2, 128, 256, 4, 4, 64, 128, True),   # the reference's decode-offset case
+    (1, 130, 130, 2, 2, 64, 0, False),    # odd lengths: the pad path
+    (1, 130, 130, 2, 2, 64, 0, True),
+    (1, 128, 130, 2, 2, 64, 0, True),     # ragged kv only
+    (1, 200, 333, 8, 2, 8, 0, True),      # GQA, head dim 8, both padded
+    (1, 128, 128, 2, 2, 64, -64, True),   # rows 0..63 fully masked
+    (1, 130, 130, 2, 1, 8, -100, True),   # fully masked rows over a padded grid
+]
+
+
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,d,q_offset,causal", KERNEL_CASES)
+def test_kernel_route_matches_pallas_interpret(b, sq, skv, hq, hkv, d, q_offset, causal):
+    (jq, jk, jv), (tq, tk, tv) = _pair(_qkv(b, sq, skv, hq, hkv, d, seed=4), "float32")
+    want = jops.attention(jq, jk, jv, causal=causal, q_offset=q_offset,
+                          impl="pallas_interpret")
+    got = tops.attention(tq, tk, tv, causal=causal, q_offset=q_offset, impl="cuda")
+    _close(got, want, "float32")
+
+
+def test_kernel_route_bf16_matches_pallas_interpret():
+    (jq, jk, jv), (tq, tk, tv) = _pair(_qkv(1, 130, 130, 4, 2, 64, seed=5), "bfloat16")
+    want = jops.attention(jq, jk, jv, impl="pallas_interpret")
+    _close(tops.attention(tq, tk, tv, impl="cuda"), want, "bfloat16")
+
+
+def test_fully_masked_rows_are_the_mean_of_v_over_the_padded_grid():
+    """The -1e30 sentinel turns a fully masked row into a uniform softmax:
+    the row is the mean of v over every (padded) kv column, not 0."""
+    _, (tq, tk, tv) = _pair(_qkv(1, 130, 130, 2, 2, 8, seed=6), "float32")
+    out = tops.attention(tq, tk, tv, causal=True, q_offset=-100, impl="cuda")
+    padded_mean = tv.sum(1) / 256  # 130 real columns padded to 256 with zeros
+    for row in range(100):
+        torch.testing.assert_close(out[:, row], padded_mean, rtol=1e-5, atol=1e-6)
+    # row 100 sees exactly column 0
+    torch.testing.assert_close(out[:, 100], tv[:, 0], rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("impl", ["cuda", "auto", "fused"])
+def test_kernel_impls_pad_to_the_tile_and_call_the_wrapper(monkeypatch, impl):
+    seen = []
+    real = tattention.flash_attention
+
+    def spy(q, k, v, **kw):
+        seen.append((tuple(q.shape), tuple(k.shape), kw))
+        return real(q, k, v, **kw)
+
+    monkeypatch.setattr(tattention, "flash_attention", spy)
+    _, (tq, tk, tv) = _pair(_qkv(1, 2100, 2100, 2, 2, 8, seed=7), "float32")
+    out = tops.attention(tq, tk, tv, impl=impl)
+    assert out.shape == tq.shape
+    assert seen == [((1, 2176, 2, 8), (1, 2176, 2, 8),
+                     {"causal": True, "q_offset": 0, "kv_valid": 2100})]
+    # an aligned length is not padded and masks nothing
+    _, (aq, ak, av) = _pair(_qkv(1, 128, 128, 2, 2, 8, seed=8), "float32")
+    tops.attention(aq, ak, av, impl=impl)
+    assert seen[-1][2]["kv_valid"] is None
+
+
+def test_oracle_routes(monkeypatch):
+    """ref/chunked and kv_len go to the oracles, chunked from Sq >= 2048;
+    none of them reaches the kernel's wrapper."""
+    def boom(*a, **kw):
+        raise AssertionError("the kernel wrapper was called")
+
+    monkeypatch.setattr(tattention, "flash_attention", boom)
+    _, (tq, tk, tv) = _pair(_qkv(1, 2048, 2048, 2, 1, 8, seed=9), "float32")
+    long_ref = tops.attention(tq, tk, tv, impl="ref")
+    torch.testing.assert_close(long_ref, tref.mha_attention_chunked(tq, tk, tv),
+                               rtol=0, atol=0)
+    short = tops.attention(tq[:, :64], tk[:, :64], tv[:, :64], impl="chunked")
+    torch.testing.assert_close(short, tref.mha_attention(tq[:, :64], tk[:, :64], tv[:, :64]))
+    kv_len = torch.tensor([100], dtype=torch.int32)
+    dec = tops.attention(tq[:, :1], tk, tv, causal=False, kv_len=kv_len, impl="cuda")
+    torch.testing.assert_close(
+        dec, tref.mha_attention(tq[:, :1], tk, tv, causal=False, kv_len=kv_len),
+        rtol=0, atol=0)
+    with pytest.raises(ValueError, match="unknown kernel impl"):
+        tops.attention(tq, tk, tv, impl="pallas")
+
+
+def test_wrapper_rejects_untiled_lengths():
+    _, (tq, tk, tv) = _pair(_qkv(1, 130, 130, 2, 2, 8, seed=10), "float32")
+    with pytest.raises(ValueError, match="not multiples of tiles"):
+        tattention.flash_attention(tq, tk, tv)

@@ -97,11 +97,14 @@ def test_wrappers_raise_when_the_library_cannot_be_built(monkeypatch):
             lambda: ops.tt_contract(torch.zeros((4, 4), **meta),
                                     torch.zeros((4, 2, 4, 4), **meta),
                                     torch.zeros((4, 4), **meta), impl="cuda"),
+            lambda: ops.attention(*(torch.zeros((1, 130, 2, 8), **meta) for _ in range(3)),
+                                  impl="auto"),
         ]
         for call in calls:
             with pytest.raises(RuntimeError, match="cannot build"):
                 call()
-        assert ops.launch_counts() == {"decode_tile": 0, "lstm_scan": 0, "tt_contract": 0}
+        assert ops.launch_counts() == {"decode_tile": 0, "lstm_scan": 0, "tt_contract": 0,
+                                       "flash_attention": 0}
     finally:
         _build.library.cache_clear()
 

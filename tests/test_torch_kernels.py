@@ -187,4 +187,7 @@ def test_cpu_runs_count_no_launches():
     idx, ws = _decode_args(8, 3, 7, 16, 8)
     _, (tidx, tws) = _decode_pair(idx, ws, "float32")
     tops.nttd_decode_tile(tidx, *tws, impl="auto")
-    assert tops.launch_counts() == {"decode_tile": 0, "lstm_scan": 0, "tt_contract": 0}
+    q = torch.zeros((1, 130, 2, 8))
+    tops.attention(q, q, q, impl="auto")
+    assert tops.launch_counts() == {"decode_tile": 0, "lstm_scan": 0, "tt_contract": 0,
+                                    "flash_attention": 0}
