@@ -6,16 +6,28 @@
 Phases, each printing JSON lines:
 
 1. device: the card's name and power limit, and the kernel build
-   (``nvcc`` for ``sm_90a`` from ``src/repro_torch/kernels/csrc``).
+   (``nvcc`` for ``sm_90a`` from ``src/repro_torch/kernels/csrc``) with
+   each kernel's registers, shared memory, stack and spills from
+   ``-Xptxas -v``; then the count of tensor-core instructions (``HGMMA``)
+   per kernel in the library's SASS (``cuobjdump -sass``).
 2. kernels: each CUDA kernel against its plain PyTorch version on the card,
    over the reference's test grid (R in {4, 8, 32}, T in {2, 3, 8}, f32
-   and bf16, B = 33 and B = 0), at the main path's shapes, and at H = 64,
-   R = 32; ``flash_attention`` over the reference's attention grid,
-   ``q_offset`` 128, odd and ragged lengths (the pad path), starcoder2's
-   48/4 grouping, fully masked rows (``q_offset`` < 0), head dims 8, 64
-   and 128, and the serve path's shapes.  Tolerance: 1e-5 in f32, 0.1 in bf16 (rtol = atol); in bf16
+   and bf16, B = 33 and B = 0), at the main path's shapes, at H = 64,
+   R = 32, at every instantiated (H, R) bucket of ``decode_tile`` and at
+   shapes padded to one (H 12, R 5; the paper's 12/6 and 18/10);
+   ``flash_attention`` over the reference's
+   attention grid, ``q_offset`` 128, odd and ragged lengths (the pad path),
+   starcoder2's 48/4 grouping, fully masked rows (``q_offset`` < 0), head
+   dims 8, 64 and 128, the serve path's shapes up to S 4096, and the edges
+   of the tensor-core body (B 2 with GQA 4/1, D 64 at S 1024, ``q_offset``
+   > 0 with Skv > Sq, ``kv_valid`` inside a kv tile, fully masked rows at
+   D 128); every flash case names the body that ran (``flash_body``).
+   Tolerance: 1e-5 in f32, 0.1 in bf16 (rtol = atol); in bf16
    also at most 2 bf16 ulps of the case's largest plain value, a limit
-   that scales with the data.
+   that scales with the data.  Every bf16 flash output is also held
+   element by element: within 1 bf16 ulp of each element's own value plus
+   2^-16 of its row's largest, which a kernel that rounds p to bf16
+   fails (the timing row shows that on a bf16-p control).
 3. golden: ``tests/golden/v2_nttd.bin`` decoded on the card against
    ``tests/golden/expected.npz`` (rtol 1e-5, atol 1e-6), and the chunked
    NTTD payload ``benchmarks/results/fig5_stream_payload.tcdc`` decoded
@@ -42,9 +54,11 @@ Phases, each printing JSON lines:
    PyTorch call computing the same function (cuDNN ``nn.LSTM`` for
    ``lstm_scan``, one ``torch.einsum`` over the whole chain for
    ``tt_contract``, ``scaled_dot_product_attention`` for
-   ``flash_attention``) at the main paths' shapes, with CUDA events; the
-   bound is computed from the shapes against the H100 SXM's published
-   peaks.
+   ``flash_attention``, with its error beside the kernel's) at the main
+   paths' shapes, with CUDA events; the bound is computed from the shapes
+   against the H100 SXM's published peaks.  At the flash timing shape the
+   kernel's error must be below SDPA's and pass the per-element check,
+   and a bf16-p control must fail it.
 
 The line before the last is the card's ``name, power.limit`` as
 ``nvidia-smi`` reports them; the last line is the result object.  Any
@@ -57,6 +71,8 @@ import dataclasses
 import json
 import math
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -70,6 +86,10 @@ RANK, HIDDEN = 8, 16          # the repo's default NTTD architecture
 REQUEST = 65_536              # entries per decode_at request
 TOL = {"float32": 1e-5, "bfloat16": 0.1}
 BF16_ULPS = 2                 # bf16 also within 2 ulps of the case's largest |value|
+# bf16 flash outputs, element by element: within 1 bf16 ulp of the element's
+# own |value| plus this fraction of its row's largest |value| (2^-16: the
+# precision to which the split P.V keeps p); rounding p to bf16 fails it
+FLASH_ROW_FLOOR = 2.0**-16
 PEAK_FP32 = 67e12             # H100 SXM, FP32 outside the tensor cores
 PEAK_BF16 = 989e12            # H100 SXM, dense bf16 on the tensor cores
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3
@@ -164,6 +184,37 @@ def compare(torch, got, want, dtype_name: str) -> tuple[float, float]:
     return max_err, ulps
 
 
+def flash_elementwise(torch, got, want) -> dict:
+    """Per-element reading of a bf16 attention output against the plain
+    one: how many elements lie beyond 1 bf16 ulp of their own |want| plus
+    ``FLASH_ROW_FLOOR`` of their row's (last axis) largest |want|, and the
+    largest error in units of that limit."""
+    g, w = got.float(), want.float()
+    a = w.abs()
+    ulp = torch.where(a > 0, torch.ldexp(torch.ones_like(a), torch.frexp(a).exponent - 8),
+                      torch.zeros_like(a))
+    limit = ulp + FLASH_ROW_FLOOR * a.amax(-1, keepdim=True)
+    err = (g - w).abs()
+    beyond = err > limit
+    ratio = torch.where(limit > 0, err / limit, torch.where(err > 0, math.inf, 0.0))
+    return {"beyond": int(beyond.sum()), "elements": int(err.numel()),
+            "worst_over_limit": float(ratio.max()) if err.numel() else 0.0}
+
+
+def flash_bf16p_control(torch, q, k, v):
+    """Causal attention as the plain version computes it, but with p rounded
+    to bf16 before P.V (as SDPA's kernels do): the weaker design that the
+    per-element check must reject.  MHA, no offset, no padding."""
+    d = q.shape[-1]
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float() * (1.0 / d**0.5), k.float())
+    n = s.shape[-1]
+    keep = torch.ones((n, n), dtype=torch.bool, device=q.device).tril()
+    s = torch.where(keep, s, -1e30)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    out = torch.einsum("bhqk,bkhd->bqhd", p.to(torch.bfloat16).float(), v.float())
+    return (out / p.sum(-1).permute(0, 2, 1)[..., None]).to(q.dtype)
+
+
 def chain_equation(k: int) -> str:
     """``torch.einsum`` equation of first . mid_1 ... mid_k . last -> [B]."""
     chain = "acdefghijklmnopqrstuvwxyz"[: k + 1]
@@ -213,34 +264,110 @@ FLASH_CASES = (
     (1, 128, 128, 20, 20, 128, 0, True),  # the serve path's shapes
     (1, 300, 300, 20, 20, 128, 0, True),
     (1, 2048, 2048, 20, 20, 128, 0, True),
+    # the tensor-core body's edges
+    (2, 512, 512, 4, 1, 128, 0, True),    # B 2, GQA 4/1: two kv heads of work
+    (1, 1024, 1024, 4, 4, 64, 0, True),   # minicpm's head dim 64
+    (1, 128, 384, 4, 4, 128, 256, True),  # q_offset > 0 with Skv > Sq
+    (1, 256, 230, 4, 2, 128, 0, True),    # kv_valid 230 inside a 64-row kv tile
+    (1, 128, 128, 2, 2, 128, -64, True),  # rows 0..63 fully masked at D 128
+    (1, 4096, 4096, 20, 20, 128, 0, True),  # the serve shape at S 4096
 )
+# shapes off the buckets, run on zero-padded weights: (12, 5) in (12, 8),
+# the paper's SMALL 12/6 in (12, 8), its MEDIUM 18/10 in (20, 12)
+PADDED_DECODE = ((12, 5), (12, 6), (18, 10))
 
 
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
+def cuda_tool(name: str) -> str | None:
+    found = shutil.which(name)
+    if found:
+        return found
+    path = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", name)
+    return path if os.path.exists(path) else None
+
+
+def demangle(names: list[str]) -> list[str]:
+    tool = cuda_tool("cu++filt")
+    if not tool or not names:
+        return names
+    res = subprocess.run([tool], input="\n".join(names), capture_output=True, text=True,
+                         timeout=60)
+    out = res.stdout.splitlines()
+    return out if res.returncode == 0 and len(out) == len(names) else names
+
+
+def ptxas_resources(log: str) -> list[dict]:
+    """Per kernel from ``-Xptxas -v``: registers, shared memory, stack, spills."""
+    rows = []
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            rows.append({"kernel": line.split("'")[1]})
+        elif rows and "spill stores" in line:
+            nums = [int(n) for n in re.findall(r"(\d+) bytes", line)]
+            rows[-1].update(stack_bytes=nums[0], spill_store_bytes=nums[1],
+                            spill_load_bytes=nums[2])
+        elif rows and "Used" in line and "registers" in line:
+            rows[-1]["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            rows[-1]["static_smem_bytes"] = int(smem.group(1)) if smem else 0
+    for row, name in zip(rows, demangle([r["kernel"] for r in rows])):
+        row["kernel"] = name
+    return rows
+
+
+def sass_hgmma(path) -> dict:
+    """Tensor-core (HGMMA) instructions per kernel in the built library."""
+    tool = cuda_tool("cuobjdump")
+    if tool is None:
+        return {"tool": None, "note": "cuobjdump not found: no SASS count"}
+    res = subprocess.run([tool, "-sass", str(path)], capture_output=True, text=True,
+                         timeout=300)
+    require(res.returncode == 0, f"cuobjdump failed: {res.stderr.strip()[:500]}")
+    counts, name = {}, None
+    for line in res.stdout.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            counts[name] = 0
+        elif name is not None and re.search(r"\bHGMMA\b", line):
+            counts[name] += 1
+    names = sorted(counts)
+    return {"tool": "cuobjdump -sass",
+            "hgmma": {pretty: counts[raw] for raw, pretty in zip(names, demangle(names))}}
+
+
 def phase_device(torch):
     from repro_torch.kernels import _build
 
     smi = nvidia_smi_line()
     path, seconds, log = _build.build()
-    resources = [line.strip() for line in log.splitlines()
-                 if "registers" in line or "spill" in line]
     _build.library()
     emit({"phase": "device", "name_power_limit": smi,
           "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
           "torch": torch.__version__, "cuda": torch.version.cuda,
-          "build_seconds": seconds, "library": os.path.relpath(path, ROOT),
-          "ptxas": resources})
+          "build_seconds": seconds,
+          "nvcc_seconds": {m.group(1): float(m.group(2))
+                           for m in re.finditer(r"^== (\S+) \(([\d.]+) s\)$", log, re.M)},
+          "library": os.path.relpath(path, ROOT),
+          "ptxas": ptxas_resources(log)})
+    sass = sass_hgmma(path)
+    if sass["tool"]:
+        wgmma = {k: n for k, n in sass["hgmma"].items() if "flash_attention_wgmma" in k}
+        require(len(wgmma) == 2 and all(wgmma.values()),
+                f"the wgmma flash body has no HGMMA in its SASS: {wgmma}")
+    emit({"phase": "sass", **sass})
     return smi
 
 
 def phase_kernels(torch, device):
     """Every kernel against its plain version on the card."""
     from repro_torch.kernels import attention as _attention
+    from repro_torch.kernels import decode_tile as _decode_tile
     from repro_torch.kernels import ops, ref
 
     gen = torch.Generator().manual_seed(SEED)
+    flash_cases, decode_cases = [], []
     errs = {name: {"float32": 0.0, "bfloat16": 0.0, "bfloat16_ulps": 0.0}
             for name in SOURCES}
     cases = 0
@@ -251,6 +378,7 @@ def phase_kernels(torch, device):
         errs[name][dt_name] = max(errs[name][dt_name], err)
         errs[name]["bfloat16_ulps"] = max(errs[name]["bfloat16_ulps"], ulps)
         cases += 1
+        return err, ulps
 
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[-1]
@@ -298,6 +426,14 @@ def phase_kernels(torch, device):
             last = torch.randn((b, r), generator=gen).to(device, dtype)
             record("tt_contract", dn, ops.tt_contract(first, mid, last, impl="cuda"),
                    ref.tt_contract(first, mid, last))
+        # every instantiated (H, R) bucket, and a shape padded to one
+        for h, r in _decode_tile.BUCKETS + PADDED_DECODE:
+            idx, ws = decode_inputs(torch, gen, 1000, 5, 9, h, r, dtype, device)
+            err, ulps = record("decode_tile", dn, ops.nttd_decode_tile(idx, *ws, impl="cuda"),
+                               ops.nttd_decode_tile(idx, *ws, impl="ref"))
+            decode_cases.append({"H": h, "R": r, "dtype": dn,
+                                 "bucket": list(_decode_tile.bucket_for(h, r)),
+                                 "max_abs_err": err, "ulps": ulps})
         # an index outside [0, M) gathers a zero row in both versions
         idx, ws = decode_inputs(torch, gen, 33, 3, 10, 16, 8, dtype, device)
         idx[0, 1] = 10
@@ -307,11 +443,22 @@ def phase_kernels(torch, device):
         for b, sq, skv, hq, hkv, d, q_offset, causal in FLASH_CASES:
             q, k, v, kv_valid = flash_inputs(torch, gen, b, sq, skv, hq, hkv, d, dtype, device)
             kw = dict(causal=causal, q_offset=q_offset, kv_valid=kv_valid)
-            record("flash_attention", dn, _attention.flash_attention(q, k, v, **kw),
-                   ref.flash_attention(q, k, v, **kw))
+            got = _attention.flash_attention(q, k, v, **kw)
+            want = ref.flash_attention(q, k, v, **kw)
+            err, ulps = record("flash_attention", dn, got, want)
+            row = {"case": [b, sq, skv, hq, hkv, d, q_offset, causal], "dtype": dn,
+                   "body": _attention.flash_body(dtype, d), "max_abs_err": err, "ulps": ulps}
+            if dtype == torch.bfloat16:
+                row["elementwise"] = flash_elementwise(torch, got, want)
+                require(row["elementwise"]["beyond"] == 0,
+                        f"flash case {row['case']}: {row['elementwise']} beyond 1 ulp of "
+                        f"each value plus {FLASH_ROW_FLOOR} of its row's largest")
+            flash_cases.append(row)
     torch.cuda.synchronize()
     emit({"phase": "kernels", "cases": cases, "tolerance": TOL, "bf16_ulps": BF16_ULPS,
-          "max_abs_err": errs})
+          "flash_row_floor": FLASH_ROW_FLOOR, "max_abs_err": errs})
+    emit({"phase": "kernels.decode_buckets", "cases": decode_cases})
+    emit({"phase": "kernels.flash", "cases": flash_cases})
     return errs
 
 
@@ -510,7 +657,18 @@ def flash_timing_row(torch, device, launches, errs):
         return torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
 
     plain = ref.flash_attention(q, k, v, causal=True)
-    lib_err = float((library().transpose(1, 2).float() - plain.float()).abs().max())
+    outs = {"kernel": _attention.flash_attention(q, k, v, causal=True),
+            "library": library().transpose(1, 2),
+            "bf16_p_control": flash_bf16p_control(torch, q, k, v)}
+    errs_at = {key: float((o.float() - plain.float()).abs().max()) for key, o in outs.items()}
+    readings = {key: {"max_abs_err": errs_at[key], **flash_elementwise(torch, o, plain)}
+                for key, o in outs.items()}
+    kernel_err, lib_err = errs_at["kernel"], errs_at["library"]
+    require(readings["kernel"]["beyond"] == 0, f"flash at the serve shape: {readings}")
+    require(kernel_err < lib_err,
+            f"flash error {kernel_err} not below SDPA's {lib_err}: p is not kept in f32")
+    require(readings["bf16_p_control"]["beyond"] > 0,
+            f"the per-element check passes a bf16-p control: {readings['bf16_p_control']}")
     visible = s * (s + 1) // 2  # causal: query i sees keys 0..i
     n_ops = 4 * b * h * d * visible
     n_bytes = 4 * b * s * h * d * 2  # q, k, v read once, out written once, bf16
@@ -520,6 +678,7 @@ def flash_timing_row(torch, device, launches, errs):
         "replaces": SOURCES["flash_attention"][1], "launches": launches["flash_attention"],
         "max_abs_err": errs["flash_attention"]["float32"],
         "max_abs_err_bf16": errs["flash_attention"]["bfloat16"],
+        "body": _attention.flash_body(q.dtype, d), "max_abs_err_at_shape": kernel_err,
         "ms": time_ms(torch, lambda: _attention.flash_attention(q, k, v, causal=True), 20),
         "plain_ms": time_ms(torch, lambda: ref.flash_attention(q, k, v, causal=True), 5),
         "bound_ms": max(t_ops, t_bytes),
@@ -527,6 +686,7 @@ def flash_timing_row(torch, device, launches, errs):
         "library_ms": time_ms(torch, library, 20),
         "library": "torch.nn.functional.scaled_dot_product_attention(is_causal=True) "
                    "on [B, H, S, D] bf16", "library_max_abs_err": lib_err,
+        "elementwise_at_shape": readings,
         "shape": {"B": b, "S": s, "H": h, "D": d, "dtype": "bfloat16", "causal": True},
         "ops": n_ops, "bytes": n_bytes,
     }
@@ -535,6 +695,7 @@ def flash_timing_row(torch, device, launches, errs):
 def phase_timing(torch, device, enc, idx_np, launches, errs):
     """Kernel, plain and library times at the main path's shapes."""
     from repro_torch.core import nttd
+    from repro_torch.kernels import decode_tile as _decode_tile
     from repro_torch.kernels import ops, ref
 
     ct = enc.ct
@@ -542,7 +703,7 @@ def phase_timing(torch, device, enc, idx_np, launches, errs):
     pos = torch.stack([torch.as_tensor(inv[idx_np[:, j]], device=device)
                        for j, inv in enumerate(ct.inv_pi)], dim=1)
     folded = spec.fold_indices(pos).to(torch.int32).contiguous()
-    ws = nttd.fused_decode_inputs(params, spec, cfg)
+    ws = ct.decode_operands  # as the main path hands them to the kernel
     b, t = folded.shape
     m, h, r = ws[0].shape[1], HIDDEN, RANK
     lstm = params["lstm"]
@@ -614,6 +775,7 @@ def phase_timing(torch, device, enc, idx_np, launches, errs):
             "shape": {"B": b, "T": t, "M": m, "H": h, "R": r},
             "ops": n_ops, "bytes": n_bytes,
         })
+    kernels[0]["bucket"] = list(_decode_tile.bucket_for(h, r))
     return kernels
 
 

@@ -37,22 +37,31 @@ class CompressedTensor:
         """Per-mode inverse permutations (original index -> position)."""
         return [np.argsort(p) for p in self.pi]
 
+    @functools.cached_property
+    def decode_operands(self) -> tuple[torch.Tensor, ...]:
+        """The fused decode kernel's operands (``nttd.decode_operands``),
+        stacked and padded once: the params are fixed for a payload."""
+        return nttd.decode_operands(self.params, self.spec, self.cfg)
+
+    def _predict(self, params: nttd.Params, positions: torch.Tensor) -> torch.Tensor:
+        """``generate_flat``'s predict over this payload's ``params``."""
+        fused = nttd.uses_fused_decode(self.spec, self.cfg)
+        return nttd.apply_at_positions(params, positions, self.spec, self.cfg,
+                                       self.decode_operands if fused else None)
+
     # -- reconstruction ------------------------------------------------------
     def decode(self, indices: np.ndarray) -> np.ndarray:
         """Approximate entries at ORIGINAL indices [B, d] -> [B]."""
         pos = self._orig_to_pos(indices)
-        vals = nttd.apply_at_positions(
-            self.params,
-            torch.as_tensor(pos, dtype=torch.int64, device=self.device),
-            self.spec,
-            self.cfg,
+        vals = self._predict(
+            self.params, torch.as_tensor(pos, dtype=torch.int64, device=self.device)
         )
         return vals.cpu().numpy() * self.norm_std + self.norm_mean
 
     def to_dense(self, batch: int = 65536) -> np.ndarray:
         """Full reconstruction in ORIGINAL index order.  The entries are
         decoded and un-permuted on the params' device."""
-        approx = nttd.generate_flat(self.params, self.spec, self.cfg, batch)
+        approx = nttd.generate_flat(self.params, self.spec, self.cfg, batch, self._predict)
         approx = approx.reshape(self.spec.shape) * self.norm_std + self.norm_mean
         for k, inv in enumerate(self.inv_pi):
             approx = approx.index_select(

@@ -22,7 +22,9 @@ import numpy as np
 import torch
 
 from repro_torch.core.folding import FoldingSpec
+from repro_torch.devices import resolve_device
 from repro_torch.kernels import ops
+from repro_torch.kernels.decode_tile import bucket_operands
 
 Params = dict[str, Any]
 
@@ -58,13 +60,15 @@ def init_params(
     generator: torch.Generator,
     spec: FoldingSpec,
     cfg: NTTDConfig,
-    device: str | torch.device = "cpu",
+    device: str | torch.device | None = None,
 ) -> Params:
     """Random params with the reference's distributions (``nttd.py``).
 
     Draws come from ``generator`` (a CPU generator) in a fixed order and
-    are then moved to ``device``; the numbers differ from JAX's.
+    are then moved to ``device``, CUDA unless given (without CUDA this
+    raises unless ``device="cpu"``); the numbers differ from JAX's.
     """
+    device = resolve_device(device)
     h, r = cfg.hidden, cfg.rank
 
     def normal(shape, scale):
@@ -143,15 +147,33 @@ def fused_decode_inputs(
     )
 
 
+def uses_fused_decode(spec: FoldingSpec, cfg: NTTDConfig) -> bool:
+    """Whether ``apply`` runs the one-launch decode (and reads operands)."""
+    return cfg.kernel_impl in ("fused", "auto") and spec.d_prime >= 2
+
+
+def decode_operands(
+    params: Params, spec: FoldingSpec, cfg: NTTDConfig
+) -> tuple[torch.Tensor, ...]:
+    """``fused_decode_inputs`` as the fused decode kernel takes them: on
+    CUDA zero-padded to the kernel's (hidden, rank) bucket, which is exact
+    (``kernels.decode_tile``); on the CPU, where the plain version runs, as
+    they are.  Built once per payload by ``CompressedTensor``."""
+    ws = fused_decode_inputs(params, spec, cfg)
+    return bucket_operands(ws) if ws[0].device.type == "cuda" else ws
+
+
 def apply(
     params: Params,
     folded_idx: torch.Tensor,  # [B, d'] integer
     spec: FoldingSpec,
     cfg: NTTDConfig,
+    operands: tuple[torch.Tensor, ...] | None = None,
 ) -> torch.Tensor:
     """Approximate entries at the given folded indices.  Returns [B].
 
-    "fused" and "auto" run the one-launch decode kernel (d' >= 2);
+    "fused" and "auto" run the one-launch decode kernel (d' >= 2) on
+    ``operands``, the params' ``decode_operands`` (built here when None);
     "cuda" runs the unfused pair ``lstm_scan`` + ``tt_contract``; "ref"
     runs the plain oracles.  The head projections of "cuda" and "ref" are
     ``torch.matmul``; they are full f32 on the card only while
@@ -160,10 +182,10 @@ def apply(
     """
     d_prime = spec.d_prime
     r = cfg.rank
-    if cfg.kernel_impl in ("fused", "auto") and d_prime >= 2:
+    if uses_fused_decode(spec, cfg):
         return ops.nttd_decode_tile(
             folded_idx.to(torch.int32).contiguous(),
-            *fused_decode_inputs(params, spec, cfg),
+            *(operands if operands is not None else decode_operands(params, spec, cfg)),
             impl=cfg.kernel_impl,
         )
     # --- embedding lookup (shared tables by mode length) -------------------
@@ -193,9 +215,10 @@ def apply_at_positions(
     positions: torch.Tensor,  # [B, d] indices in the *reordered* tensor
     spec: FoldingSpec,
     cfg: NTTDConfig,
+    operands: tuple[torch.Tensor, ...] | None = None,
 ) -> torch.Tensor:
     """Fold positions on their device, then apply."""
-    return apply(params, spec.fold_indices(positions.long()), spec, cfg)
+    return apply(params, spec.fold_indices(positions.long()), spec, cfg, operands)
 
 
 def make_predict(spec: FoldingSpec, cfg: NTTDConfig):

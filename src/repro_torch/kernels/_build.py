@@ -1,9 +1,11 @@
 """Build and load the CUDA kernels of this package.
 
 The sources under ``csrc/`` are compiled by ``nvcc`` for Hopper
-(``sm_90a``), one ``nvcc -c`` per source, all started together, and
+(``sm_90a``), one ``nvcc -c`` per compile unit, all started together, and
 linked into one shared library with a plain C interface that is loaded
-with ``ctypes``.  The library lands in ``build/repro_torch_kernels/`` at
+with ``ctypes``.  A unit is a source, except ``decode_tile.cu``, which is
+built once per (hidden, rank) bucket and dtype (``units``) so that its
+unrolled instantiations compile in parallel.  The library lands in ``build/repro_torch_kernels/`` at
 the root of the checkout, under a name keyed by a hash of the sources and
 flags, so an edited source is rebuilt and an unchanged one is reused.
 Nothing is built when the module is imported: ``library()`` builds on
@@ -11,10 +13,12 @@ first use and raises when the build is impossible (no ``nvcc``) or fails.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -22,8 +26,10 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("decode_tile.cu", "lstm.cu", "tt_contract.cu", "flash_attention.cu")
-HEADERS = ("common.cuh",)
+SOURCES = ("decode_tile.cu", "decode_tile_dispatch.cu", "lstm.cu", "tt_contract.cu",
+           "flash_attention.cu")
+HEADERS = ("common.cuh", "decode_tile.cuh", "hopper.cuh")
+DECODE_DTYPES = ("float", "__nv_bfloat16")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -42,6 +48,8 @@ _SIGNATURES = {
     "repro_tt_contract": [_P] * 4 + [_L, _I, _I, _I, _P],
     # q, k, v, out, B, Sq, Skv, Hq, Hkv, D, q_offset, kv_valid, causal, scale, dtype, stream
     "repro_flash_attention": [_P] * 4 + [_I] * 9 + [ctypes.c_float, _I, _P],
+    # the same arguments as repro_flash_attention
+    "repro_flash_attention_wgmma": [_P] * 4 + [_I] * 9 + [ctypes.c_float, _I, _P],
 }
 
 
@@ -58,6 +66,25 @@ def nvcc_path() -> str:
     )
 
 
+def decode_buckets() -> tuple[tuple[int, int], ...]:
+    """The (hidden, rank) buckets of ``REPRO_DECODE_BUCKETS`` in
+    ``csrc/decode_tile.cuh``."""
+    text = (CSRC / "decode_tile.cuh").read_text()
+    line = re.search(r"#define REPRO_DECODE_BUCKETS\(X\)(.*)", text).group(1)
+    return tuple((int(h), int(r)) for h, r in re.findall(r"X\((\d+), (\d+)\)", line))
+
+
+def units() -> list[tuple[str, str, tuple[str, ...]]]:
+    """(name, source, extra nvcc flags) of each compile unit."""
+    out = [(name, name, ()) for name in SOURCES if name != "decode_tile.cu"]
+    for hid, rank in decode_buckets():
+        for dtype in DECODE_DTYPES:
+            out.append((f"decode_tile.cu:{dtype.strip('_')}:{hid}x{rank}", "decode_tile.cu",
+                        (f"-DREPRO_DECODE_T={dtype}", f"-DREPRO_DECODE_H={hid}",
+                         f"-DREPRO_DECODE_R={rank}")))
+    return out
+
+
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for name in SOURCES + HEADERS:
@@ -70,11 +97,18 @@ def library_path() -> Path:
     return BUILD_DIR / f"librepro_torch_{_digest()}.so"
 
 
+def _timed_run(cmd: list[str]) -> tuple[subprocess.CompletedProcess, float]:
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return res, time.perf_counter() - t0
+
+
 def build() -> tuple[Path, float, str]:
     """Compile the sources if needed -> (library path, seconds, ptxas log).
 
-    The log holds ``-Xptxas -v``'s registers, shared memory and spills per
-    kernel; it is also written beside the library as ``<lib>.log``.
+    The log holds, per compile unit, its ``nvcc`` seconds (on the ``==`` line)
+    and ``-Xptxas -v``'s registers, shared memory and spills per kernel; it
+    is also written beside the library as ``<lib>.log``.
     """
     lib = library_path()
     log_path = lib.with_suffix(".log")
@@ -84,25 +118,19 @@ def build() -> tuple[Path, float, str]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        procs = []
-        for name in SOURCES:
-            obj = Path(tmp) / (Path(name).stem + ".o")
-            cmd = [nvcc, *NVCC_FLAGS, "-c", str(CSRC / name), "-o", str(obj)]
-            procs.append((name, obj, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-            )))
+        todo = units()
+        objs = [Path(tmp) / f"{i:02d}_{Path(src).stem}.o" for i, (_, src, _) in enumerate(todo)]
+        cmds = [[nvcc, *NVCC_FLAGS, *flags, "-c", str(CSRC / src), "-o", str(obj)]
+                for (_, src, flags), obj in zip(todo, objs)]
+        with concurrent.futures.ThreadPoolExecutor(len(cmds)) as pool:
+            results = list(pool.map(_timed_run, cmds))
         logs = []
-        for name, _, proc in procs:
-            out, _ = proc.communicate()
-            logs.append(f"== {name}\n{out}")
-            if proc.returncode != 0:
-                for _, _, other in procs:
-                    other.kill()
-                    other.wait()
-                raise RuntimeError(f"nvcc failed on {name}:\n{out}")
+        for (name, _, _), (res, seconds) in zip(todo, results):
+            logs.append(f"== {name} ({seconds:.2f} s)\n{res.stdout}")
+            if res.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {name}:\n{res.stdout}")
         tmp_lib = Path(tmp) / lib.name
-        link = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp_lib),
-                *(str(obj) for _, obj, _ in procs)]
+        link = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp_lib), *map(str, objs)]
         res = subprocess.run(link, capture_output=True, text=True)
         if res.returncode != 0:
             raise RuntimeError(f"nvcc link failed:\n{res.stdout}{res.stderr}")

@@ -1,9 +1,12 @@
 """Wrapper of the flash-attention kernel (``csrc/flash_attention.cu``).
 
 Counterpart of ``repro.kernels.attention``.  On a CUDA tensor it launches
-the hand-written kernel on the current stream or raises; on a CPU tensor
-it runs the plain version ``ref.flash_attention``.  ``launches`` counts
-kernel launches, nothing else.
+one of the kernel's two hand-written bodies on the current stream or
+raises; on a CPU tensor it runs the plain version ``ref.flash_attention``.
+``flash_body`` names the body: the tensor-core one (``"wgmma"``) for bf16
+at the LMs' head widths, the scalar one (``"simt"``) for f32, which must
+hold 1e-5, and for D = 8, below wgmma's depth.  ``launches`` counts kernel
+launches of either body, nothing else.
 """
 from __future__ import annotations
 
@@ -15,12 +18,19 @@ from repro_torch.kernels import _build, ref
 from repro_torch.kernels._common import DTYPE_CODES, check_cuda_operands, check_shape
 
 # The reference kernel's DEFAULT_TILE_Q / DEFAULT_TILE_KV: sequence lengths
-# must be multiples (``ops.attention`` pads).  The CUDA kernel's own tiles
-# (64 x 64) divide them.
+# must be multiples (``ops.attention`` pads).  The CUDA bodies' own tiles
+# (simt 64 x 64, wgmma 128 q x 64 kv) divide them.
 TILE_Q = 128
 TILE_KV = 128
 HEAD_DIMS = (8, 64, 128)  # the head widths the kernel is instantiated for
+WGMMA_HEAD_DIMS = (64, 128)
 launches = 0
+
+
+def flash_body(dtype: torch.dtype, d: int) -> str:
+    """The body a CUDA call runs: "wgmma" for bf16 at D in (64, 128), else
+    "simt"."""
+    return "wgmma" if dtype == torch.bfloat16 and d in WGMMA_HEAD_DIMS else "simt"
 
 
 def flash_attention(
@@ -63,13 +73,15 @@ def flash_attention(
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    body = flash_body(q.dtype, dim)
+    launch = lib.repro_flash_attention_wgmma if body == "wgmma" else lib.repro_flash_attention
     with torch.cuda.device(device):
-        err = lib.repro_flash_attention(
+        err = launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             bsz, sq, skv, hq, hkv, dim, int(q_offset), valid, int(causal),
             ctypes.c_float(1.0 / dim**0.5), DTYPE_CODES[q.dtype],
             torch.cuda.current_stream(device).cuda_stream,
         )
-    _build.check(lib, "flash_attention", err)
+    _build.check(lib, f"flash_attention ({body})", err)
     launches += 1
     return out

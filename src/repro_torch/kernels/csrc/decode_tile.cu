@@ -10,128 +10,285 @@
 //
 // Bound: operations.  At T = 10, H = 16, R = 8 an entry needs ~58k FP32
 // FLOP against 44 bytes of index and output, so the FP32 pipes, not HBM,
-// are the limit.  Design: one thread owns one entry for all T steps, so
-// nothing crosses threads and the value is written once.  The TPU kept
-// the whole tile in VMEM and ran the grid in order; here blocks carry
-// nothing between them.  The thread's state (x, h, h_new, c: 4H floats;
-// v, v_new: 2R floats) sits in shared memory, column-wise per thread.  The
-// R x R mid core is never built: each v_new[s] = sum_r v[r] (h . W_mid[:, rR
-// + s] + b_mid[rR + s]) is formed on the fly, so R = 32 costs no 4 KB of
-// state per entry.  Weights stay in device memory and come through the
-// read-only cache as warp-wide broadcasts; staging them in shared memory
-// (w_mid is 64 KB at H = 16, R = 32) is left to a later revision.
-#include "common.cuh"
+// are the limit, and what the kernel must save is instructions that are
+// not FMAs.  Design:
+// * H and R are template parameters, instantiated for the codec's own
+//   architectures: (12, 8) holds 12/6 (paper SMALL) and 8/8 and 5/5,
+//   (16, 8) the default 16/8, (20, 12) 18/10 (paper MEDIUM), (32, 16) the
+//   hidden = 2 rank shapes up to rank 16, (64, 32) the largest shape
+//   tested.  Any other shape is padded with zero weights to the smallest
+//   bucket that holds it (a padded hidden unit keeps c = h = 0 exactly, a
+//   padded rank column v = 0); the codec pads once per payload.
+// * One thread owns one entry for all T steps.  Its state (h, c, v and
+//   the gate sums of four hidden units at a time) lives in registers,
+//   unrolled over the compile-time H and R, so every FMA takes its state
+//   operand from a register.  The kernel is held back by latency (shared
+//   loads, the special-function unit) more than by issue, so warps per SM
+//   matter most: two entries a thread (each weight feeding both) took
+//   226-235 registers at H 16, R 8 and ran slower, and so did fewer blocks.
+//   The (12, 8) and (16, 8) buckets ask for four blocks (128 registers a
+//   thread), which they meet without spilling; the input row x is re-read
+//   from L1 per block of units instead of held, and the entry index is
+//   32-bit, to fit.  (20, 12) asks for three, the larger buckets for two.
+// * The weights are staged once per block into shared memory as f32 and
+//   read as float4 broadcasts: every thread of a warp reads the same
+//   address, so one 16-byte shared load feeds four FMAs.  The constant
+//   bank was the other choice, as direct FFMA operands, but its cache
+//   holds a working set of 8 KB a SM (the (16, 8) weights are 13.6 KB),
+//   and the bank must be rewritten before every launch; shared memory takes
+//   every bucket's weights but w_mid at H 64, R 32 (256 KB), which that
+//   bucket reads as float4 broadcasts from L1.
+// * The R x R mid core is never built: each row r of it is formed on the
+//   fly, R sums wide, and folded into v_new at once.
+// * Buckets with large H or R keep their outer loops rolled (the gate
+//   blocks at H > 20, the mid rows at R > 12) so the code stays small;
+//   their state arrays indexed by those loops then live in local memory.
+//
+// This unit is compiled once per bucket and dtype, with -DREPRO_DECODE_T,
+// -DREPRO_DECODE_H and -DREPRO_DECODE_R naming them (kernels/_build.py);
+// decode_tile_dispatch.cu holds the C entry point that picks the bucket.
+#if !defined(REPRO_DECODE_T) || !defined(REPRO_DECODE_H) || !defined(REPRO_DECODE_R)
+#error "decode_tile.cu is built per bucket: define REPRO_DECODE_T, REPRO_DECODE_H, REPRO_DECODE_R"
+#endif
+
+#include "decode_tile.cuh"
 
 namespace repro {
 
-constexpr int kDecodeThreads = 64;
+constexpr int kDecodeThreads = 128;
+// shared memory a block may opt into on Hopper, in floats
+constexpr int kMaxSmemFloats = 232448 / 4;
 
-template <typename T>
-__global__ void __launch_bounds__(kDecodeThreads)
+template <int H, int R>
+struct DecodeBucket {
+  // staged weight arrays, in this order: wi, wh [H][4H], b [4H],
+  // w_first, w_last [H][R], b_first, b_last [R], b_mid [R * R], w_mid [H][R * R]
+  static constexpr int kSmallFloats = 8 * H * H + 4 * H + 2 * H * R + 2 * R + R * R;
+  static constexpr bool kMidInSmem = kSmallFloats + H * R * R <= kMaxSmemFloats;
+  static constexpr int kSmemFloats = kSmallFloats + (kMidInSmem ? H * R * R : 0);
+  static constexpr int kUnrollGates = H <= 20 ? H / 4 : 1;
+  static constexpr int kUnrollMid = R <= 12 ? R : 1;
+  // blocks per SM the register budget must leave room for: four at
+  // H <= 16, R <= 8 (at most 128 registers a thread, 16 warps), three at
+  // H <= 20, R <= 12 (168 registers), two above (255 registers)
+  static constexpr int kMinBlocks = (H <= 16 && R <= 8) ? 4 : (H <= 20 && R <= 12) ? 3 : 2;
+  static_assert(H % 4 == 0 && R % 4 == 0, "bucket widths are multiples of 4");
+};
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// Four consecutive weights from device memory as floats (read-only path).
+__device__ __forceinline__ float4 ldg4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+
+__device__ __forceinline__ float4 ldg4(const __nv_bfloat16* p) {
+  const uint2 raw = __ldg(reinterpret_cast<const uint2*>(p));
+  const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&raw.x);
+  const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&raw.y);
+  return make_float4(__low2float(lo), __high2float(lo), __low2float(hi), __high2float(hi));
+}
+
+// 1 / (1 + e^-x) with the hardware reciprocal (2 ulp): the IEEE division
+// has a called slow path, whose call spills registers.
+__device__ __forceinline__ float sigmoid_fast(float x) {
+  return __fdividef(1.0f, 1.0f + expf(-x));
+}
+
+// acc[g][u] = x . wi[:, (g0 + g) H + j0 + u] + h . wh[:, (g0 + g) H + j0 + u]
+// for G gates of the four hidden units j0 .. j0 + 3; x is the embedding row
+// (zero when the index is out of range), re-read from L1 four values at a
+// time for each block of units rather than held in 16 more registers.
+template <typename T, int H, int G>
+__device__ __forceinline__ void gate_sums(float (&acc)[G][4], int g0, int j0,
+                                          const T* __restrict__ row, bool ok,
+                                          const float (&h)[H], const float* s_wi,
+                                          const float* s_wh) {
+  constexpr int H4 = 4 * H;
+#pragma unroll
+  for (int g = 0; g < G; ++g)
+#pragma unroll
+    for (int u = 0; u < 4; ++u) acc[g][u] = 0.f;
+#pragma unroll
+  for (int k0 = 0; k0 < H; k0 += 4) {
+    const float4 x4 = ok ? ldg4(row + k0) : make_float4(0.f, 0.f, 0.f, 0.f);
+    const float x[4] = {x4.x, x4.y, x4.z, x4.w};
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const int k = k0 + kk;
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        const float4 a = ld4(s_wi + k * H4 + (g0 + g) * H + j0);
+        const float4 w = ld4(s_wh + k * H4 + (g0 + g) * H + j0);
+        acc[g][0] = fmaf(x[kk], a.x, acc[g][0]);
+        acc[g][1] = fmaf(x[kk], a.y, acc[g][1]);
+        acc[g][2] = fmaf(x[kk], a.z, acc[g][2]);
+        acc[g][3] = fmaf(x[kk], a.w, acc[g][3]);
+        acc[g][0] = fmaf(h[k], w.x, acc[g][0]);
+        acc[g][1] = fmaf(h[k], w.y, acc[g][1]);
+        acc[g][2] = fmaf(h[k], w.z, acc[g][2]);
+        acc[g][3] = fmaf(h[k], w.w, acc[g][3]);
+      }
+    }
+  }
+}
+
+template <typename T, int N>
+__device__ __forceinline__ void stage(float* dst, const T* __restrict__ src, int tid) {
+  for (int i = tid; i < N; i += kDecodeThreads) dst[i] = load_f(src + i);
+}
+
+template <typename T, int H, int R>
+__global__ void __launch_bounds__(kDecodeThreads, (DecodeBucket<H, R>::kMinBlocks))
 decode_tile_kernel(const int* __restrict__ idx, const T* __restrict__ emb,
                    const T* __restrict__ wi, const T* __restrict__ wh,
                    const T* __restrict__ b, const T* __restrict__ w_first,
                    const T* __restrict__ b_first, const T* __restrict__ w_mid,
                    const T* __restrict__ b_mid, const T* __restrict__ w_last,
                    const T* __restrict__ b_last, T* __restrict__ out, long long bsz,
-                   int t_steps, int m_rows, int hid, int rank) {
-  extern __shared__ float smem[];
-  const int nt = blockDim.x;
-  const int tid = threadIdx.x;
-  float* sx = smem;
-  float* sh = sx + hid * nt;
-  float* shn = sh + hid * nt;
-  float* sc = shn + hid * nt;
-  float* sv = sc + hid * nt;
-  float* svn = sv + rank * nt;
-  const long long e = (long long)blockIdx.x * nt + tid;
-  if (e >= bsz) return;  // threads never synchronise: each owns its columns
+                   int t_steps, int m_rows) {
+  using Bk = DecodeBucket<H, R>;
+  constexpr int H4 = 4 * H;
+  constexpr int RR = R * R;
+  extern __shared__ float4 decode_smem[];
+  float* s_wi = reinterpret_cast<float*>(decode_smem);
+  float* s_wh = s_wi + H * H4;
+  float* s_b = s_wh + H * H4;
+  float* s_wf = s_b + H4;
+  float* s_wl = s_wf + H * R;
+  float* s_bf = s_wl + H * R;
+  float* s_bl = s_bf + R;
+  float* s_bm = s_bl + R;
+  float* s_wm = s_bm + RR;
 
-  for (int k = 0; k < hid; ++k) {
-    sh[k * nt + tid] = 0.f;
-    sc[k * nt + tid] = 0.f;
-  }
-  const int rr = rank * rank;
-  float result = 0.f;
+  const int tid = threadIdx.x;
+  stage<T, H * H4>(s_wi, wi, tid);
+  stage<T, H * H4>(s_wh, wh, tid);
+  stage<T, H4>(s_b, b, tid);
+  stage<T, H * R>(s_wf, w_first, tid);
+  stage<T, H * R>(s_wl, w_last, tid);
+  stage<T, R>(s_bf, b_first, tid);
+  stage<T, R>(s_bl, b_last, tid);
+  stage<T, RR>(s_bm, b_mid, tid);
+  if constexpr (Bk::kMidInSmem) stage<T, H * RR>(s_wm, w_mid, tid);
+  __syncthreads();
+
+  const int e = blockIdx.x * kDecodeThreads + tid;  // bsz < 2^31: the launcher checks
+  if (e >= bsz) return;
+
+  float h[H], c[H], v[R];
+#pragma unroll
+  for (int k = 0; k < H; ++k) h[k] = c[k] = 0.f;
   for (int t = 0; t < t_steps; ++t) {
-    const int ix = idx[e * t_steps + t];
+    const int ix = idx[(size_t)e * t_steps + t];
     const bool ok = ix >= 0 && ix < m_rows;
-    const T* row = emb + ((size_t)t * m_rows + (ok ? ix : 0)) * hid;
-    for (int k = 0; k < hid; ++k) sx[k * nt + tid] = ok ? load_f(row + k) : 0.f;
-    lstm_cell(sx, sh, shn, sc, wi, wh, b, hid, nt, tid);
+    const T* row = emb + ((size_t)t * m_rows + (ok ? ix : 0)) * H;
+
+    // LSTM cell, four hidden units (16 gate sums) at a time.
+    float hn[H];
+#pragma unroll (Bk::kUnrollGates)
+    for (int j0 = 0; j0 < H; j0 += 4) {
+      float acc[4][4];
+      gate_sums<T, H, 4>(acc, 0, j0, row, ok, h, s_wi, s_wh);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int j = j0 + u;
+        const float gi = sigmoid_fast(acc[0][u] + s_b[j]);
+        const float gf = sigmoid_fast(acc[1][u] + s_b[H + j]);
+        const float gg = tanhf(acc[2][u] + s_b[2 * H + j]);
+        const float go = sigmoid_fast(acc[3][u] + s_b[3 * H + j]);
+        c[j] = gf * c[j] + gi * gg;
+        hn[j] = go * tanhf(c[j]);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < H; ++k) h[k] = hn[k];
 
     if (t == 0) {
-      for (int s = 0; s < rank; ++s) {
-        float acc = 0.f;
-        for (int k = 0; k < hid; ++k)
-          acc = fmaf(sh[k * nt + tid], load_f(w_first + (size_t)k * rank + s), acc);
-        sv[s * nt + tid] = acc + load_f(b_first + s);
+#pragma unroll
+      for (int s = 0; s < R; s += 4) {
+        float4 a = ld4(s_bf + s);
+#pragma unroll
+        for (int k = 0; k < H; ++k) {
+          const float4 w = ld4(s_wf + k * R + s);
+          a.x = fmaf(h[k], w.x, a.x); a.y = fmaf(h[k], w.y, a.y);
+          a.z = fmaf(h[k], w.z, a.z); a.w = fmaf(h[k], w.w, a.w);
+        }
+        v[s] = a.x; v[s + 1] = a.y; v[s + 2] = a.z; v[s + 3] = a.w;
       }
     } else if (t == t_steps - 1) {
       float o = 0.f;
-      for (int s = 0; s < rank; ++s) {
-        float acc = 0.f;
-        for (int k = 0; k < hid; ++k)
-          acc = fmaf(sh[k * nt + tid], load_f(w_last + (size_t)k * rank + s), acc);
-        o = fmaf(sv[s * nt + tid], acc + load_f(b_last + s), o);
-      }
-      result = o;
-    } else {
-      for (int s = 0; s < rank; ++s) {
-        float vs = 0.f;
-        for (int r = 0; r < rank; ++r) {
-          float acc = 0.f;
-          for (int k = 0; k < hid; ++k)
-            acc = fmaf(sh[k * nt + tid], load_f(w_mid + (size_t)k * rr + r * rank + s), acc);
-          vs = fmaf(sv[r * nt + tid], acc + load_f(b_mid + r * rank + s), vs);
+#pragma unroll
+      for (int s = 0; s < R; s += 4) {
+        float4 a = ld4(s_bl + s);
+#pragma unroll
+        for (int k = 0; k < H; ++k) {
+          const float4 w = ld4(s_wl + k * R + s);
+          a.x = fmaf(h[k], w.x, a.x); a.y = fmaf(h[k], w.y, a.y);
+          a.z = fmaf(h[k], w.z, a.z); a.w = fmaf(h[k], w.w, a.w);
         }
-        svn[s * nt + tid] = vs;
+        o = fmaf(v[s], a.x, o); o = fmaf(v[s + 1], a.y, o);
+        o = fmaf(v[s + 2], a.z, o); o = fmaf(v[s + 3], a.w, o);
       }
-      for (int s = 0; s < rank; ++s) sv[s * nt + tid] = svn[s * nt + tid];
+      store_f(out + e, o);
+    } else {
+      // v_new[s] = sum_r v[r] (b_mid[r R + s] + sum_k h[k] W_mid[k][r R + s])
+      float vn[R];
+#pragma unroll
+      for (int s = 0; s < R; ++s) vn[s] = 0.f;
+#pragma unroll (Bk::kUnrollMid)
+      for (int r = 0; r < R; ++r) {
+        float mr[R];
+#pragma unroll
+        for (int s = 0; s < R; s += 4) {
+          const float4 bm = ld4(s_bm + r * R + s);
+          mr[s] = bm.x; mr[s + 1] = bm.y; mr[s + 2] = bm.z; mr[s + 3] = bm.w;
+        }
+#pragma unroll
+        for (int k = 0; k < H; ++k) {
+#pragma unroll
+          for (int s = 0; s < R; s += 4) {
+            const float4 w = Bk::kMidInSmem ? ld4(s_wm + k * RR + r * R + s)
+                                            : ldg4(w_mid + (size_t)k * RR + r * R + s);
+            mr[s] = fmaf(h[k], w.x, mr[s]);
+            mr[s + 1] = fmaf(h[k], w.y, mr[s + 1]);
+            mr[s + 2] = fmaf(h[k], w.z, mr[s + 2]);
+            mr[s + 3] = fmaf(h[k], w.w, mr[s + 3]);
+          }
+        }
+        const float vr = v[r];
+#pragma unroll
+        for (int s = 0; s < R; ++s) vn[s] = fmaf(vr, mr[s], vn[s]);
+      }
+#pragma unroll
+      for (int s = 0; s < R; ++s) v[s] = vn[s];
     }
   }
-  store_f(out + e, result);
 }
 
-template <typename T>
+template <typename T, int H, int R>
 cudaError_t launch_decode_tile(const void* idx, const void* emb, const void* wi,
                                const void* wh, const void* b, const void* wf,
                                const void* bf, const void* wm, const void* bm,
                                const void* wl, const void* bl, void* out, long long bsz,
-                               int t_steps, int m_rows, int hid, int rank,
-                               cudaStream_t stream) {
-  const size_t smem = (size_t)kDecodeThreads * (4 * hid + 2 * rank) * sizeof(float);
-  cudaError_t err = allow_smem(decode_tile_kernel<T>, smem);
+                               int t_steps, int m_rows, cudaStream_t stream) {
+  const size_t smem = (size_t)DecodeBucket<H, R>::kSmemFloats * sizeof(float);
+  cudaError_t err = allow_smem(decode_tile_kernel<T, H, R>, smem);
   if (err != cudaSuccess) return err;
-  decode_tile_kernel<T><<<grid_for(bsz, kDecodeThreads), kDecodeThreads, smem, stream>>>(
+  decode_tile_kernel<T, H, R><<<grid_for(bsz, kDecodeThreads), kDecodeThreads, smem, stream>>>(
       static_cast<const int*>(idx), static_cast<const T*>(emb), static_cast<const T*>(wi),
       static_cast<const T*>(wh), static_cast<const T*>(b), static_cast<const T*>(wf),
       static_cast<const T*>(bf), static_cast<const T*>(wm), static_cast<const T*>(bm),
       static_cast<const T*>(wl), static_cast<const T*>(bl), static_cast<T*>(out), bsz,
-      t_steps, m_rows, hid, rank);
+      t_steps, m_rows);
   return cudaGetLastError();
 }
 
+template cudaError_t launch_decode_tile<REPRO_DECODE_T, REPRO_DECODE_H, REPRO_DECODE_R>(
+    const void*, const void*, const void*, const void*, const void*, const void*, const void*,
+    const void*, const void*, const void*, const void*, void*, long long, int, int,
+    cudaStream_t);
+
 }  // namespace repro
-
-extern "C" int repro_decode_tile(const void* idx, const void* emb, const void* wi,
-                                 const void* wh, const void* b, const void* wf,
-                                 const void* bf, const void* wm, const void* bm,
-                                 const void* wl, const void* bl, void* out, long long bsz,
-                                 int t_steps, int m_rows, int hid, int rank, int dtype,
-                                 void* stream) {
-  if (bsz <= 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == repro::kDtypeF32)
-    return repro::launch_decode_tile<float>(idx, emb, wi, wh, b, wf, bf, wm, bm, wl, bl, out,
-                                            bsz, t_steps, m_rows, hid, rank, s);
-  if (dtype == repro::kDtypeBF16)
-    return repro::launch_decode_tile<__nv_bfloat16>(idx, emb, wi, wh, b, wf, bf, wm, bm, wl,
-                                                    bl, out, bsz, t_steps, m_rows, hid, rank,
-                                                    s);
-  return cudaErrorInvalidValue;
-}
-
-extern "C" const char* repro_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
-}

@@ -4,21 +4,81 @@ Counterpart of ``repro.kernels.decode_tile``.  On a CUDA tensor it
 launches the hand-written kernel on the current stream or raises; on a
 CPU tensor it runs the plain version ``ref.nttd_decode_tile``.
 ``launches`` counts kernel launches, nothing else.
+
+The kernel is compiled for the (hidden, rank) buckets of the codec's own
+architectures.  Any other shape runs through the smallest bucket that
+holds it, on weights zero-padded by ``pad_to_bucket``; that is exact,
+since a padded hidden unit's gates are (1/2, 1/2, 0, 1/2), so its c and h
+stay 0, and a padded rank column of v stays 0.  The weights are fixed for
+a payload, so the codec pads them once (``bucket_operands``, through
+``core.nttd.decode_operands``) and this wrapper then pads nothing.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build, ref
-from repro_torch.kernels._common import (
-    DTYPE_CODES,
-    check_cuda_operands,
-    check_shape,
-    check_smem,
-)
+from repro_torch.kernels._common import DTYPE_CODES, check_cuda_operands, check_shape
 
-THREADS = 64  # kDecodeThreads in csrc/decode_tile.cu
+# (hidden, rank) instantiations of csrc/decode_tile.cu, smallest first, as
+# REPRO_DECODE_BUCKETS in csrc/decode_tile.cuh lists them:
+# 12/6 (paper SMALL), 8/8 and 5/5 run in (12, 8); 16/8 (the default) in
+# (16, 8); 18/10 (paper MEDIUM) in (20, 12); hidden = 2 rank up to rank 16
+# in (32, 16); (64, 32) is the largest shape tested
+BUCKETS = ((12, 8), (16, 8), (20, 12), (32, 16), (64, 32))
 launches = 0
+
+
+def bucket_for(hid: int, rank: int) -> tuple[int, int]:
+    """The smallest instantiated (hidden, rank) bucket holding the shape."""
+    for bucket in BUCKETS:
+        if hid <= bucket[0] and rank <= bucket[1]:
+            return bucket
+    raise ValueError(
+        f"decode_tile: hidden {hid}, rank {rank} exceed the largest bucket "
+        f"(hidden <= {BUCKETS[-1][0]}, rank <= {BUCKETS[-1][1]})"
+    )
+
+
+def pad_to_bucket(
+    weights: tuple[torch.Tensor, ...], hid_to: int, rank_to: int
+) -> tuple[torch.Tensor, ...]:
+    """Zero-pad the ten weight operands of ``decode_tile`` (emb, wi, wh, b,
+    w_first, b_first, w_mid, b_mid, w_last, b_last) to hidden ``hid_to``
+    and rank ``rank_to``; the gate blocks (i, f, g, o) of ``wi``, ``wh``
+    and ``b`` and the R x R blocks of ``w_mid`` and ``b_mid`` are padded
+    each on its own."""
+    emb, wi, wh, b, w_first, b_first, w_mid, b_mid, w_last, b_last = weights
+    hid, rank = emb.shape[2], b_first.shape[0]
+    dh, dr = hid_to - hid, rank_to - rank
+    if dh < 0 or dr < 0:
+        raise ValueError(f"cannot pad hidden {hid}, rank {rank} to {hid_to}, {rank_to}")
+    pad = torch.nn.functional.pad
+
+    def gates(w):  # [..., 4H] -> [..., 4 H_to]
+        return pad(w.reshape(*w.shape[:-1], 4, hid), (0, dh)).reshape(*w.shape[:-1], 4 * hid_to)
+
+    def cores(w):  # [..., R*R] -> [..., R_to*R_to]
+        return pad(w.reshape(*w.shape[:-1], rank, rank), (0, dr, 0, dr)).reshape(
+            *w.shape[:-1], rank_to * rank_to)
+
+    return (
+        pad(emb, (0, dh)),
+        pad(gates(wi), (0, 0, 0, dh)), pad(gates(wh), (0, 0, 0, dh)), gates(b),
+        pad(w_first, (0, dr, 0, dh)), pad(b_first, (0, dr)),
+        pad(cores(w_mid), (0, 0, 0, dh)), cores(b_mid),
+        pad(w_last, (0, dr, 0, dh)), pad(b_last, (0, dr)),
+    )
+
+
+def bucket_operands(weights: tuple[torch.Tensor, ...]) -> tuple[torch.Tensor, ...]:
+    """The ten weight operands of ``decode_tile``, zero-padded to their
+    bucket and contiguous; returned as they are when already so."""
+    hid, rank = weights[0].shape[2], weights[5].shape[0]
+    bucket = bucket_for(hid, rank)
+    if bucket != (hid, rank):
+        weights = pad_to_bucket(weights, *bucket)
+    return tuple(t.contiguous() for t in weights)
 
 
 def decode_tile(
@@ -52,6 +112,8 @@ def decode_tile(
     bsz, t_steps = idx.shape
     if t_steps < 2:
         raise ValueError(f"decode_tile needs T >= 2 steps, got {t_steps}")
+    if bsz >= 2**31:
+        raise ValueError(f"decode_tile: {bsz} entries exceed the kernel's 2**31 - 1")
     _, m_rows, hid = emb.shape
     rank = b_first.shape[0]
     names = ("emb", "wi", "wh", "b", "w_first", "b_first", "w_mid", "b_mid",
@@ -75,14 +137,18 @@ def decode_tile(
         ("b_last", b_last, (rank,)),
     ):
         check_shape("decode_tile", key, t, shape)
-    check_smem("decode_tile", THREADS, 4 * hid + 2 * rank)
+    weights = bucket_operands(weights)
+    hid_to, rank_to = weights[0].shape[2], weights[5].shape[0]
+    for key in ("emb", "w_mid"):  # read as vectors from device memory
+        if weights[names.index(key)].data_ptr() % 16:
+            raise ValueError(f"decode_tile: {key} must be 16-byte aligned")
     out = torch.empty((bsz,), dtype=emb.dtype, device=device)
     if bsz == 0:
         return out
     with torch.cuda.device(device):
         err = lib.repro_decode_tile(
             idx.data_ptr(), *(t.data_ptr() for t in weights), out.data_ptr(),
-            bsz, t_steps, m_rows, hid, rank, DTYPE_CODES[emb.dtype],
+            bsz, t_steps, m_rows, hid_to, rank_to, DTYPE_CODES[emb.dtype],
             torch.cuda.current_stream(device).cuda_stream,
         )
     _build.check(lib, "decode_tile", err)

@@ -188,3 +188,20 @@ def test_wrapper_rejects_untiled_lengths():
     _, (tq, tk, tv) = _pair(_qkv(1, 130, 130, 2, 2, 8, seed=10), "float32")
     with pytest.raises(ValueError, match="not multiples of tiles"):
         tattention.flash_attention(tq, tk, tv)
+
+
+def test_flash_body_selection_and_cpu_route():
+    """bf16 at the LMs' head widths runs the tensor-core body, f32 and D = 8
+    the scalar one; a CPU tensor runs the plain version and counts no
+    launch."""
+    for d in (64, 128):
+        assert tattention.flash_body(torch.bfloat16, d) == "wgmma"
+    for d in (8, 64, 128):
+        assert tattention.flash_body(torch.float32, d) == "simt"
+    assert tattention.flash_body(torch.bfloat16, 8) == "simt"
+    _, (tq, tk, tv) = _pair(_qkv(1, 128, 128, 2, 1, 64, seed=11), "bfloat16")
+    tops.reset_launch_counts()
+    got = tattention.flash_attention(tq, tk, tv, causal=True)
+    assert tops.launch_counts()["flash_attention"] == 0
+    torch.testing.assert_close(got, tref.flash_attention(tq, tk, tv, causal=True),
+                               rtol=0, atol=0)

@@ -191,3 +191,48 @@ def test_cpu_runs_count_no_launches():
     tops.attention(q, q, q, impl="auto")
     assert tops.launch_counts() == {"decode_tile": 0, "lstm_scan": 0, "tt_contract": 0,
                                     "flash_attention": 0}
+
+
+@pytest.mark.parametrize("hid,rank", [(12, 5), (4, 2), (12, 6), (18, 10)])
+def test_decode_tile_bucket_padding_is_exact(hid, rank):
+    """The CUDA decode runs other (hidden, rank) shapes through a bucket on
+    zero-padded weights.  The plain decode on the padded weights equals the
+    JAX oracle on the unpadded ones: the identity the kernel relies on."""
+    from repro_torch.kernels import decode_tile as tdecode
+
+    idx, ws = _decode_args(65, 4, 9, hid, rank, seed=3)
+    (jidx, jws), (tidx, tws) = _decode_pair(idx, ws, "float32")
+    want = _J_DECODE(jidx, *jws)
+    bucket = tdecode.bucket_for(hid, rank)
+    padded = tdecode.pad_to_bucket(tuple(tws), *bucket)
+    assert padded[0].shape[2] == bucket[0] and padded[5].shape == (bucket[1],)
+    _close(tref.nttd_decode_tile(tidx, *padded), want, "float32")
+    with pytest.raises(ValueError, match="largest bucket"):
+        tdecode.bucket_for(65, 4)
+
+
+def test_decode_tile_buckets_hold_the_repo_configs():
+    """Each NTTD architecture the repo runs lands in a bucket close to it,
+    and ``bucket_operands`` pads only what is off a bucket."""
+    from repro.configs import tensorcodec_paper
+    from repro.core import nttd as jnttd
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import decode_tile as tdecode
+
+    assert _build.decode_buckets() == tdecode.BUCKETS  # the C dispatch's list
+    assert len(_build.units()) == len(_build.SOURCES) - 1 + 2 * len(tdecode.BUCKETS)
+    default = jnttd.NTTDConfig()
+    for cfg, bucket in ((tensorcodec_paper.SMALL, (12, 8)), (default, (16, 8)),
+                        (tensorcodec_paper.MEDIUM, (20, 12))):
+        assert tdecode.bucket_for(cfg.hidden, cfg.rank) == bucket
+    for shape, bucket in (((8, 8), (12, 8)), ((5, 5), (12, 8)), ((16, 4), (16, 8)),
+                          ((24, 12), (32, 16)), ((16, 32), (64, 32)), ((64, 32), (64, 32))):
+        assert tdecode.bucket_for(*shape) == bucket
+    _, ws = _decode_args(3, 4, 9, 16, 8)
+    tws = tuple(torch.from_numpy(np.asarray(w, np.float32)) for w in ws)
+    assert all(a is b for a, b in zip(tdecode.bucket_operands(tws), tws))
+    _, ws = _decode_args(3, 4, 9, 18, 10)
+    padded = tdecode.bucket_operands(tuple(torch.from_numpy(np.asarray(w, np.float32))
+                                           for w in ws))
+    assert padded[0].shape == (4, 9, 20) and padded[6].shape == (20, 144)
+    assert all(t.is_contiguous() for t in padded)

@@ -143,3 +143,45 @@ def test_params_numpy_round_trip():
     ):
         assert pa == pb
         np.testing.assert_array_equal(a, b)
+
+
+def test_init_params_defaults_to_cuda(monkeypatch):
+    """Without a device, ``init_params`` resolves CUDA like every entry point
+    of the port: with no CUDA device it raises, and ``device="cpu"`` builds."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    spec = tfolding.make_folding_spec((6, 5, 4))
+    cfg = tnttd.NTTDConfig(rank=3, hidden=4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tnttd.init_params(torch.Generator().manual_seed(0), spec, cfg)
+    params = tnttd.init_params(torch.Generator().manual_seed(0), spec, cfg, device="cpu")
+    assert tnttd.params_device(params) == torch.device("cpu")
+    assert tnttd.count_params(params) > 0
+
+
+def test_compressed_tensor_builds_decode_operands_once(monkeypatch):
+    """A payload stacks (and on CUDA pads) the fused decode's operands once,
+    not per request; its answers equal a fresh ``apply``."""
+    from repro_torch.core.codec import CompressedTensor
+
+    shape = (20, 18, 12)
+    jspec, jcfg, jparams = _jax_params(shape, 6, 12)
+    tspec = tfolding.make_folding_spec(shape)
+    tparams = convert.params_from_numpy(jax.tree.map(np.asarray, jparams), "cpu")
+    cfg = tnttd.NTTDConfig(rank=6, hidden=12)
+    calls = []
+    inputs = tnttd.fused_decode_inputs
+    monkeypatch.setattr(tnttd, "fused_decode_inputs",
+                        lambda *a: calls.append(1) or inputs(*a))
+    pi = [np.arange(n) for n in shape]
+    ct = CompressedTensor(tparams, pi, tspec, cfg)
+    rng = np.random.default_rng(2)
+    idx = np.stack([rng.integers(0, n, 100) for n in shape], axis=1)
+    first, second = ct.decode(idx), ct.decode(idx)
+    dense = ct.to_dense(batch=1000)
+    assert len(calls) == 1
+    # on the CPU the plain version runs, on the operands as they are
+    assert ct.decode_operands[0].shape == (tspec.d_prime, max(tspec.folded_shape), 12)
+    want = tnttd.apply_at_positions(tparams, torch.from_numpy(idx), tspec, cfg).numpy()
+    np.testing.assert_array_equal(first, want)
+    np.testing.assert_array_equal(second, want)
+    np.testing.assert_array_equal(dense[tuple(idx.T)], want)
