@@ -8,13 +8,20 @@ Phases, each printing JSON lines:
 1. device: the card's name and power limit, and the kernel build
    (``nvcc`` for ``sm_90a`` from ``src/repro_torch/kernels/csrc``) with
    each kernel's registers, shared memory, stack and spills from
-   ``-Xptxas -v``; then the count of tensor-core instructions (``HGMMA``)
-   per kernel in the library's SASS (``cuobjdump -sass``).
+   ``-Xptxas -v`` (the ``lstm_scan`` register body at H 16, the main
+   path's, must not spill and must leave room for three blocks a SM);
+   then the count of tensor-core instructions (``HGMMA``) per kernel in
+   the library's SASS (``cuobjdump -sass``).
 2. kernels: each CUDA kernel against its plain PyTorch version on the card,
    over the reference's test grid (R in {4, 8, 32}, T in {2, 3, 8}, f32
    and bf16, B = 33 and B = 0), at the main path's shapes, at H = 64,
    R = 32, at every instantiated (H, R) bucket of ``decode_tile`` and at
    shapes padded to one (H 12, R 5; the paper's 12/6 and 18/10);
+   ``lstm_scan`` at B 1000, T 10 at every hidden bucket of its register
+   body (12, 16, 20, 32, 64), at widths padded into one (5, 18, 24), on an
+   x whose rows are off the 16-byte grid (the scalar-load route), and at
+   H 96 through its simt body; every lstm case names its body, bucket and
+   load route (``kernels.lstm_buckets``);
    ``flash_attention`` over the reference's
    attention grid, ``q_offset`` 128, odd and ragged lengths (the pad path),
    starcoder2's 48/4 grouping, fully masked rows (``q_offset`` < 0), head
@@ -58,7 +65,10 @@ Phases, each printing JSON lines:
    paths' shapes, with CUDA events; the bound is computed from the shapes
    against the H100 SXM's published peaks.  At the flash timing shape the
    kernel's error must be below SDPA's and pass the per-element check,
-   and a bf16-p control must fail it.
+   and a bf16-p control must fail it.  The ``lstm_scan`` row names the
+   body, bucket and load route that ran, and the device kernels one call
+   runs as ``torch.profiler`` sees them, which must be the register kernel
+   alone.
 
 The line before the last is the card's ``name, power.limit`` as
 ``nvidia-smi`` reports them; the last line is the result object.  Any
@@ -215,6 +225,51 @@ def flash_bf16p_control(torch, q, k, v):
     return (out / p.sum(-1).permute(0, 2, 1)[..., None]).to(q.dtype)
 
 
+def device_kernels(torch, fn):
+    """Names of the device kernels and copies one call of ``fn`` runs, from
+    ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def bound(n_ops: int, n_bytes: int, peak_ops: float) -> dict:
+    """``bound_ms`` and ``bound_by``: the larger of ``n_ops`` over
+    ``peak_ops`` and ``n_bytes`` over ``PEAK_BYTES``."""
+    t_ops, t_bytes = n_ops / peak_ops * 1e3, n_bytes / PEAK_BYTES * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def lstm_cost(b: int, t: int, h: int) -> tuple[int, int]:
+    """(FLOP, bytes) of an f32 LSTM scan: 16 h^2 FLOP per entry and step;
+    x read and every h written once, the weights read once."""
+    return b * t * 16 * h * h, (2 * b * t * h + 8 * h * h + 4 * h) * 4
+
+
+def cudnn_lstm(torch, wi, wh, bias):
+    """cuDNN ``torch.nn.LSTM`` holding wi, wh [H, 4H] and b [4H] (gates i,
+    f, g, o), as a function x [B, T, H] -> every h: ``lstm_scan``'s
+    library yardstick."""
+    h = wi.shape[0]
+    net = torch.nn.LSTM(h, h, batch_first=True).to(wi.device)
+    with torch.no_grad():
+        net.weight_ih_l0.copy_(wi.T)
+        net.weight_hh_l0.copy_(wh.T)
+        net.bias_ih_l0.copy_(bias)
+        net.bias_hh_l0.zero_()
+
+    def run(x):
+        with torch.no_grad():
+            return net(x)[0]
+    return run
+
+
 def chain_equation(k: int) -> str:
     """``torch.einsum`` equation of first . mid_1 ... mid_k . last -> [B]."""
     chain = "acdefghijklmnopqrstuvwxyz"[: k + 1]
@@ -235,6 +290,15 @@ def decode_inputs(torch, gen, b, t, m, hid, rank, dtype, device):
         mk(hid, rank * rank, scale=0.5 / rank**0.5), mk(rank * rank, scale=0.1),
         mk(hid, rank), mk(rank, scale=0.1),
     )
+
+
+def lstm_inputs(torch, gen, b, t, h, dtype, device, offset=0):
+    """x [b, t, h], starting ``offset`` elements into its buffer, and wi,
+    wh, b scaled as the reference's tests."""
+    x = torch.randn((b * t * h + offset,), generator=gen).to(device, dtype)[offset:]
+    return x.view(b, t, h), tuple(
+        (torch.randn(shape, generator=gen) * scale).to(device, dtype)
+        for shape, scale in (((h, 4 * h), 0.3), ((h, 4 * h), 0.3), ((4 * h,), 0.1)))
 
 
 def flash_inputs(torch, gen, b, sq, skv, hq, hkv, d, dtype, device):
@@ -275,6 +339,15 @@ FLASH_CASES = (
 # shapes off the buckets, run on zero-padded weights: (12, 5) in (12, 8),
 # the paper's SMALL 12/6 in (12, 8), its MEDIUM 18/10 in (20, 12)
 PADDED_DECODE = ((12, 5), (12, 6), (18, 10))
+# lstm_scan cases beside its register body's buckets: (hidden, x's offset
+# in elements into its buffer).  5 (fig8), 18 (paper MEDIUM) and 24 (fleet
+# repair) are padded inside the kernel, 18's 72-byte rows and an x one
+# element off the 16-byte grid take the scalar loads, 96 the simt body.
+LSTM_EXTRA = ((5, 0), (18, 0), (24, 0), (16, 1), (96, 0))
+LSTM_B, LSTM_T = 1000, 10
+# registers a thread that leave room for three blocks of 128 threads a SM
+# (65,536 registers, allocated in steps of 8 a thread)
+LSTM_H16_REGISTERS = 168
 
 
 # ---------------------------------------------------------------------------
@@ -343,6 +416,7 @@ def phase_device(torch):
     smi = nvidia_smi_line()
     path, seconds, log = _build.build()
     _build.library()
+    resources = ptxas_resources(log)
     emit({"phase": "device", "name_power_limit": smi,
           "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
           "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -350,7 +424,13 @@ def phase_device(torch):
           "nvcc_seconds": {m.group(1): float(m.group(2))
                            for m in re.finditer(r"^== (\S+) \(([\d.]+) s\)$", log, re.M)},
           "library": os.path.relpath(path, ROOT),
-          "ptxas": ptxas_resources(log)})
+          "ptxas": resources})
+    h16 = [r for r in resources if "lstm_scan_register_kernel" in r["kernel"]
+           and "(int)16>" in r["kernel"]]
+    require(len(h16) == 2 and all(r["spill_store_bytes"] == r["spill_load_bytes"] == 0
+                                  and r["registers"] <= LSTM_H16_REGISTERS for r in h16),
+            f"lstm_scan's H 16 register body spills or exceeds {LSTM_H16_REGISTERS} "
+            f"registers: {h16}")
     sass = sass_hgmma(path)
     if sass["tool"]:
         wgmma = {k: n for k, n in sass["hgmma"].items() if "flash_attention_wgmma" in k}
@@ -364,10 +444,11 @@ def phase_kernels(torch, device):
     """Every kernel against its plain version on the card."""
     from repro_torch.kernels import attention as _attention
     from repro_torch.kernels import decode_tile as _decode_tile
+    from repro_torch.kernels import lstm as _lstm
     from repro_torch.kernels import ops, ref
 
     gen = torch.Generator().manual_seed(SEED)
-    flash_cases, decode_cases = [], []
+    flash_cases, decode_cases, lstm_cases = [], [], []
     errs = {name: {"float32": 0.0, "bfloat16": 0.0, "bfloat16_ulps": 0.0}
             for name in SOURCES}
     cases = 0
@@ -434,6 +515,22 @@ def phase_kernels(torch, device):
             decode_cases.append({"H": h, "R": r, "dtype": dn,
                                  "bucket": list(_decode_tile.bucket_for(h, r)),
                                  "max_abs_err": err, "ulps": ulps})
+        # lstm_scan's register body at every bucket, padded widths, both
+        # load routes, and its simt body above the largest bucket
+        for h, offset in [(h, 0) for h in _lstm.BUCKETS] + list(LSTM_EXTRA):
+            x, lw = lstm_inputs(torch, gen, LSTM_B, LSTM_T, h, dtype, device, offset)
+            got = ops.lstm_scan(x, *lw, impl="cuda")
+            err, ulps = record("lstm_scan", dn, got, ref.lstm_scan(x, *lw))
+            body = _lstm.lstm_body(h)
+            lstm_cases.append({
+                "H": h, "dtype": dn, "body": body,
+                "bucket": _lstm.bucket_for(h) if body == "register" else None,
+                "loads": "vector" if body == "register" and _lstm.vector_rows(x, got)
+                else "scalar", "x_offset_bytes": x.data_ptr() % 16,
+                "max_abs_err": err, "ulps": ulps})
+        routes = {(c["body"], c["loads"]) for c in lstm_cases if c["dtype"] == dn}
+        require(routes == {("register", "vector"), ("register", "scalar"), ("simt", "scalar")},
+                f"lstm_scan cases in {dn} ran the routes {sorted(routes)}")
         # an index outside [0, M) gathers a zero row in both versions
         idx, ws = decode_inputs(torch, gen, 33, 3, 10, 16, 8, dtype, device)
         idx[0, 1] = 10
@@ -458,6 +555,7 @@ def phase_kernels(torch, device):
     emit({"phase": "kernels", "cases": cases, "tolerance": TOL, "bf16_ulps": BF16_ULPS,
           "flash_row_floor": FLASH_ROW_FLOOR, "max_abs_err": errs})
     emit({"phase": "kernels.decode_buckets", "cases": decode_cases})
+    emit({"phase": "kernels.lstm_buckets", "cases": lstm_cases})
     emit({"phase": "kernels.flash", "cases": flash_cases})
     return errs
 
@@ -672,7 +770,6 @@ def flash_timing_row(torch, device, launches, errs):
     visible = s * (s + 1) // 2  # causal: query i sees keys 0..i
     n_ops = 4 * b * h * d * visible
     n_bytes = 4 * b * s * h * d * 2  # q, k, v read once, out written once, bf16
-    t_ops, t_bytes = n_ops / PEAK_BF16 * 1e3, n_bytes / PEAK_BYTES * 1e3
     return {
         "name": "flash_attention", "route": "cuda", "source": SOURCES["flash_attention"][0],
         "replaces": SOURCES["flash_attention"][1], "launches": launches["flash_attention"],
@@ -681,8 +778,7 @@ def flash_timing_row(torch, device, launches, errs):
         "body": _attention.flash_body(q.dtype, d), "max_abs_err_at_shape": kernel_err,
         "ms": time_ms(torch, lambda: _attention.flash_attention(q, k, v, causal=True), 20),
         "plain_ms": time_ms(torch, lambda: ref.flash_attention(q, k, v, causal=True), 5),
-        "bound_ms": max(t_ops, t_bytes),
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        **bound(n_ops, n_bytes, PEAK_BF16),
         "library_ms": time_ms(torch, library, 20),
         "library": "torch.nn.functional.scaled_dot_product_attention(is_causal=True) "
                    "on [B, H, S, D] bf16", "library_max_abs_err": lib_err,
@@ -696,6 +792,7 @@ def phase_timing(torch, device, enc, idx_np, launches, errs):
     """Kernel, plain and library times at the main path's shapes."""
     from repro_torch.core import nttd
     from repro_torch.kernels import decode_tile as _decode_tile
+    from repro_torch.kernels import lstm as _lstm
     from repro_torch.kernels import ops, ref
 
     ct = enc.ct
@@ -716,7 +813,6 @@ def phase_timing(torch, device, enc, idx_np, launches, errs):
         b, t - 2, r, r).contiguous()
 
     weight_elems = sum(int(w.numel()) for w in ws)
-    lstm_w = 8 * h * h + 4 * h
     rows = []
 
     # decode_tile: LSTM gates, head projections and the chain, per entry
@@ -727,23 +823,12 @@ def phase_timing(torch, device, enc, idx_np, launches, errs):
                  lambda: ops.nttd_decode_tile(folded, *ws, impl="cuda"),
                  lambda: ref.nttd_decode_tile(folded, *ws), None, None))
 
-    ops_l = b * t * 16 * h * h
-    bytes_l = 2 * b * t * h * 4 + lstm_w * 4
-    cudnn = torch.nn.LSTM(h, h, batch_first=True).to(device)
-    with torch.no_grad():
-        cudnn.weight_ih_l0.copy_(lstm["wi"].T)
-        cudnn.weight_hh_l0.copy_(lstm["wh"].T)
-        cudnn.bias_ih_l0.copy_(lstm["b"])
-        cudnn.bias_hh_l0.zero_()
-
-    def library_lstm():
-        with torch.no_grad():
-            return cudnn(x)[0]
-
+    ops_l, bytes_l = lstm_cost(b, t, h)
+    library_lstm = cudnn_lstm(torch, lstm["wi"], lstm["wh"], lstm["b"])
     rows.append(("lstm_scan", ops_l, bytes_l,
                  lambda: ops.lstm_scan(x, lstm["wi"], lstm["wh"], lstm["b"], impl="cuda"),
-                 lambda: ref.lstm_scan(x, lstm["wi"], lstm["wh"], lstm["b"]), library_lstm,
-                 "cuDNN torch.nn.LSTM, gates (i, f, g, o)"))
+                 lambda: ref.lstm_scan(x, lstm["wi"], lstm["wh"], lstm["b"]),
+                 lambda: library_lstm(x), "cuDNN torch.nn.LSTM, gates (i, f, g, o)"))
 
     ops_t = b * ((t - 2) * 2 * r * r + 2 * r)
     bytes_t = (2 * b * r + b * (t - 2) * r * r) * 4 + b * 4
@@ -759,7 +844,6 @@ def phase_timing(torch, device, enc, idx_np, launches, errs):
 
     kernels = []
     for name, n_ops, n_bytes, kern, plain, library, library_name in rows:
-        t_ops, t_bytes = n_ops / PEAK_FP32 * 1e3, n_bytes / PEAK_BYTES * 1e3
         lib_err = float((library() - plain()).abs().max()) if library else None
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name][0],
@@ -768,14 +852,22 @@ def phase_timing(torch, device, enc, idx_np, launches, errs):
             "max_abs_err_bf16": errs[name]["bfloat16"],
             "ms": time_ms(torch, kern, 20),
             "plain_ms": time_ms(torch, plain, 5),
-            "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            **bound(n_ops, n_bytes, PEAK_FP32),
             "library_ms": time_ms(torch, library, 20) if library else None,
             "library": library_name, "library_max_abs_err": lib_err,
             "shape": {"B": b, "T": t, "M": m, "H": h, "R": r},
             "ops": n_ops, "bytes": n_bytes,
         })
     kernels[0]["bucket"] = list(_decode_tile.bucket_for(h, r))
+    # lstm_scan: the body, bucket and load route at this shape, and every
+    # device kernel or copy one wrapper call runs (the register kernel only)
+    lstm_call = rows[1][3]
+    kernels[1].update(body=_lstm.lstm_body(h), bucket=_lstm.bucket_for(h),
+                      loads="vector" if _lstm.vector_rows(x, lstm_call()) else "scalar",
+                      device_ops_per_call=device_kernels(torch, lstm_call))
+    seen = kernels[1]["device_ops_per_call"]
+    require(len(seen) == 1 and "lstm_scan_register_kernel" in seen[0],
+            f"one lstm_scan call ran {seen}, not the register kernel alone")
     return kernels
 
 

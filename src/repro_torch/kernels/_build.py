@@ -3,10 +3,11 @@
 The sources under ``csrc/`` are compiled by ``nvcc`` for Hopper
 (``sm_90a``), one ``nvcc -c`` per compile unit, all started together, and
 linked into one shared library with a plain C interface that is loaded
-with ``ctypes``.  A unit is a source, except ``decode_tile.cu``, which is
-built once per (hidden, rank) bucket and dtype (``units``) so that its
-unrolled instantiations compile in parallel.  The library lands in ``build/repro_torch_kernels/`` at
-the root of the checkout, under a name keyed by a hash of the sources and
+with ``ctypes``.  A unit is a source, except ``decode_tile.cu`` and
+``lstm.cu``, which are built once per bucket ((hidden, rank) and hidden)
+and dtype (``units``) so that their unrolled instantiations compile in
+parallel.  The library lands in ``build/repro_torch_kernels/`` at the root
+of the checkout, under a name keyed by a hash of the sources and
 flags, so an edited source is rebuilt and an unchanged one is reused.
 Nothing is built when the module is imported: ``library()`` builds on
 first use and raises when the build is impossible (no ``nvcc``) or fails.
@@ -26,10 +27,11 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("decode_tile.cu", "decode_tile_dispatch.cu", "lstm.cu", "tt_contract.cu",
-           "flash_attention.cu")
-HEADERS = ("common.cuh", "decode_tile.cuh", "hopper.cuh")
-DECODE_DTYPES = ("float", "__nv_bfloat16")
+SOURCES = ("decode_tile.cu", "decode_tile_dispatch.cu", "lstm.cu", "lstm_dispatch.cu",
+           "tt_contract.cu", "flash_attention.cu")
+HEADERS = ("common.cuh", "decode_tile.cuh", "hopper.cuh", "lstm.cuh", "lstm_cell.cuh")
+PER_BUCKET = ("decode_tile.cu", "lstm.cu")  # compiled once per bucket and dtype
+DTYPES = ("float", "__nv_bfloat16")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -44,6 +46,8 @@ _SIGNATURES = {
     "repro_decode_tile": [_P] * 12 + [_L, _I, _I, _I, _I, _I, _P],
     # x, wi, wh, b, out, B, T, H, dtype, stream
     "repro_lstm_scan": [_P] * 5 + [_L, _I, _I, _I, _P],
+    # x, wi, wh, b, out, B, T, H, bucket, vec, dtype, stream
+    "repro_lstm_scan_register": [_P] * 5 + [_L, _I, _I, _I, _I, _I, _P],
     # first, mid, last, out, B, K, R, dtype, stream
     "repro_tt_contract": [_P] * 4 + [_L, _I, _I, _I, _P],
     # q, k, v, out, B, Sq, Skv, Hq, Hkv, D, q_offset, kv_valid, causal, scale, dtype, stream
@@ -74,14 +78,25 @@ def decode_buckets() -> tuple[tuple[int, int], ...]:
     return tuple((int(h), int(r)) for h, r in re.findall(r"X\((\d+), (\d+)\)", line))
 
 
+def lstm_buckets() -> tuple[int, ...]:
+    """The hidden widths of ``REPRO_LSTM_BUCKETS`` in ``csrc/lstm.cuh``."""
+    text = (CSRC / "lstm.cuh").read_text()
+    line = re.search(r"#define REPRO_LSTM_BUCKETS\(X\)(.*)", text).group(1)
+    return tuple(int(h) for h in re.findall(r"X\((\d+)\)", line))
+
+
 def units() -> list[tuple[str, str, tuple[str, ...]]]:
     """(name, source, extra nvcc flags) of each compile unit."""
-    out = [(name, name, ()) for name in SOURCES if name != "decode_tile.cu"]
+    out = [(name, name, ()) for name in SOURCES if name not in PER_BUCKET]
     for hid, rank in decode_buckets():
-        for dtype in DECODE_DTYPES:
+        for dtype in DTYPES:
             out.append((f"decode_tile.cu:{dtype.strip('_')}:{hid}x{rank}", "decode_tile.cu",
                         (f"-DREPRO_DECODE_T={dtype}", f"-DREPRO_DECODE_H={hid}",
                          f"-DREPRO_DECODE_R={rank}")))
+    for hid in lstm_buckets():
+        for dtype in DTYPES:
+            out.append((f"lstm.cu:{dtype.strip('_')}:{hid}", "lstm.cu",
+                        (f"-DREPRO_LSTM_T={dtype}", f"-DREPRO_LSTM_H={hid}")))
     return out
 
 

@@ -43,6 +43,8 @@
 // * Buckets with large H or R keep their outer loops rolled (the gate
 //   blocks at H > 20, the mid rows at R > 12) so the code stays small;
 //   their state arrays indexed by those loops then live in local memory.
+// * The LSTM cell (gate sums, staged-weight reads, the step) is
+//   lstm_cell.cuh's, shared with the LSTM scan's register body (lstm.cu).
 //
 // This unit is compiled once per bucket and dtype, with -DREPRO_DECODE_T,
 // -DREPRO_DECODE_H and -DREPRO_DECODE_R naming them (kernels/_build.py);
@@ -52,6 +54,7 @@
 #endif
 
 #include "decode_tile.cuh"
+#include "lstm_cell.cuh"
 
 namespace repro {
 
@@ -66,7 +69,6 @@ struct DecodeBucket {
   static constexpr int kSmallFloats = 8 * H * H + 4 * H + 2 * H * R + 2 * R + R * R;
   static constexpr bool kMidInSmem = kSmallFloats + H * R * R <= kMaxSmemFloats;
   static constexpr int kSmemFloats = kSmallFloats + (kMidInSmem ? H * R * R : 0);
-  static constexpr int kUnrollGates = H <= 20 ? H / 4 : 1;
   static constexpr int kUnrollMid = R <= 12 ? R : 1;
   // blocks per SM the register budget must leave room for: four at
   // H <= 16, R <= 8 (at most 128 registers a thread, 16 warps), three at
@@ -74,66 +76,6 @@ struct DecodeBucket {
   static constexpr int kMinBlocks = (H <= 16 && R <= 8) ? 4 : (H <= 20 && R <= 12) ? 3 : 2;
   static_assert(H % 4 == 0 && R % 4 == 0, "bucket widths are multiples of 4");
 };
-
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-// Four consecutive weights from device memory as floats (read-only path).
-__device__ __forceinline__ float4 ldg4(const float* p) {
-  return __ldg(reinterpret_cast<const float4*>(p));
-}
-
-__device__ __forceinline__ float4 ldg4(const __nv_bfloat16* p) {
-  const uint2 raw = __ldg(reinterpret_cast<const uint2*>(p));
-  const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&raw.x);
-  const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&raw.y);
-  return make_float4(__low2float(lo), __high2float(lo), __low2float(hi), __high2float(hi));
-}
-
-// 1 / (1 + e^-x) with the hardware reciprocal (2 ulp): the IEEE division
-// has a called slow path, whose call spills registers.
-__device__ __forceinline__ float sigmoid_fast(float x) {
-  return __fdividef(1.0f, 1.0f + expf(-x));
-}
-
-// acc[g][u] = x . wi[:, (g0 + g) H + j0 + u] + h . wh[:, (g0 + g) H + j0 + u]
-// for G gates of the four hidden units j0 .. j0 + 3; x is the embedding row
-// (zero when the index is out of range), re-read from L1 four values at a
-// time for each block of units rather than held in 16 more registers.
-template <typename T, int H, int G>
-__device__ __forceinline__ void gate_sums(float (&acc)[G][4], int g0, int j0,
-                                          const T* __restrict__ row, bool ok,
-                                          const float (&h)[H], const float* s_wi,
-                                          const float* s_wh) {
-  constexpr int H4 = 4 * H;
-#pragma unroll
-  for (int g = 0; g < G; ++g)
-#pragma unroll
-    for (int u = 0; u < 4; ++u) acc[g][u] = 0.f;
-#pragma unroll
-  for (int k0 = 0; k0 < H; k0 += 4) {
-    const float4 x4 = ok ? ldg4(row + k0) : make_float4(0.f, 0.f, 0.f, 0.f);
-    const float x[4] = {x4.x, x4.y, x4.z, x4.w};
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const int k = k0 + kk;
-#pragma unroll
-      for (int g = 0; g < G; ++g) {
-        const float4 a = ld4(s_wi + k * H4 + (g0 + g) * H + j0);
-        const float4 w = ld4(s_wh + k * H4 + (g0 + g) * H + j0);
-        acc[g][0] = fmaf(x[kk], a.x, acc[g][0]);
-        acc[g][1] = fmaf(x[kk], a.y, acc[g][1]);
-        acc[g][2] = fmaf(x[kk], a.z, acc[g][2]);
-        acc[g][3] = fmaf(x[kk], a.w, acc[g][3]);
-        acc[g][0] = fmaf(h[k], w.x, acc[g][0]);
-        acc[g][1] = fmaf(h[k], w.y, acc[g][1]);
-        acc[g][2] = fmaf(h[k], w.z, acc[g][2]);
-        acc[g][3] = fmaf(h[k], w.w, acc[g][3]);
-      }
-    }
-  }
-}
 
 template <typename T, int N>
 __device__ __forceinline__ void stage(float* dst, const T* __restrict__ src, int tid) {
@@ -186,25 +128,10 @@ decode_tile_kernel(const int* __restrict__ idx, const T* __restrict__ emb,
     const bool ok = ix >= 0 && ix < m_rows;
     const T* row = emb + ((size_t)t * m_rows + (ok ? ix : 0)) * H;
 
-    // LSTM cell, four hidden units (16 gate sums) at a time.
-    float hn[H];
-#pragma unroll (Bk::kUnrollGates)
-    for (int j0 = 0; j0 < H; j0 += 4) {
-      float acc[4][4];
-      gate_sums<T, H, 4>(acc, 0, j0, row, ok, h, s_wi, s_wh);
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int j = j0 + u;
-        const float gi = sigmoid_fast(acc[0][u] + s_b[j]);
-        const float gf = sigmoid_fast(acc[1][u] + s_b[H + j]);
-        const float gg = tanhf(acc[2][u] + s_b[2 * H + j]);
-        const float go = sigmoid_fast(acc[3][u] + s_b[3 * H + j]);
-        c[j] = gf * c[j] + gi * gg;
-        hn[j] = go * tanhf(c[j]);
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < H; ++k) h[k] = hn[k];
+    // LSTM cell (lstm_cell.cuh); the embedding row x (zero when the index
+    // is out of range) is re-read from L1 four values at a time for each
+    // block of units rather than held in H more registers.
+    lstm_step<LdgX, H>(h, c, row, ok, s_wi, s_wh, s_b);
 
     if (t == 0) {
 #pragma unroll

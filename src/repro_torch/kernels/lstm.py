@@ -1,9 +1,14 @@
 """Wrapper of the LSTM scan kernel (``csrc/lstm.cu``), forward only.
 
-Counterpart of ``repro.kernels.lstm``.  On a CUDA tensor it launches the
-hand-written kernel on the current stream or raises; on a CPU tensor it
-runs the plain version ``ref.lstm_scan``.  ``launches`` counts kernel
-launches, nothing else.
+Counterpart of ``repro.kernels.lstm``.  On a CUDA tensor it launches one of
+the kernel's two hand-written bodies on the current stream or raises; on a
+CPU tensor it runs the plain version ``ref.lstm_scan``.  ``lstm_body``
+names the body, by shape: the register body (``"register"``,
+``csrc/lstm.cu``) for hidden widths up to the largest bucket, 64, run in
+the smallest bucket of ``BUCKETS`` that holds the width and padded inside
+the kernel; the first port's body (``"simt"``, ``csrc/lstm_dispatch.cu``)
+for wider LSTMs.  ``launches`` counts kernel launches of either body,
+nothing else.
 """
 from __future__ import annotations
 
@@ -17,8 +22,33 @@ from repro_torch.kernels._common import (
     check_smem,
 )
 
-THREADS = 64  # kLstmThreads in csrc/lstm.cu
+# hidden widths the register body is instantiated for, smallest first, as
+# REPRO_LSTM_BUCKETS in csrc/lstm.cuh lists them: the decode buckets'
+# widths, holding every LSTM width the repo runs (5, 8, 12, 16, 18, 24, 64)
+BUCKETS = (12, 16, 20, 32, 64)
+SIMT_THREADS = 64  # kLstmThreads in csrc/lstm_dispatch.cu
 launches = 0
+
+
+def bucket_for(hid: int) -> int:
+    """The smallest instantiated hidden width holding ``hid``."""
+    for bucket in BUCKETS:
+        if hid <= bucket:
+            return bucket
+    raise ValueError(f"lstm_scan: hidden {hid} exceeds the largest bucket {BUCKETS[-1]}")
+
+
+def lstm_body(hid: int) -> str:
+    """The body a CUDA call runs: "register" up to hidden 64, else "simt"."""
+    return "register" if hid <= BUCKETS[-1] else "simt"
+
+
+def vector_rows(x: torch.Tensor, out: torch.Tensor) -> bool:
+    """Whether the register body reads x and writes out four values at a
+    time: every row whole vectors (hidden % 4 == 0) and both pointers
+    aligned to a vector (16 bytes in f32, 8 in bf16)."""
+    width = 4 * x.element_size()
+    return x.shape[-1] % 4 == 0 and x.data_ptr() % width == 0 and out.data_ptr() % width == 0
 
 
 def lstm_scan(
@@ -37,16 +67,25 @@ def lstm_scan(
     check_shape("lstm_scan", "wi", wi, (hid, 4 * hid))
     check_shape("lstm_scan", "wh", wh, (hid, 4 * hid))
     check_shape("lstm_scan", "b", b, (4 * hid,))
-    check_smem("lstm_scan", THREADS, 4 * hid)
+    body = lstm_body(hid)
+    if body == "simt":
+        check_smem("lstm_scan", SIMT_THREADS, 4 * hid)
+    elif x.numel() >= 2**31:
+        raise ValueError(f"lstm_scan: x's {x.numel()} elements exceed the register body's "
+                         "2**31 - 1")
     out = torch.empty_like(x)
     if bsz == 0 or t_steps == 0:
         return out
+    stream = torch.cuda.current_stream(device).cuda_stream
+    ptrs = (x.data_ptr(), wi.data_ptr(), wh.data_ptr(), b.data_ptr(), out.data_ptr())
     with torch.cuda.device(device):
-        err = lib.repro_lstm_scan(
-            x.data_ptr(), wi.data_ptr(), wh.data_ptr(), b.data_ptr(), out.data_ptr(),
-            bsz, t_steps, hid, DTYPE_CODES[x.dtype],
-            torch.cuda.current_stream(device).cuda_stream,
-        )
-    _build.check(lib, "lstm_scan", err)
+        if body == "register":
+            err = lib.repro_lstm_scan_register(
+                *ptrs, bsz, t_steps, hid, bucket_for(hid), int(vector_rows(x, out)),
+                DTYPE_CODES[x.dtype], stream,
+            )
+        else:
+            err = lib.repro_lstm_scan(*ptrs, bsz, t_steps, hid, DTYPE_CODES[x.dtype], stream)
+    _build.check(lib, f"lstm_scan ({body})", err)
     launches += 1
     return out

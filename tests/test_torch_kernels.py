@@ -219,8 +219,12 @@ def test_decode_tile_buckets_hold_the_repo_configs():
     from repro_torch.kernels import _build
     from repro_torch.kernels import decode_tile as tdecode
 
+    from repro_torch.kernels import lstm as tlstm
+
     assert _build.decode_buckets() == tdecode.BUCKETS  # the C dispatch's list
-    assert len(_build.units()) == len(_build.SOURCES) - 1 + 2 * len(tdecode.BUCKETS)
+    # decode_tile.cu and lstm.cu are built once per bucket and dtype
+    assert len(_build.units()) == (len(_build.SOURCES) - 2 + 2 * len(tdecode.BUCKETS)
+                                   + 2 * len(tlstm.BUCKETS))
     default = jnttd.NTTDConfig()
     for cfg, bucket in ((tensorcodec_paper.SMALL, (12, 8)), (default, (16, 8)),
                         (tensorcodec_paper.MEDIUM, (20, 12))):
@@ -236,3 +240,82 @@ def test_decode_tile_buckets_hold_the_repo_configs():
                                            for w in ws))
     assert padded[0].shape == (4, 9, 20) and padded[6].shape == (20, 144)
     assert all(t.is_contiguous() for t in padded)
+
+
+@pytest.mark.parametrize("hid,bucket", [(5, 12), (8, 12), (12, 12), (16, 16), (18, 20),
+                                        (24, 32), (64, 64)])
+def test_lstm_bucket_for_the_repo_widths(hid, bucket):
+    """Every LSTM width the repo runs lands in the smallest register-body
+    bucket that holds it."""
+    from repro_torch.kernels import lstm as tlstm
+
+    assert tlstm.bucket_for(hid) == bucket
+    assert tlstm.lstm_body(hid) == "register"
+
+
+@pytest.mark.parametrize("hid,body", [(1, "register"), (64, "register"), (65, "simt"),
+                                      (96, "simt")])
+def test_lstm_body_by_shape(hid, body):
+    """Up to the largest bucket the register body runs, above it the simt
+    body, which has no bucket."""
+    from repro_torch.kernels import lstm as tlstm
+
+    assert tlstm.lstm_body(hid) == body
+    if body == "simt":
+        with pytest.raises(ValueError, match="largest bucket"):
+            tlstm.bucket_for(hid)
+
+
+def test_lstm_buckets_match_the_header():
+    """The wrapper's buckets are the ones ``csrc/lstm.cuh`` instantiates."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import lstm as tlstm
+
+    assert _build.lstm_buckets() == tlstm.BUCKETS
+
+
+@pytest.mark.parametrize("hid,dt,offset,vec", [
+    (16, torch.float32, 0, True),
+    (18, torch.float32, 0, False),   # 72-byte rows
+    (16, torch.float32, 1, False),   # x 4 bytes off the 16-byte grid
+    (16, torch.bfloat16, 4, True),   # 8 bytes off: a whole bf16 vector
+    (16, torch.bfloat16, 2, False),
+])
+def test_lstm_vector_rows(hid, dt, offset, vec):
+    """The register body reads and writes rows as vectors only when every
+    row is whole vectors and x and out are aligned to one."""
+    from repro_torch.kernels import lstm as tlstm
+
+    x = torch.zeros(3 * 4 * hid + offset, dtype=dt)[offset:].view(3, 4, hid)
+    assert x.is_contiguous()
+    assert tlstm.vector_rows(x, torch.empty_like(x)) is vec
+    assert tlstm.vector_rows(torch.empty_like(x), x) is vec  # out's alignment counts too
+
+
+@pytest.mark.parametrize("hid", [5, 12, 18, 24])
+def test_lstm_bucket_padding_is_exact(hid):
+    """The register body runs a hidden width off its buckets on weights and
+    x padded to the bucket inside the kernel, each gate block on its own.
+    The plain scan on so padded inputs, sliced back, equals the JAX oracle
+    on the unpadded ones, and the padded units stay exactly 0: the identity
+    the kernel's staging relies on."""
+    from repro_torch.kernels import lstm as tlstm
+
+    rng = np.random.default_rng(hid)
+    x = rng.normal(size=(33, 7, hid))
+    wi, wh = (rng.normal(size=(hid, 4 * hid)) * 0.3 for _ in range(2))
+    b = rng.normal(size=(4 * hid,)) * 0.1
+    want = _J_LSTM(*(jnp.asarray(a, jnp.float32) for a in (x, wi, wh, b)))
+    pad = tlstm.bucket_for(hid) - hid
+
+    def gates(w):  # [..., 4 hid] -> [..., 4 H], each gate block padded
+        w = w.reshape(*w.shape[:-1], 4, hid)
+        return np.pad(w, [(0, 0)] * (w.ndim - 1) + [(0, pad)]).reshape(*w.shape[:-2], -1)
+
+    padded = (np.pad(x, ((0, 0), (0, 0), (0, pad))),
+              np.pad(gates(wi), ((0, pad), (0, 0))), np.pad(gates(wh), ((0, pad), (0, 0))),
+              gates(b))
+    got = tref.lstm_scan(*(torch.from_numpy(np.asarray(a, np.float32)) for a in padded))
+    assert got.shape == (33, 7, hid + pad)
+    _close(got[..., :hid], want, "float32")
+    assert not got[..., hid:].any()
