@@ -16,12 +16,19 @@ Phases, each printing JSON lines:
    over the reference's test grid (R in {4, 8, 32}, T in {2, 3, 8}, f32
    and bf16, B = 33 and B = 0), at the main path's shapes, at H = 64,
    R = 32, at every instantiated (H, R) bucket of ``decode_tile`` and at
-   shapes padded to one (H 12, R 5; the paper's 12/6 and 18/10);
+   shapes padded to one (H 12, R 5; the paper's 12/6 and 18/10), and
+   through its simt body above the largest bucket at the reference budget
+   rule's (68, 34) and (114, 57) (B 4096, T 10) and (256, 128) (B 1000,
+   T 5), on inputs scaled to the width; every decode case names its body
+   (``decode_body``) and bucket or simt block size
+   (``kernels.decode_buckets``);
    ``lstm_scan`` at B 1000, T 10 at every hidden bucket of its register
    body (12, 16, 20, 32, 64), at widths padded into one (5, 18, 24), on an
    x whose rows are off the 16-byte grid (the scalar-load route), and at
-   H 96 through its simt body; every lstm case names its body, bucket and
-   load route (``kernels.lstm_buckets``);
+   H 96 and 256 through its simt body; every lstm case names its body,
+   bucket and load route (``kernels.lstm_buckets``);
+   ``tt_contract`` over the reference's grid and at R 34, 57 and 128, each
+   case with its lanes per entry (``kernels.tt_cases``);
    ``flash_attention`` over the reference's
    attention grid, ``q_offset`` 128, odd and ragged lengths (the pad path),
    starcoder2's 48/4 grouping, fully masked rows (``q_offset`` < 0), head
@@ -47,7 +54,14 @@ Phases, each printing JSON lines:
    and reconstructs all 61,015,680 entries with ``to_dense``.  Everything
    is compared with the plain version on the card, and every kernel must
    have been launched by this phase.
-5. serve: the LM serving path, ``repro_torch.launch.serve.main`` on
+5. wide: the payloads the reference's budget rule makes at 1 MB, decoded
+   through the default impl: a PEMS-SF-shaped payload at hidden 68, rank
+   34 saved, loaded onto the card and asked two ``decode_at`` requests of
+   65,536 entries, and an Uber-shaped one (183 x 24 x 1140, paper Table II)
+   reconstructed whole with ``to_dense``, both against the plain version
+   on the card (rtol = atol = 1e-5).  Every launch of the phase must be
+   the simt decode body's.
+6. serve: the LM serving path, ``repro_torch.launch.serve.main`` on
    qwen1.5-4b at full width (40 layers, d_model 2560, 20 heads of 128,
    vocab 151,936) in bf16 with random weights from seed 0: 8 requests of
    seeded prompt lengths (128, 2048 and six others, at least one not a
@@ -57,7 +71,7 @@ Phases, each printing JSON lines:
    (``--attn-impl ref``): the prefill logits must agree within
    ``LOGIT_REL_TOL`` of max|logit|, and the greedy tokens wherever the
    oracle run's top-2 margin exceeds twice the largest logit difference.
-6. timing: each kernel, its plain version and, where one exists, one
+7. timing: each kernel, its plain version and, where one exists, one
    PyTorch call computing the same function (cuDNN ``nn.LSTM`` for
    ``lstm_scan``, one ``torch.einsum`` over the whole chain for
    ``tt_contract``, ``scaled_dot_product_attention`` for
@@ -68,7 +82,11 @@ Phases, each printing JSON lines:
    and a bf16-p control must fail it.  The ``lstm_scan`` row names the
    body, bucket and load route that ran, and the device kernels one call
    runs as ``torch.profiler`` sees them, which must be the register kernel
-   alone.
+   alone; the ``tt_contract`` row likewise names its body and lanes per
+   entry, its one device kernel a call, and its bf16 time and bound at the
+   same shape.  The simt decode body is timed at B 65,536, T 10 at (68, 34)
+   and (114, 57) (``timing.decode_simt``); the first is the
+   ``decode_tile_simt`` row, with the wide phase's launches.
 
 The line before the last is the card's ``name, power.limit`` as
 ``nvidia-smi`` reports them; the last line is the result object.  Any
@@ -78,6 +96,7 @@ rest of the checkout beside this file, it exits non-zero at once.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -94,6 +113,7 @@ SEED = 0
 PEMS_SHAPE = (963, 144, 440)  # paper Table II, PEMS-SF
 RANK, HIDDEN = 8, 16          # the repo's default NTTD architecture
 REQUEST = 65_536              # entries per decode_at request
+DENSE_BATCH = 65_536          # entries per launch of to_dense (its default batch)
 TOL = {"float32": 1e-5, "bfloat16": 0.1}
 BF16_ULPS = 2                 # bf16 also within 2 ulps of the case's largest |value|
 # bf16 flash outputs, element by element: within 1 bf16 ulp of the element's
@@ -103,9 +123,12 @@ FLASH_ROW_FLOOR = 2.0**-16
 PEAK_FP32 = 67e12             # H100 SXM, FP32 outside the tensor cores
 PEAK_BF16 = 989e12            # H100 SXM, dense bf16 on the tensor cores
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3
+PROFILE_PAD_S = 0.05          # idle host time around each profiled call
 SOURCES = {
     "decode_tile": ("src/repro_torch/kernels/csrc/decode_tile.cu",
                     "src/repro/kernels/decode_tile.py:147"),
+    "decode_tile_simt": ("src/repro_torch/kernels/csrc/decode_tile_simt.cu",
+                         "src/repro/kernels/decode_tile.py:147"),
     "lstm_scan": ("src/repro_torch/kernels/csrc/lstm.cu",
                   "src/repro/kernels/lstm.py:67"),
     "tt_contract": ("src/repro_torch/kernels/csrc/tt_contract.cu",
@@ -225,17 +248,26 @@ def flash_bf16p_control(torch, q, k, v):
     return (out / p.sum(-1).permute(0, 2, 1)[..., None]).to(q.dtype)
 
 
-def device_kernels(torch, fn):
-    """Names of the device kernels and copies one call of ``fn`` runs, from
-    ``torch.profiler``."""
+def device_kernels(torch, fns) -> list[str]:
+    """Names of the device kernels and copies that the calls ``fns`` run,
+    in the order the device ran them, from one ``torch.profiler`` session.
+
+    One session serves every call: a second session in one process has
+    been seen to return no device events.  Each call is synchronised and
+    framed by ``PROFILE_PAD_S`` of idle host time, so that a kernel whose
+    device timestamp maps a little off the host clock stays inside the
+    capture window."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [e.name for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+        for fn in fns:
+            time.sleep(PROFILE_PAD_S)
+            fn()
+            torch.cuda.synchronize()
+        time.sleep(PROFILE_PAD_S)
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return [e.name for e in sorted(events, key=lambda e: e.time_range.start)]
 
 
 def bound(n_ops: int, n_bytes: int, peak_ops: float) -> dict:
@@ -277,19 +309,39 @@ def chain_equation(k: int) -> str:
     return ",".join(terms) + "->b"
 
 
-def decode_inputs(torch, gen, b, t, m, hid, rank, dtype, device):
-    """Random operands of the fused decode, scaled as the reference's tests."""
+def decode_inputs(torch, gen, b, t, m, hid, rank, dtype, device, width_scaled=False):
+    """Random operands of the fused decode, scaled as the reference's tests.
+    ``width_scaled`` multiplies every product over the hidden width by
+    sqrt(16 / hid), so a wide shape's values stay O(1) as they do at H 16
+    (with fixed scales the chain grows like (0.5 sqrt(R))^(T-2), and where
+    such values cancel an f32 sum's rounding outgrows the tolerance)."""
+    width = (16 / hid) ** 0.5 if width_scaled else 1.0
+
     def mk(*shape, scale=0.3):
         return (torch.randn(shape, generator=gen) * scale).to(device=device, dtype=dtype)
 
     idx = torch.randint(0, m, (b, t), generator=gen, dtype=torch.int32).to(device)
     return idx, (
         mk(t, m, hid),
-        mk(hid, 4 * hid), mk(hid, 4 * hid), mk(4 * hid, scale=0.1),
-        mk(hid, rank), mk(rank, scale=0.1),
-        mk(hid, rank * rank, scale=0.5 / rank**0.5), mk(rank * rank, scale=0.1),
-        mk(hid, rank), mk(rank, scale=0.1),
+        mk(hid, 4 * hid, scale=0.3 * width), mk(hid, 4 * hid, scale=0.3 * width),
+        mk(4 * hid, scale=0.1),
+        mk(hid, rank, scale=0.3 * width), mk(rank, scale=0.1),
+        mk(hid, rank * rank, scale=0.5 / rank**0.5 * width), mk(rank * rank, scale=0.1),
+        mk(hid, rank, scale=0.3 * width), mk(rank, scale=0.1),
     )
+
+
+def decode_cost(b: int, t: int, hid: int, rank: int) -> int:
+    """FP32 operations of the fused decode: the LSTM gates, the head
+    projections and the chain, per entry."""
+    return b * (t * 16 * hid * hid + 2 * hid * (2 * rank + (t - 2) * rank * rank)
+                + 2 * (t - 2) * rank * rank + 2 * rank)
+
+
+def tt_bytes(b: int, k: int, r: int, elem: int) -> int:
+    """Bytes ``tt_contract`` must move: first, mid and last read once, the
+    output written once."""
+    return (2 * b * r + b * k * r * r + b) * elem
 
 
 def lstm_inputs(torch, gen, b, t, h, dtype, device, offset=0):
@@ -339,11 +391,28 @@ FLASH_CASES = (
 # shapes off the buckets, run on zero-padded weights: (12, 5) in (12, 8),
 # the paper's SMALL 12/6 in (12, 8), its MEDIUM 18/10 in (20, 12)
 PADDED_DECODE = ((12, 5), (12, 6), (18, 10))
+# the simt decode body's cases, (hidden, rank, B, T): the reference's budget
+# rule (NTTDCodec._rank_for_budget) picks (68, 34) at 1 MB and (114, 57) at
+# 4 MB for PEMS-SF and Uber, and reaches (256, 128)
+WIDE_DECODE = ((68, 34, 4096, 10), (114, 57, 4096, 10), (256, 128, 1000, 5))
+# the wide phase: the 1 MB rule's architecture on a PEMS-SF-shaped payload
+# (two decode_at requests) and an Uber-shaped one (183 x 24 x 1140, paper
+# Table II, 5,006,880 entries: one to_dense)
+WIDE_RANK, WIDE_HIDDEN = 34, 68
+UBER_SHAPE = (183, 24, 1140)
+WIDE_REQUESTS = 2
+# the simt decode body timed at B REQUEST, T 10 (f32)
+WIDE_TIMING = ((68, 34), (114, 57))
 # lstm_scan cases beside its register body's buckets: (hidden, x's offset
 # in elements into its buffer).  5 (fig8), 18 (paper MEDIUM) and 24 (fleet
 # repair) are padded inside the kernel, 18's 72-byte rows and an x one
-# element off the 16-byte grid take the scalar loads, 96 the simt body.
-LSTM_EXTRA = ((5, 0), (18, 0), (24, 0), (16, 1), (96, 0))
+# element off the 16-byte grid take the scalar loads, 96 and 256 (the
+# budget rule's widest) the simt body, 256 at 56 threads a block.
+LSTM_EXTRA = ((5, 0), (18, 0), (24, 0), (16, 1), (96, 0), (256, 0))
+# tt_contract cases (B, K, R): the reference's grid, then the budget rule's
+# ranks 34, 57 and 128
+TT_CASES = ((64, 5, 8), (100, 10, 16), (7, 3, 8), (256, 8, 32), (1000, 8, 34), (517, 5, 57),
+            (200, 3, 128))
 LSTM_B, LSTM_T = 1000, 10
 # registers a thread that leave room for three blocks of 128 threads a SM
 # (65,536 registers, allocated in steps of 8 a thread)
@@ -446,9 +515,10 @@ def phase_kernels(torch, device):
     from repro_torch.kernels import decode_tile as _decode_tile
     from repro_torch.kernels import lstm as _lstm
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import tt_contract as _tt
 
     gen = torch.Generator().manual_seed(SEED)
-    flash_cases, decode_cases, lstm_cases = [], [], []
+    flash_cases, decode_cases, lstm_cases, tt_cases = [], [], [], []
     errs = {name: {"float32": 0.0, "bfloat16": 0.0, "bfloat16_ulps": 0.0}
             for name in SOURCES}
     cases = 0
@@ -487,12 +557,15 @@ def phase_kernels(torch, device):
             x = torch.randn((b, t, h), generator=gen).to(device, dtype)
             record("lstm_scan", dn, ops.lstm_scan(x, *ws[1:4], impl="cuda"),
                    ref.lstm_scan(x, *ws[1:4]))
-        for b, k, r in ((64, 5, 8), (100, 10, 16), (7, 3, 8), (256, 8, 32)):
+        for b, k, r in TT_CASES:
             first = torch.randn((b, r), generator=gen).to(device, dtype)
             mid = (torch.randn((b, k, r, r), generator=gen) * (0.5 / r**0.5)).to(device, dtype)
             last = torch.randn((b, r), generator=gen).to(device, dtype)
-            record("tt_contract", dn, ops.tt_contract(first, mid, last, impl="cuda"),
-                   ref.tt_contract(first, mid, last))
+            err, ulps = record("tt_contract", dn, ops.tt_contract(first, mid, last, impl="cuda"),
+                               ref.tt_contract(first, mid, last))
+            tt_cases.append({"B": b, "K": k, "R": r, "dtype": dn, "body": "lane_group",
+                             "lanes_per_entry": _tt.lanes_per_entry(r),
+                             "max_abs_err": err, "ulps": ulps})
         # main-path shapes (T = 10, M = 8, H = 16, R = 8) and H = 64, R = 32
         for b, t, m, h, r in ((REQUEST, 10, 8, HIDDEN, RANK), (4096, 10, 8, 64, 32)):
             idx, ws = decode_inputs(torch, gen, b, t, m, h, r, dtype, device)
@@ -512,8 +585,21 @@ def phase_kernels(torch, device):
             idx, ws = decode_inputs(torch, gen, 1000, 5, 9, h, r, dtype, device)
             err, ulps = record("decode_tile", dn, ops.nttd_decode_tile(idx, *ws, impl="cuda"),
                                ops.nttd_decode_tile(idx, *ws, impl="ref"))
-            decode_cases.append({"H": h, "R": r, "dtype": dn,
+            decode_cases.append({"H": h, "R": r, "dtype": dn, "body": _decode_tile.decode_body(h, r),
                                  "bucket": list(_decode_tile.bucket_for(h, r)),
+                                 "max_abs_err": err, "ulps": ulps})
+        # the simt body above the largest bucket, inputs scaled to the width
+        for h, r, b, t in WIDE_DECODE:
+            idx, ws = decode_inputs(torch, gen, b, t, 9, h, r, dtype, device, width_scaled=True)
+            simt_before = _decode_tile.simt_launches
+            err, ulps = record("decode_tile_simt", dn,
+                               ops.nttd_decode_tile(idx, *ws, impl="cuda"),
+                               ops.nttd_decode_tile(idx, *ws, impl="ref"))
+            require(_decode_tile.simt_launches == simt_before + 1,
+                    f"decode_tile ({h}, {r}) did not run the simt body")
+            decode_cases.append({"H": h, "R": r, "B": b, "T": t, "dtype": dn,
+                                 "body": _decode_tile.decode_body(h, r), "bucket": None,
+                                 "threads": _decode_tile.simt_threads(h, r),
                                  "max_abs_err": err, "ulps": ulps})
         # lstm_scan's register body at every bucket, padded widths, both
         # load routes, and its simt body above the largest bucket
@@ -525,6 +611,7 @@ def phase_kernels(torch, device):
             lstm_cases.append({
                 "H": h, "dtype": dn, "body": body,
                 "bucket": _lstm.bucket_for(h) if body == "register" else None,
+                "threads": _lstm.simt_threads(h) if body == "simt" else None,
                 "loads": "vector" if body == "register" and _lstm.vector_rows(x, got)
                 else "scalar", "x_offset_bytes": x.data_ptr() % 16,
                 "max_abs_err": err, "ulps": ulps})
@@ -556,6 +643,7 @@ def phase_kernels(torch, device):
           "flash_row_floor": FLASH_ROW_FLOOR, "max_abs_err": errs})
     emit({"phase": "kernels.decode_buckets", "cases": decode_cases})
     emit({"phase": "kernels.lstm_buckets", "cases": lstm_cases})
+    emit({"phase": "kernels.tt_cases", "cases": tt_cases})
     emit({"phase": "kernels.flash", "cases": flash_cases})
     return errs
 
@@ -658,6 +746,89 @@ def phase_main(torch, device):
           "max_abs_err_requests": req_err, "max_abs_err_to_dense": dense_err,
           "launches": launches})
     return enc, requests[0], launches
+
+
+def phase_wide(torch, device):
+    """The wide payloads the reference's budget rule makes, decoded on the
+    card through the default impl ("auto"): at (hidden 68, rank 34), the
+    1 MB rule's pick for PEMS-SF and Uber, the fused decode runs its simt
+    body.  A PEMS-SF-shaped payload goes through ``save_bytes`` and
+    ``load_bytes`` and answers ``WIDE_REQUESTS`` ``decode_at`` requests; an
+    Uber-shaped one is reconstructed whole with ``to_dense``.  Both are held
+    against the plain route on the card (rtol = atol = 1e-5), and every
+    launch of this phase must have been the simt body's."""
+    import numpy as np
+
+    from repro_torch.codecs import container, load_bytes
+    from repro_torch.codecs.adapters import NTTDEncoded
+    from repro_torch.core import nttd
+    from repro_torch.core.codec import CompressedTensor
+    from repro_torch.core.folding import make_folding_spec
+    from repro_torch.kernels import decode_tile as _decode_tile
+    from repro_torch.kernels import ops
+
+    require(_decode_tile.decode_body(WIDE_HIDDEN, WIDE_RANK) == "simt",
+            "the wide architecture does not take the simt decode body")
+    rng = np.random.default_rng(SEED)
+    cfg = nttd.NTTDConfig(rank=WIDE_RANK, hidden=WIDE_HIDDEN)
+    require(cfg.kernel_impl == "auto", f"the default impl is {cfg.kernel_impl!r}")
+    payloads = {}
+    for name, shape in (("pems", PEMS_SHAPE), ("uber", UBER_SHAPE)):
+        spec = make_folding_spec(shape)
+        params = nttd.init_params(torch.Generator().manual_seed(SEED), spec, cfg, device)
+        pi = [rng.permutation(n) for n in shape]
+        ct = CompressedTensor(params, pi, spec, cfg, norm_mean=0.25, norm_std=2.0)
+        payloads[name] = (spec, NTTDEncoded(ct))
+    blob = container.save_bytes(payloads["pems"][1])
+    enc = load_bytes(blob)  # default device: the card
+    require(enc.ct.device.type == "cuda", "load_bytes did not load onto the card")
+    uber = payloads["uber"][1]
+    requests = [np.stack([rng.integers(0, n, REQUEST) for n in PEMS_SHAPE], axis=1)
+                for _ in range(WIDE_REQUESTS)]
+    torch.cuda.synchronize()
+
+    ops.reset_launch_counts()
+    answers, req_ms = [], []
+    for idx in requests:
+        t = time.perf_counter()
+        answers.append(enc.decode_at(idx))
+        req_ms.append((time.perf_counter() - t) * 1e3)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    dense = uber.to_dense()
+    dense_s = time.perf_counter() - t
+    launches, simt = ops.launch_counts(), _decode_tile.simt_launches
+    n_uber = int(np.prod(UBER_SHAPE))
+    batches = -(-n_uber // DENSE_BATCH)
+    require(simt == launches["decode_tile"] == WIDE_REQUESTS + batches,
+            f"the wide phase launched decode_tile {launches['decode_tile']} times, "
+            f"{simt} of them the simt body; expected {WIDE_REQUESTS + batches}")
+
+    req_err = 0.0
+    plain = _with_impl(enc, "ref", NTTDEncoded)
+    for idx, got in zip(requests, answers):
+        require(got.shape == (REQUEST,) and bool(np.isfinite(got).all()), "wide request output")
+        want = plain.decode_at(idx)
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+        req_err = max(req_err, float(np.abs(got - want).max()))
+    t = time.perf_counter()
+    dense_plain = _with_impl(uber, "ref", NTTDEncoded).to_dense()
+    plain_dense_s = time.perf_counter() - t
+    require(dense.shape == UBER_SHAPE and bool(np.isfinite(dense).all()), "wide to_dense output")
+    np.testing.assert_allclose(dense, dense_plain, rtol=1e-5, atol=1e-5)
+    dense_err = float(np.abs(dense - dense_plain).max())
+    emit({"phase": "wide", "rank": WIDE_RANK, "hidden": WIDE_HIDDEN, "impl": cfg.kernel_impl,
+          "body": _decode_tile.decode_body(WIDE_HIDDEN, WIDE_RANK),
+          "threads": _decode_tile.simt_threads(WIDE_HIDDEN, WIDE_RANK),
+          "pems_shape": list(PEMS_SHAPE), "pems_folded": list(payloads["pems"][0].folded_shape),
+          "payload_bytes": len(blob), "request_entries": REQUEST, "request_ms": req_ms,
+          "uber_shape": list(UBER_SHAPE), "uber_folded": list(payloads["uber"][0].folded_shape),
+          "to_dense_entries": n_uber, "to_dense_s": dense_s,
+          "to_dense_entries_per_s": n_uber / dense_s, "plain_to_dense_s": plain_dense_s,
+          "max_abs_err_requests": req_err, "max_abs_err_to_dense": dense_err,
+          "max_abs_value_to_dense": float(np.abs(dense_plain).max()),
+          "launches": launches, "simt_launches": simt})
+    return simt
 
 
 def phase_serve(torch, device):
@@ -794,6 +965,7 @@ def phase_timing(torch, device, enc, idx_np, launches, errs):
     from repro_torch.kernels import decode_tile as _decode_tile
     from repro_torch.kernels import lstm as _lstm
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import tt_contract as _tt
 
     ct = enc.ct
     spec, cfg, params = ct.spec, ct.cfg, ct.params
@@ -816,8 +988,7 @@ def phase_timing(torch, device, enc, idx_np, launches, errs):
     rows = []
 
     # decode_tile: LSTM gates, head projections and the chain, per entry
-    ops_dt = b * (t * 16 * h * h + 2 * h * (2 * r + (t - 2) * r * r)
-                  + 2 * (t - 2) * r * r + 2 * r)
+    ops_dt = decode_cost(b, t, h, r)
     bytes_dt = b * t * 4 + b * 4 + weight_elems * 4
     rows.append(("decode_tile", ops_dt, bytes_dt,
                  lambda: ops.nttd_decode_tile(folded, *ws, impl="cuda"),
@@ -831,7 +1002,7 @@ def phase_timing(torch, device, enc, idx_np, launches, errs):
                  lambda: library_lstm(x), "cuDNN torch.nn.LSTM, gates (i, f, g, o)"))
 
     ops_t = b * ((t - 2) * 2 * r * r + 2 * r)
-    bytes_t = (2 * b * r + b * (t - 2) * r * r) * 4 + b * 4
+    bytes_t = tt_bytes(b, t - 2, r, 4)
     equation = chain_equation(t - 2)
     mid_list = mids.unbind(1)
     opt = torch.backends.opt_einsum
@@ -858,17 +1029,68 @@ def phase_timing(torch, device, enc, idx_np, launches, errs):
             "shape": {"B": b, "T": t, "M": m, "H": h, "R": r},
             "ops": n_ops, "bytes": n_bytes,
         })
-    kernels[0]["bucket"] = list(_decode_tile.bucket_for(h, r))
-    # lstm_scan: the body, bucket and load route at this shape, and every
-    # device kernel or copy one wrapper call runs (the register kernel only)
-    lstm_call = rows[1][3]
+    kernels[0].update(body=_decode_tile.decode_body(h, r),
+                      bucket=list(_decode_tile.bucket_for(h, r)))
+    # every device kernel or copy that one lstm_scan call, then one
+    # tt_contract call, runs: the register kernel, then the tt_contract
+    # kernel, alone; and lstm_scan's body, bucket and load route
+    lstm_call, tt_call = rows[1][3], rows[2][3]
+    seen = device_kernels(torch, (lstm_call, tt_call))
+    require(len(seen) == 2 and "lstm_scan_register_kernel" in seen[0]
+            and "tt_contract_kernel" in seen[1],
+            f"an lstm_scan call then a tt_contract call ran {seen}, not the "
+            "register kernel and the tt_contract kernel alone")
     kernels[1].update(body=_lstm.lstm_body(h), bucket=_lstm.bucket_for(h),
                       loads="vector" if _lstm.vector_rows(x, lstm_call()) else "scalar",
-                      device_ops_per_call=device_kernels(torch, lstm_call))
-    seen = kernels[1]["device_ops_per_call"]
-    require(len(seen) == 1 and "lstm_scan_register_kernel" in seen[0],
-            f"one lstm_scan call ran {seen}, not the register kernel alone")
+                      device_ops_per_call=seen[:1])
+    # tt_contract: its body and the same shape in bf16 against its own
+    # byte bound
+    bf = [a.to(torch.bfloat16) for a in (first, mids, last)]
+    kernels[2].update(body="lane_group", lanes_per_entry=_tt.lanes_per_entry(r),
+                      device_ops_per_call=seen[1:],
+                      ms_bf16=time_ms(torch, lambda: ops.tt_contract(*bf, impl="cuda"), 20),
+                      bound_ms_bf16=bound(ops_t, tt_bytes(b, t - 2, r, 2), PEAK_FP32)["bound_ms"])
     return kernels
+
+
+def decode_simt_timing(torch, device, launches, errs):
+    """The simt decode body at B ``REQUEST``, T 10, M 8 (f32, inputs scaled
+    to the width) for each shape of ``WIDE_TIMING``: kernel, plain version
+    and bound, on a ``timing.decode_simt`` line; returns the kernels-table
+    row of the first shape, the wide phase's."""
+    from repro_torch.kernels import decode_tile as _decode_tile
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator().manual_seed(SEED)
+    cases = []
+    for h, r in WIDE_TIMING:
+        b, t, m = REQUEST, 10, 8
+        idx, ws = decode_inputs(torch, gen, b, t, m, h, r, torch.float32, device,
+                                width_scaled=True)
+        kern = functools.partial(ops.nttd_decode_tile, idx, *ws, impl="cuda")
+        plain = functools.partial(ref.nttd_decode_tile, idx, *ws)
+        n_bytes = b * t * 4 + b * 4 + sum(int(w.numel()) for w in ws) * 4
+        cases.append({"H": h, "R": r, "B": b, "T": t, "M": m,
+                      "body": _decode_tile.decode_body(h, r),
+                      "threads": _decode_tile.simt_threads(h, r),
+                      "max_abs_err_at_shape": float((kern() - plain()).abs().max()),
+                      "ms": time_ms(torch, kern, 3, warmup=1),
+                      "plain_ms": time_ms(torch, plain, 3, warmup=1),
+                      **bound(decode_cost(b, t, h, r), n_bytes, PEAK_FP32),
+                      "ops": decode_cost(b, t, h, r), "bytes": n_bytes})
+    emit({"phase": "timing.decode_simt", "cases": cases})
+    first = cases[0]
+    return {
+        "name": "decode_tile_simt", "route": "cuda", "source": SOURCES["decode_tile_simt"][0],
+        "replaces": SOURCES["decode_tile_simt"][1], "launches": launches,
+        "max_abs_err": errs["decode_tile_simt"]["float32"],
+        "max_abs_err_bf16": errs["decode_tile_simt"]["bfloat16"],
+        "ms": first["ms"], "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
+        "bound_by": first["bound_by"], "library_ms": None, "library": None,
+        "library_max_abs_err": None, "body": first["body"], "threads": first["threads"],
+        "shape": {k: first[k] for k in ("B", "T", "M", "H", "R")},
+        "ops": first["ops"], "bytes": first["bytes"],
+    }
 
 
 def main() -> int:
@@ -897,8 +1119,10 @@ def main() -> int:
         errs = phase_kernels(torch, device)
         phase_golden(torch, device)
         enc, idx, launches = phase_main(torch, device)
+        simt_launches = phase_wide(torch, device)
         serve_launches = phase_serve(torch, device)
         kernels = phase_timing(torch, device, enc, idx, launches, errs)
+        kernels.append(decode_simt_timing(torch, device, simt_launches, errs))
         kernels.append(flash_timing_row(torch, device, serve_launches, errs))
         torch.cuda.synchronize()
         emit({"kernels": kernels})

@@ -56,8 +56,8 @@ def measure(torch, smoke, hid: int) -> dict:
     def simt():
         out = torch.empty_like(x)
         err = lib.repro_lstm_scan(x.data_ptr(), wi.data_ptr(), wh.data_ptr(), b.data_ptr(),
-                                  out.data_ptr(), BATCH, STEPS, hid, 0,
-                                  torch.cuda.current_stream().cuda_stream)
+                                  out.data_ptr(), BATCH, STEPS, hid, lstm.simt_threads(hid),
+                                  0, torch.cuda.current_stream().cuda_stream)
         _build.check(lib, "lstm_scan (simt)", err)
         return out
 

@@ -27,9 +27,10 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("decode_tile.cu", "decode_tile_dispatch.cu", "lstm.cu", "lstm_dispatch.cu",
-           "tt_contract.cu", "flash_attention.cu")
-HEADERS = ("common.cuh", "decode_tile.cuh", "hopper.cuh", "lstm.cuh", "lstm_cell.cuh")
+SOURCES = ("decode_tile.cu", "decode_tile_dispatch.cu", "decode_tile_simt.cu", "lstm.cu",
+           "lstm_dispatch.cu", "tt_contract.cu", "flash_attention.cu")
+HEADERS = ("common.cuh", "decode_tile.cuh", "hopper.cuh", "lstm.cuh", "lstm_cell.cuh",
+           "lstm_cell_simt.cuh")
 PER_BUCKET = ("decode_tile.cu", "lstm.cu")  # compiled once per bucket and dtype
 DTYPES = ("float", "__nv_bfloat16")
 NVCC_FLAGS = (
@@ -44,12 +45,14 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     # idx, emb, wi, wh, b, wf, bf, wm, bm, wl, bl, out, B, T, M, H, R, dtype, stream
     "repro_decode_tile": [_P] * 12 + [_L, _I, _I, _I, _I, _I, _P],
-    # x, wi, wh, b, out, B, T, H, dtype, stream
-    "repro_lstm_scan": [_P] * 5 + [_L, _I, _I, _I, _P],
+    # idx, emb, wi, wh, b, wf, bf, wm, bm, wl, bl, out, B, T, M, H, R, threads, dtype, stream
+    "repro_decode_tile_simt": [_P] * 12 + [_L, _I, _I, _I, _I, _I, _I, _P],
+    # x, wi, wh, b, out, B, T, H, threads, dtype, stream
+    "repro_lstm_scan": [_P] * 5 + [_L, _I, _I, _I, _I, _P],
     # x, wi, wh, b, out, B, T, H, bucket, vec, dtype, stream
     "repro_lstm_scan_register": [_P] * 5 + [_L, _I, _I, _I, _I, _I, _P],
-    # first, mid, last, out, B, K, R, dtype, stream
-    "repro_tt_contract": [_P] * 4 + [_L, _I, _I, _I, _P],
+    # first, mid, last, out, B, K, R, lanes per entry, dtype, stream
+    "repro_tt_contract": [_P] * 4 + [_L, _I, _I, _I, _I, _P],
     # q, k, v, out, B, Sq, Skv, Hq, Hkv, D, q_offset, kv_valid, causal, scale, dtype, stream
     "repro_flash_attention": [_P] * 4 + [_I] * 9 + [ctypes.c_float, _I, _P],
     # the same arguments as repro_flash_attention

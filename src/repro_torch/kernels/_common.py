@@ -39,3 +39,16 @@ def check_smem(name: str, threads: int, floats_per_thread: int) -> None:
             f"{name}: needs {need} bytes of shared memory per block, "
             f"more than the {MAX_SMEM_BYTES} a Hopper block can have"
         )
+
+
+def threads_for_smem(name: str, floats_per_thread: int, most: int = 64) -> int:
+    """Threads per block of a simt body whose threads each keep
+    ``floats_per_thread`` f32 of state in shared memory: the most, up to
+    ``most``, that fit a block's; raises when one thread's state does not."""
+    fit = MAX_SMEM_BYTES // (4 * floats_per_thread)
+    if fit < 1:
+        raise ValueError(
+            f"{name}: one thread's {4 * floats_per_thread} bytes of shared memory exceed "
+            f"the {MAX_SMEM_BYTES} a Hopper block can have"
+        )
+    return min(most, fit)

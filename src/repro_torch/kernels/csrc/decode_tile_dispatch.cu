@@ -1,7 +1,8 @@
 // C entry point of the fused NTTD decode: picks the launcher of the (H, R)
 // bucket and dtype, each built from decode_tile.cu in a compile unit of its
 // own (kernels/_build.py).  The wrapper, kernels/decode_tile.py, pads any
-// other shape to a bucket before it calls.
+// other shape a bucket holds to that bucket before it calls; shapes above
+// the largest bucket run decode_tile_simt.cu's body instead.
 #include <climits>
 
 #include "decode_tile.cuh"

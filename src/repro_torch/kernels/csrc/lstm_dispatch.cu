@@ -10,54 +10,20 @@
 // The simt body replaces the Pallas TPU kernel repro/kernels/lstm.py:
 // lstm_scan (body _kernel) as the first port did: one thread owns one
 // sequence; its x, h, h_new and c sit in shared memory, column-wise per
-// thread; the weights come through the read-only cache as warp-wide
-// broadcasts, about two loads per FMA.  H is a run-time value.  Math in f32,
-// output cast to x's dtype.
+// thread, and the cell is lstm_cell_simt.cuh's, shared with the fused
+// decode's simt body.  H is a run-time value; the block's thread count is
+// sized to the shared memory by the caller.  Math in f32, output cast to
+// x's dtype.
 #include <climits>
 
 #include "lstm.cuh"
+#include "lstm_cell_simt.cuh"
 
 namespace repro {
 
+// the most threads a simt block runs; the wrapper (kernels/lstm.py:
+// simt_threads) sizes each launch to the shared memory, 16 H bytes a thread
 constexpr int kLstmThreads = 64;
-
-__device__ __forceinline__ float sigmoid_f(float x) { return 1.0f / (1.0f + expf(-x)); }
-
-// One LSTM step for this thread's entry.  Reads x (sx) and h (sh), updates c
-// (sc) in place and writes the new h to shn, then copies it back to sh.
-// gates = x @ wi + h @ wh + b, gate order (i, f, g, o) along the 4H axis.
-template <typename T>
-__device__ __forceinline__ void lstm_cell(const float* sx, float* sh, float* shn, float* sc,
-                                          const T* __restrict__ wi, const T* __restrict__ wh,
-                                          const T* __restrict__ b, int hid, int nt, int tid) {
-  const int h4 = 4 * hid;
-  for (int j = 0; j < hid; ++j) {
-    float xi = 0.f, xf = 0.f, xg = 0.f, xo = 0.f;
-    float hi = 0.f, hf = 0.f, hg = 0.f, ho = 0.f;
-    for (int k = 0; k < hid; ++k) {
-      const float xk = sx[k * nt + tid];
-      const float hk = sh[k * nt + tid];
-      const T* wir = wi + (size_t)k * h4 + j;
-      const T* whr = wh + (size_t)k * h4 + j;
-      xi = fmaf(xk, load_f(wir), xi);
-      xf = fmaf(xk, load_f(wir + hid), xf);
-      xg = fmaf(xk, load_f(wir + 2 * hid), xg);
-      xo = fmaf(xk, load_f(wir + 3 * hid), xo);
-      hi = fmaf(hk, load_f(whr), hi);
-      hf = fmaf(hk, load_f(whr + hid), hf);
-      hg = fmaf(hk, load_f(whr + 2 * hid), hg);
-      ho = fmaf(hk, load_f(whr + 3 * hid), ho);
-    }
-    const float gi = sigmoid_f((xi + hi) + load_f(b + j));
-    const float gf = sigmoid_f((xf + hf) + load_f(b + hid + j));
-    const float gg = tanhf((xg + hg) + load_f(b + 2 * hid + j));
-    const float go = sigmoid_f((xo + ho) + load_f(b + 3 * hid + j));
-    const float c = gf * sc[j * nt + tid] + gi * gg;
-    sc[j * nt + tid] = c;
-    shn[j * nt + tid] = go * tanhf(c);
-  }
-  for (int j = 0; j < hid; ++j) sh[j * nt + tid] = shn[j * nt + tid];
-}
 
 template <typename T>
 __global__ void __launch_bounds__(kLstmThreads)
@@ -88,12 +54,12 @@ lstm_scan_kernel(const T* __restrict__ x, const T* __restrict__ wi, const T* __r
 
 template <typename T>
 cudaError_t launch_lstm_scan(const void* x, const void* wi, const void* wh, const void* b,
-                             void* out, long long bsz, int t_steps, int hid,
+                             void* out, long long bsz, int t_steps, int hid, int threads,
                              cudaStream_t stream) {
-  const size_t smem = (size_t)kLstmThreads * 4 * hid * sizeof(float);
+  const size_t smem = (size_t)threads * 4 * hid * sizeof(float);
   cudaError_t err = allow_smem(lstm_scan_kernel<T>, smem);
   if (err != cudaSuccess) return err;
-  lstm_scan_kernel<T><<<grid_for(bsz, kLstmThreads), kLstmThreads, smem, stream>>>(
+  lstm_scan_kernel<T><<<grid_for(bsz, threads), threads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(wi), static_cast<const T*>(wh),
       static_cast<const T*>(b), static_cast<T*>(out), bsz, t_steps, hid);
   return cudaGetLastError();
@@ -113,15 +79,18 @@ cudaError_t dispatch_lstm_bucket(const void* x, const void* wi, const void* wh, 
 
 }  // namespace repro
 
+// threads: the simt block's thread count, 1 .. kLstmThreads
 extern "C" int repro_lstm_scan(const void* x, const void* wi, const void* wh, const void* b,
-                               void* out, long long bsz, int t_steps, int hid, int dtype,
-                               void* stream) {
+                               void* out, long long bsz, int t_steps, int hid, int threads,
+                               int dtype, void* stream) {
   if (bsz <= 0 || t_steps <= 0) return 0;
+  if (hid <= 0 || threads < 1 || threads > repro::kLstmThreads) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == repro::kDtypeF32)
-    return repro::launch_lstm_scan<float>(x, wi, wh, b, out, bsz, t_steps, hid, s);
+    return repro::launch_lstm_scan<float>(x, wi, wh, b, out, bsz, t_steps, hid, threads, s);
   if (dtype == repro::kDtypeBF16)
-    return repro::launch_lstm_scan<__nv_bfloat16>(x, wi, wh, b, out, bsz, t_steps, hid, s);
+    return repro::launch_lstm_scan<__nv_bfloat16>(x, wi, wh, b, out, bsz, t_steps, hid,
+                                                  threads, s);
   return cudaErrorInvalidValue;
 }
 

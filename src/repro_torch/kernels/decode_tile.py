@@ -1,24 +1,37 @@
-"""Wrapper of the fused NTTD decode kernel (``csrc/decode_tile.cu``).
+"""Wrapper of the fused NTTD decode kernel: two hand-written CUDA bodies.
 
 Counterpart of ``repro.kernels.decode_tile``.  On a CUDA tensor it
-launches the hand-written kernel on the current stream or raises; on a
-CPU tensor it runs the plain version ``ref.nttd_decode_tile``.
-``launches`` counts kernel launches, nothing else.
+launches a kernel on the current stream or raises; on a CPU tensor it runs
+the plain version ``ref.nttd_decode_tile``.  ``decode_body`` names the
+body, by shape alone:
 
-The kernel is compiled for the (hidden, rank) buckets of the codec's own
-architectures.  Any other shape runs through the smallest bucket that
-holds it, on weights zero-padded by ``pad_to_bucket``; that is exact,
-since a padded hidden unit's gates are (1/2, 1/2, 0, 1/2), so its c and h
-stay 0, and a padded rank column of v stays 0.  The weights are fixed for
-a payload, so the codec pads them once (``bucket_operands``, through
-``core.nttd.decode_operands``) and this wrapper then pads nothing.
+* ``"register"`` (``csrc/decode_tile.cu``): state in registers, compiled
+  for the (hidden, rank) buckets of the codec's own architectures.  Any
+  shape a bucket holds runs through the smallest such bucket, on weights
+  zero-padded by ``pad_to_bucket``; that is exact, since a padded hidden
+  unit's gates are (1/2, 1/2, 0, 1/2), so its c and h stay 0, and a padded
+  rank column of v stays 0.
+* ``"simt"`` (``csrc/decode_tile_simt.cu``): every shape above the largest
+  bucket, hidden and rank as run-time values, state in shared memory, its
+  block sized to that memory (``simt_threads``).
+
+The weights are fixed for a payload, so the codec readies them once
+(``bucket_operands``, through ``core.nttd.decode_operands``): padded for
+the register body, as they are for the simt body.  ``launches`` counts
+kernel launches of either body, ``simt_launches`` those of the simt body,
+nothing else.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build, ref
-from repro_torch.kernels._common import DTYPE_CODES, check_cuda_operands, check_shape
+from repro_torch.kernels._common import (
+    DTYPE_CODES,
+    check_cuda_operands,
+    check_shape,
+    threads_for_smem,
+)
 
 # (hidden, rank) instantiations of csrc/decode_tile.cu, smallest first, as
 # REPRO_DECODE_BUCKETS in csrc/decode_tile.cuh lists them:
@@ -26,7 +39,22 @@ from repro_torch.kernels._common import DTYPE_CODES, check_cuda_operands, check_
 # (16, 8); 18/10 (paper MEDIUM) in (20, 12); hidden = 2 rank up to rank 16
 # in (32, 16); (64, 32) is the largest shape tested
 BUCKETS = ((12, 8), (16, 8), (20, 12), (32, 16), (64, 32))
+SIMT_MAX_THREADS = 64  # kDecodeSimtThreads in csrc/decode_tile_simt.cu
 launches = 0
+simt_launches = 0
+
+
+def decode_body(hid: int, rank: int) -> str:
+    """The body a CUDA call runs: "register" where a bucket holds the shape
+    (``bucket_for``), else "simt"."""
+    return "register" if any(hid <= h and rank <= r for h, r in BUCKETS) else "simt"
+
+
+def simt_threads(hid: int, rank: int) -> int:
+    """Threads per block of the simt body: the most, up to 64, whose x, h,
+    h_new, c, v and v_new ((4 H + 2 R) floats a thread) fit a block's shared
+    memory (45 at (256, 128)); raises only when one thread's do not."""
+    return threads_for_smem("decode_tile", 4 * hid + 2 * rank, SIMT_MAX_THREADS)
 
 
 def bucket_for(hid: int, rank: int) -> tuple[int, int]:
@@ -72,12 +100,14 @@ def pad_to_bucket(
 
 
 def bucket_operands(weights: tuple[torch.Tensor, ...]) -> tuple[torch.Tensor, ...]:
-    """The ten weight operands of ``decode_tile``, zero-padded to their
-    bucket and contiguous; returned as they are when already so."""
+    """The ten weight operands of ``decode_tile`` as its body takes them,
+    contiguous: zero-padded to their bucket for the register body, unpadded
+    for the simt body; returned as they are when already so."""
     hid, rank = weights[0].shape[2], weights[5].shape[0]
-    bucket = bucket_for(hid, rank)
-    if bucket != (hid, rank):
-        weights = pad_to_bucket(weights, *bucket)
+    if decode_body(hid, rank) == "register":
+        bucket = bucket_for(hid, rank)
+        if bucket != (hid, rank):
+            weights = pad_to_bucket(weights, *bucket)
     return tuple(t.contiguous() for t in weights)
 
 
@@ -104,7 +134,7 @@ def decode_tile(
     w_last:   [H, R],   b_last:  [R]
     returns   [B] in ``emb.dtype``
     """
-    global launches
+    global launches, simt_launches
     weights = (emb, wi, wh, b, w_first, b_first, w_mid, b_mid, w_last, b_last)
     if idx.device.type == "cpu":
         return ref.nttd_decode_tile(idx, *weights)
@@ -137,20 +167,28 @@ def decode_tile(
         ("b_last", b_last, (rank,)),
     ):
         check_shape("decode_tile", key, t, shape)
+    body = decode_body(hid, rank)
     weights = bucket_operands(weights)
-    hid_to, rank_to = weights[0].shape[2], weights[5].shape[0]
-    for key in ("emb", "w_mid"):  # read as vectors from device memory
-        if weights[names.index(key)].data_ptr() % 16:
-            raise ValueError(f"decode_tile: {key} must be 16-byte aligned")
+    if body == "register":
+        entry = lib.repro_decode_tile
+        widths = (weights[0].shape[2], weights[5].shape[0])  # the bucket
+        for key in ("emb", "w_mid"):  # read as vectors from device memory
+            if weights[names.index(key)].data_ptr() % 16:
+                raise ValueError(f"decode_tile: {key} must be 16-byte aligned")
+    else:
+        entry = lib.repro_decode_tile_simt
+        widths = (hid, rank, simt_threads(hid, rank))
     out = torch.empty((bsz,), dtype=emb.dtype, device=device)
     if bsz == 0:
         return out
     with torch.cuda.device(device):
-        err = lib.repro_decode_tile(
+        err = entry(
             idx.data_ptr(), *(t.data_ptr() for t in weights), out.data_ptr(),
-            bsz, t_steps, m_rows, hid_to, rank_to, DTYPE_CODES[emb.dtype],
+            bsz, t_steps, m_rows, *widths, DTYPE_CODES[emb.dtype],
             torch.cuda.current_stream(device).cuda_stream,
         )
-    _build.check(lib, "decode_tile", err)
+    _build.check(lib, f"decode_tile ({body})", err)
     launches += 1
+    if body == "simt":
+        simt_launches += 1
     return out

@@ -7,8 +7,8 @@ names the body, by shape: the register body (``"register"``,
 ``csrc/lstm.cu``) for hidden widths up to the largest bucket, 64, run in
 the smallest bucket of ``BUCKETS`` that holds the width and padded inside
 the kernel; the first port's body (``"simt"``, ``csrc/lstm_dispatch.cu``)
-for wider LSTMs.  ``launches`` counts kernel launches of either body,
-nothing else.
+for wider LSTMs, its block sized to the shared memory (``simt_threads``).
+``launches`` counts kernel launches of either body, nothing else.
 """
 from __future__ import annotations
 
@@ -19,14 +19,14 @@ from repro_torch.kernels._common import (
     DTYPE_CODES,
     check_cuda_operands,
     check_shape,
-    check_smem,
+    threads_for_smem,
 )
 
 # hidden widths the register body is instantiated for, smallest first, as
 # REPRO_LSTM_BUCKETS in csrc/lstm.cuh lists them: the decode buckets'
 # widths, holding every LSTM width the repo runs (5, 8, 12, 16, 18, 24, 64)
 BUCKETS = (12, 16, 20, 32, 64)
-SIMT_THREADS = 64  # kLstmThreads in csrc/lstm_dispatch.cu
+SIMT_MAX_THREADS = 64  # kLstmThreads in csrc/lstm_dispatch.cu
 launches = 0
 
 
@@ -41,6 +41,13 @@ def bucket_for(hid: int) -> int:
 def lstm_body(hid: int) -> str:
     """The body a CUDA call runs: "register" up to hidden 64, else "simt"."""
     return "register" if hid <= BUCKETS[-1] else "simt"
+
+
+def simt_threads(hid: int) -> int:
+    """Threads per block of the simt body: the most, up to 64, whose x, h,
+    h_new and c (16 H bytes a thread) fit a block's shared memory (56 at
+    H 256); raises only when one thread's do not."""
+    return threads_for_smem("lstm_scan", 4 * hid, SIMT_MAX_THREADS)
 
 
 def vector_rows(x: torch.Tensor, out: torch.Tensor) -> bool:
@@ -69,7 +76,7 @@ def lstm_scan(
     check_shape("lstm_scan", "b", b, (4 * hid,))
     body = lstm_body(hid)
     if body == "simt":
-        check_smem("lstm_scan", SIMT_THREADS, 4 * hid)
+        threads = simt_threads(hid)
     elif x.numel() >= 2**31:
         raise ValueError(f"lstm_scan: x's {x.numel()} elements exceed the register body's "
                          "2**31 - 1")
@@ -85,7 +92,8 @@ def lstm_scan(
                 DTYPE_CODES[x.dtype], stream,
             )
         else:
-            err = lib.repro_lstm_scan(*ptrs, bsz, t_steps, hid, DTYPE_CODES[x.dtype], stream)
+            err = lib.repro_lstm_scan(*ptrs, bsz, t_steps, hid, threads, DTYPE_CODES[x.dtype],
+                                      stream)
     _build.check(lib, f"lstm_scan ({body})", err)
     launches += 1
     return out

@@ -4,8 +4,10 @@ forward only.
 Counterpart of ``repro.kernels.tt_contract``.  On a CUDA tensor it
 launches the hand-written kernel on the current stream or raises; on a
 CPU tensor it runs the plain version ``ref.tt_contract``.  The kernel
-takes K >= 1; ``ops.tt_contract`` turns K == 0 into a row dot.
-``launches`` counts kernel launches, nothing else.
+takes K >= 1 and any R >= 1 in one body, a lane group per entry
+(``lanes_per_entry`` lanes, reading each row of ``mid`` coalesced);
+``ops.tt_contract`` turns K == 0 into a row dot.  ``launches`` counts
+kernel launches, nothing else.
 """
 from __future__ import annotations
 
@@ -19,8 +21,14 @@ from repro_torch.kernels._common import (
     check_smem,
 )
 
-THREADS = 128  # kTTThreads in csrc/tt_contract.cu
+THREADS = 256  # kTTThreads in csrc/tt_contract.cu
 launches = 0
+
+
+def lanes_per_entry(rank: int) -> int:
+    """Lanes sharing one entry: the smallest power of two >= ``rank``, at
+    most a warp (32)."""
+    return min(32, 1 << (rank - 1).bit_length()) if rank > 1 else 1
 
 
 def tt_contract(first: torch.Tensor, mid: torch.Tensor, last: torch.Tensor) -> torch.Tensor:
@@ -39,14 +47,16 @@ def tt_contract(first: torch.Tensor, mid: torch.Tensor, last: torch.Tensor) -> t
     )
     check_shape("tt_contract", "mid", mid, (bsz, k_steps, rank, rank))
     check_shape("tt_contract", "last", last, (bsz, rank))
-    check_smem("tt_contract", THREADS, 2 * rank)
+    group = lanes_per_entry(rank)
+    # v and v_new of each of the block's THREADS / group entries
+    check_smem("tt_contract", THREADS // group, 2 * rank)
     out = torch.empty((bsz,), dtype=first.dtype, device=device)
     if bsz == 0:
         return out
     with torch.cuda.device(device):
         err = lib.repro_tt_contract(
             first.data_ptr(), mid.data_ptr(), last.data_ptr(), out.data_ptr(),
-            bsz, k_steps, rank, DTYPE_CODES[first.dtype],
+            bsz, k_steps, rank, group, DTYPE_CODES[first.dtype],
             torch.cuda.current_stream(device).cuda_stream,
         )
     _build.check(lib, "tt_contract", err)

@@ -37,8 +37,14 @@ def _close(got: torch.Tensor, want, dt: str) -> None:
     )
 
 
-def _decode_args(b, t, m, hid, rank, seed=1):
+def _decode_args(b, t, m, hid, rank, seed=1, width_scaled=False):
+    """Decode operands scaled as the reference's tests; ``width_scaled``
+    multiplies every product over the hidden width by sqrt(16 / hid), so
+    that a wide shape's values stay O(1) as they do at H 16 (with fixed
+    scales the chain grows like (0.5 sqrt(R))^(T-2) and an f32 sum's
+    rounding outgrows the tolerance where such values cancel)."""
     rng = np.random.default_rng(seed)
+    width = np.sqrt(16 / hid) if width_scaled else 1.0
 
     def mk(*shape, scale=0.3):
         return rng.normal(size=shape) * scale
@@ -46,10 +52,11 @@ def _decode_args(b, t, m, hid, rank, seed=1):
     idx = rng.integers(0, m, size=(b, t)).astype(np.int32)
     return idx, [
         mk(t, m, hid),
-        mk(hid, 4 * hid), mk(hid, 4 * hid), mk(4 * hid, scale=0.1),
-        mk(hid, rank), mk(rank, scale=0.1),
-        mk(hid, rank * rank, scale=0.5 / np.sqrt(rank)), mk(rank * rank, scale=0.1),
-        mk(hid, rank), mk(rank, scale=0.1),
+        mk(hid, 4 * hid, scale=0.3 * width), mk(hid, 4 * hid, scale=0.3 * width),
+        mk(4 * hid, scale=0.1),
+        mk(hid, rank, scale=0.3 * width), mk(rank, scale=0.1),
+        mk(hid, rank * rank, scale=0.5 / np.sqrt(rank) * width), mk(rank * rank, scale=0.1),
+        mk(hid, rank, scale=0.3 * width), mk(rank, scale=0.1),
     ]
 
 
@@ -122,7 +129,8 @@ def test_decode_tile_rejects_short_chain():
 
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
 @pytest.mark.parametrize(
-    "b,k,r", [(32, 0, 4), (64, 5, 8), (100, 10, 16), (7, 3, 8), (256, 8, 32), (33, 1, 4)]
+    "b,k,r", [(32, 0, 4), (64, 5, 8), (100, 10, 16), (7, 3, 8), (256, 8, 32), (33, 1, 4),
+              (17, 3, 34), (9, 2, 57), (8, 2, 128)]
 )
 def test_tt_contract_matches_jax(b, k, r, dt):
     rng = np.random.default_rng(10 * k + r)
@@ -240,6 +248,107 @@ def test_decode_tile_buckets_hold_the_repo_configs():
                                            for w in ws))
     assert padded[0].shape == (4, 9, 20) and padded[6].shape == (20, 144)
     assert all(t.is_contiguous() for t in padded)
+
+
+@pytest.mark.parametrize("hid,rank,body", [
+    (1, 1, "register"), (12, 6, "register"), (16, 8, "register"), (18, 10, "register"),
+    (24, 12, "register"), (16, 32, "register"), (64, 32, "register"),
+    (68, 34, "simt"), (114, 57, "simt"), (256, 128, "simt"), (20, 40, "simt"), (65, 4, "simt"),
+])
+def test_decode_body_by_shape(hid, rank, body):
+    """The register body runs exactly where a bucket holds the shape; every
+    other shape, the budget rule's wide ones among them, runs the simt
+    body, and ``bucket_for`` still refuses it."""
+    from repro_torch.kernels import decode_tile as tdecode
+
+    assert tdecode.decode_body(hid, rank) == body
+    if body == "register":
+        bucket = tdecode.bucket_for(hid, rank)
+        assert hid <= bucket[0] and rank <= bucket[1]
+    else:
+        with pytest.raises(ValueError, match="largest bucket"):
+            tdecode.bucket_for(hid, rank)
+
+
+def test_bucket_operands_leaves_simt_shapes_unpadded():
+    """At (68, 34), the 1 MB budget rule's architecture, the operands go to
+    the simt body as they are: unpadded, contiguous, the same tensors."""
+    from repro_torch.kernels import decode_tile as tdecode
+
+    _, ws = _decode_args(3, 4, 9, 68, 34)
+    tws = tuple(torch.from_numpy(np.asarray(w, np.float32)) for w in ws)
+    got = tdecode.bucket_operands(tws)
+    assert all(a is b for a, b in zip(got, tws))
+    assert got[0].shape == (4, 9, 68) and got[6].shape == (68, 34 * 34)
+    # a transposed (non-contiguous) operand comes back contiguous and equal
+    wt = tws[1].t().contiguous().t()
+    got = tdecode.bucket_operands(tws[:1] + (wt,) + tws[2:])
+    assert got[1].is_contiguous() and torch.equal(got[1], tws[1])
+
+
+@pytest.mark.parametrize("kernel,shape,threads", [
+    ("decode_tile", (68, 34), 64), ("decode_tile", (114, 57), 64),
+    ("decode_tile", (256, 128), 45), ("decode_tile", (14_500, 28), 1),
+    ("lstm_scan", (96,), 64), ("lstm_scan", (256,), 56), ("lstm_scan", (14_528,), 1),
+])
+def test_simt_threads_fit_shared_memory(kernel, shape, threads):
+    """The simt bodies take the most threads, up to 64, whose state fits a
+    Hopper block's 232,448 bytes of shared memory: (4 H + 2 R) floats a
+    thread in the decode, 4 H in the LSTM scan."""
+    from repro_torch.kernels import _common
+    from repro_torch.kernels import decode_tile as tdecode
+    from repro_torch.kernels import lstm as tlstm
+
+    if kernel == "decode_tile":
+        got, floats = tdecode.simt_threads(*shape), 4 * shape[0] + 2 * shape[1]
+    else:
+        got, floats = tlstm.simt_threads(*shape), 4 * shape[0]
+    assert got == threads
+    assert got * floats * 4 <= _common.MAX_SMEM_BYTES
+    assert got == 64 or (got + 1) * floats * 4 > _common.MAX_SMEM_BYTES
+
+
+@pytest.mark.parametrize("kernel,shape", [
+    ("decode_tile", (14_600, 1)), ("decode_tile", (1, 29_057)), ("lstm_scan", (14_529,)),
+])
+def test_simt_threads_raise_past_one_thread(kernel, shape):
+    """Only a shape whose single thread's state exceeds a block's shared
+    memory is refused."""
+    from repro_torch.kernels import decode_tile as tdecode
+    from repro_torch.kernels import lstm as tlstm
+
+    fn = tdecode.simt_threads if kernel == "decode_tile" else tlstm.simt_threads
+    with pytest.raises(ValueError, match="one thread's .* bytes of shared memory"):
+        fn(*shape)
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("t", [3, 5])
+@pytest.mark.parametrize("hid,rank,b", [(68, 34, 33), (256, 128, 8)])
+def test_decode_tile_wide_matches_jax_oracle(hid, rank, b, t, dt):
+    """The simt body's shapes: the port's decode (on the CPU, its plain
+    version, through every kernel impl) against the JAX oracle."""
+    from repro_torch.kernels import decode_tile as tdecode
+
+    assert tdecode.decode_body(hid, rank) == "simt"
+    idx, ws = _decode_args(b, t, 9, hid, rank, seed=hid + t, width_scaled=True)
+    (jidx, jws), (tidx, tws) = _decode_pair(idx, ws, dt)
+    want = _J_DECODE(jidx, *jws)
+    got = tref.nttd_decode_tile(tidx, *tws)
+    assert got.dtype == DTYPES[dt][1] and got.shape == (b,)
+    _close(got, want, dt)
+    for impl in ("cuda", "fused", "auto"):
+        assert torch.equal(tops.nttd_decode_tile(tidx, *tws, impl=impl), got)
+
+
+@pytest.mark.parametrize("rank,group", [(1, 1), (2, 2), (3, 4), (5, 8), (8, 8), (9, 16),
+                                        (16, 16), (17, 32), (32, 32), (34, 32), (128, 32)])
+def test_tt_contract_lanes_per_entry(rank, group):
+    """The lane group of the tt_contract body: the smallest power of two
+    holding a row of R, at most a warp."""
+    from repro_torch.kernels import tt_contract as ttt
+
+    assert ttt.lanes_per_entry(rank) == group
 
 
 @pytest.mark.parametrize("hid,bucket", [(5, 12), (8, 12), (12, 12), (16, 16), (18, 20),

@@ -62,7 +62,11 @@ def _jax_params(spec_shape, rank, hidden, seed=3, d_prime=None):
 @pytest.mark.parametrize(
     "shape,rank,hidden,d_prime",
     [((20, 18, 12), 6, 12, None), ((6, 5, 4), 2, 4, None), ((4, 3), 3, 8, 2),
-     ((50, 40, 30), 8, 16, None)],
+     ((50, 40, 30), 8, 16, None),
+     # the budget rule's wide architectures, which the CUDA decode runs
+     # through its simt body (d' 3 and 5)
+     ((6, 5, 4), 34, 68, 3), ((20, 18, 12), 34, 68, 5), ((6, 5, 4), 128, 256, 3),
+     ((20, 18, 12), 128, 256, 5)],
 )
 def test_apply_matches_reference(shape, rank, hidden, d_prime):
     jspec, jcfg, jparams = _jax_params(shape, rank, hidden, d_prime=d_prime)
