@@ -10,8 +10,11 @@ Phases, each printing JSON lines:
    each kernel's registers, shared memory, stack and spills from
    ``-Xptxas -v`` (the ``lstm_scan`` register body at H 16, the main
    path's, must not spill and must leave room for three blocks a SM);
-   then the count of tensor-core instructions (``HGMMA``) per kernel in
-   the library's SASS (``cuobjdump -sass``).
+   the simt decode body's resources, which must show no spills, and its
+   tile of entries and shared-memory bytes at each wide shape
+   (``device.decode_simt``); then the count of
+   tensor-core instructions (``HGMMA``) per kernel in the library's SASS
+   (``cuobjdump -sass``).
 2. kernels: each CUDA kernel against its plain PyTorch version on the card,
    over the reference's test grid (R in {4, 8, 32}, T in {2, 3, 8}, f32
    and bf16, B = 33 and B = 0), at the main path's shapes, at H = 64,
@@ -20,7 +23,7 @@ Phases, each printing JSON lines:
    through its simt body above the largest bucket at the reference budget
    rule's (68, 34) and (114, 57) (B 4096, T 10) and (256, 128) (B 1000,
    T 5), on inputs scaled to the width; every decode case names its body
-   (``decode_body``) and bucket or simt block size
+   (``decode_body``) and bucket or simt tile of entries
    (``kernels.decode_buckets``);
    ``lstm_scan`` at B 1000, T 10 at every hidden bucket of its register
    body (12, 16, 20, 32, 64), at widths padded into one (5, 18, 24), on an
@@ -85,8 +88,10 @@ Phases, each printing JSON lines:
    alone; the ``tt_contract`` row likewise names its body and lanes per
    entry, its one device kernel a call, and its bf16 time and bound at the
    same shape.  The simt decode body is timed at B 65,536, T 10 at (68, 34)
-   and (114, 57) (``timing.decode_simt``); the first is the
-   ``decode_tile_simt`` row, with the wide phase's launches.
+   and (114, 57) like every row (``timing.decode_simt``, with the plain
+   version and the bound beside each, and its error there held to 1e-5);
+   the first is the ``decode_tile_simt`` row, with the wide phase's
+   launches.
 
 The line before the last is the card's ``name, power.limit`` as
 ``nvidia-smi`` reports them; the last line is the result object.  Any
@@ -338,6 +343,17 @@ def decode_cost(b: int, t: int, hid: int, rank: int) -> int:
                 + 2 * (t - 2) * rank * rank + 2 * rank)
 
 
+def simt_tile(hid: int, rank: int) -> dict:
+    """The simt decode body's block at (hid, rank): the rank it runs (R
+    rounded up to 4), its tile of entries and its shared-memory bytes."""
+    from repro_torch.kernels import decode_tile as _decode_tile
+
+    rp = _decode_tile.simt_rank(rank)
+    tile = _decode_tile.simt_tile(hid, rp)
+    return {"H": hid, "R": rank, "simt_rank": rp, "tile": tile,
+            "smem_bytes": _decode_tile.simt_smem_bytes(hid, rp, tile)}
+
+
 def tt_bytes(b: int, k: int, r: int, elem: int) -> int:
     """Bytes ``tt_contract`` must move: first, mid and last read once, the
     output written once."""
@@ -500,6 +516,15 @@ def phase_device(torch):
                                   and r["registers"] <= LSTM_H16_REGISTERS for r in h16),
             f"lstm_scan's H 16 register body spills or exceeds {LSTM_H16_REGISTERS} "
             f"registers: {h16}")
+    # the simt decode body: its ptxas resources, and the tile of entries a
+    # block owns at each wide shape; it must not spill
+    simt = [r for r in resources if "decode_tile_simt_kernel" in r["kernel"]]
+    emit({"phase": "device.decode_simt", "ptxas": simt,
+          "tiles": [simt_tile(h, r) for h, r in sorted({(h, r) for h, r, _, _ in WIDE_DECODE}
+                                                        | set(WIDE_TIMING))]})
+    require(len(simt) == 2 and all(r["spill_store_bytes"] == r["spill_load_bytes"] == 0
+                                   for r in simt),
+            f"the simt decode body spills: {simt}")
     sass = sass_hgmma(path)
     if sass["tool"]:
         wgmma = {k: n for k, n in sass["hgmma"].items() if "flash_attention_wgmma" in k}
@@ -599,7 +624,7 @@ def phase_kernels(torch, device):
                     f"decode_tile ({h}, {r}) did not run the simt body")
             decode_cases.append({"H": h, "R": r, "B": b, "T": t, "dtype": dn,
                                  "body": _decode_tile.decode_body(h, r), "bucket": None,
-                                 "threads": _decode_tile.simt_threads(h, r),
+                                 "tile": simt_tile(h, r)["tile"],
                                  "max_abs_err": err, "ulps": ulps})
         # lstm_scan's register body at every bucket, padded widths, both
         # load routes, and its simt body above the largest bucket
@@ -819,7 +844,7 @@ def phase_wide(torch, device):
     dense_err = float(np.abs(dense - dense_plain).max())
     emit({"phase": "wide", "rank": WIDE_RANK, "hidden": WIDE_HIDDEN, "impl": cfg.kernel_impl,
           "body": _decode_tile.decode_body(WIDE_HIDDEN, WIDE_RANK),
-          "threads": _decode_tile.simt_threads(WIDE_HIDDEN, WIDE_RANK),
+          **simt_tile(WIDE_HIDDEN, WIDE_RANK),
           "pems_shape": list(PEMS_SHAPE), "pems_folded": list(payloads["pems"][0].folded_shape),
           "payload_bytes": len(blob), "request_entries": REQUEST, "request_ms": req_ms,
           "uber_shape": list(UBER_SHAPE), "uber_folded": list(payloads["uber"][0].folded_shape),
@@ -1055,9 +1080,10 @@ def phase_timing(torch, device, enc, idx_np, launches, errs):
 
 def decode_simt_timing(torch, device, launches, errs):
     """The simt decode body at B ``REQUEST``, T 10, M 8 (f32, inputs scaled
-    to the width) for each shape of ``WIDE_TIMING``: kernel, plain version
-    and bound, on a ``timing.decode_simt`` line; returns the kernels-table
-    row of the first shape, the wide phase's."""
+    to the width) for each shape of ``WIDE_TIMING``: kernel (mean of 20
+    launches after 2 warm-ups, as every row), plain version (5) and bound,
+    with the tile of entries, on a ``timing.decode_simt`` line; returns the
+    kernels-table row of the first shape, the wide phase's."""
     from repro_torch.kernels import decode_tile as _decode_tile
     from repro_torch.kernels import ops, ref
 
@@ -1072,12 +1098,15 @@ def decode_simt_timing(torch, device, launches, errs):
         n_bytes = b * t * 4 + b * 4 + sum(int(w.numel()) for w in ws) * 4
         cases.append({"H": h, "R": r, "B": b, "T": t, "M": m,
                       "body": _decode_tile.decode_body(h, r),
-                      "threads": _decode_tile.simt_threads(h, r),
+                      **simt_tile(h, r),
                       "max_abs_err_at_shape": float((kern() - plain()).abs().max()),
-                      "ms": time_ms(torch, kern, 3, warmup=1),
-                      "plain_ms": time_ms(torch, plain, 3, warmup=1),
+                      "ms": time_ms(torch, kern, 20),
+                      "plain_ms": time_ms(torch, plain, 5),
                       **bound(decode_cost(b, t, h, r), n_bytes, PEAK_FP32),
                       "ops": decode_cost(b, t, h, r), "bytes": n_bytes})
+        require(cases[-1]["max_abs_err_at_shape"] <= TOL["float32"],
+                f"simt decode at ({h}, {r}): {cases[-1]['max_abs_err_at_shape']} from the plain "
+                "version")
     emit({"phase": "timing.decode_simt", "cases": cases})
     first = cases[0]
     return {
@@ -1087,7 +1116,7 @@ def decode_simt_timing(torch, device, launches, errs):
         "max_abs_err_bf16": errs["decode_tile_simt"]["bfloat16"],
         "ms": first["ms"], "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
         "bound_by": first["bound_by"], "library_ms": None, "library": None,
-        "library_max_abs_err": None, "body": first["body"], "threads": first["threads"],
+        "library_max_abs_err": None, "body": first["body"], "tile": first["tile"],
         "shape": {k: first[k] for k in ("B", "T", "M", "H", "R")},
         "ops": first["ops"], "bytes": first["bytes"],
     }

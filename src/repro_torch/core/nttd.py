@@ -156,9 +156,11 @@ def decode_operands(
     params: Params, spec: FoldingSpec, cfg: NTTDConfig
 ) -> tuple[torch.Tensor, ...]:
     """``fused_decode_inputs`` as the fused decode kernel takes them: on
-    CUDA zero-padded to the kernel's (hidden, rank) bucket, which is exact
-    (``kernels.decode_tile``); on the CPU, where the plain version runs, as
-    they are.  Built once per payload by ``CompressedTensor``."""
+    CUDA zero-padded to the register body's (hidden, rank) bucket, or to the
+    simt body's rank (a multiple of 4), both exact
+    (``kernels.decode_tile.bucket_operands``); on the CPU, where the plain
+    version runs, as they are.  Built once per payload by
+    ``CompressedTensor``."""
     ws = fused_decode_inputs(params, spec, cfg)
     return bucket_operands(ws) if ws[0].device.type == "cuda" else ws
 

@@ -45,7 +45,7 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     # idx, emb, wi, wh, b, wf, bf, wm, bm, wl, bl, out, B, T, M, H, R, dtype, stream
     "repro_decode_tile": [_P] * 12 + [_L, _I, _I, _I, _I, _I, _P],
-    # idx, emb, wi, wh, b, wf, bf, wm, bm, wl, bl, out, B, T, M, H, R, threads, dtype, stream
+    # idx, emb, wi, wh, b, wf, bf, wm, bm, wl, bl, out, B, T, M, H, R, tile, dtype, stream
     "repro_decode_tile_simt": [_P] * 12 + [_L, _I, _I, _I, _I, _I, _I, _P],
     # x, wi, wh, b, out, B, T, H, threads, dtype, stream
     "repro_lstm_scan": [_P] * 5 + [_L, _I, _I, _I, _I, _P],

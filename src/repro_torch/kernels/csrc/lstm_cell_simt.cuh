@@ -1,6 +1,5 @@
-// The run-time-width (i, f, g, o) LSTM cell shared by the simt bodies: the
-// LSTM scan's (lstm_dispatch.cu) and the fused NTTD decode's
-// (decode_tile_simt.cu).
+// The run-time-width (i, f, g, o) LSTM cell of the LSTM scan's simt body
+// (lstm_dispatch.cu).
 //
 // One thread owns one sequence.  Its state sits in dynamic shared memory,
 // column-wise per thread (element k of thread tid at [k * nt + tid], nt the

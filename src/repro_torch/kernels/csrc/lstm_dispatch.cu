@@ -10,10 +10,9 @@
 // The simt body replaces the Pallas TPU kernel repro/kernels/lstm.py:
 // lstm_scan (body _kernel) as the first port did: one thread owns one
 // sequence; its x, h, h_new and c sit in shared memory, column-wise per
-// thread, and the cell is lstm_cell_simt.cuh's, shared with the fused
-// decode's simt body.  H is a run-time value; the block's thread count is
-// sized to the shared memory by the caller.  Math in f32, output cast to
-// x's dtype.
+// thread, and the cell is lstm_cell_simt.cuh's.  H is a run-time value; the
+// block's thread count is sized to the shared memory by the caller.  Math
+// in f32, output cast to x's dtype.
 #include <climits>
 
 #include "lstm.cuh"

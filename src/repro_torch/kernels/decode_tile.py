@@ -12,14 +12,26 @@ body, by shape alone:
   unit's gates are (1/2, 1/2, 0, 1/2), so its c and h stay 0, and a padded
   rank column of v stays 0.
 * ``"simt"`` (``csrc/decode_tile_simt.cu``): every shape above the largest
-  bucket, hidden and rank as run-time values, state in shared memory, its
-  block sized to that memory (``simt_threads``).
+  bucket, hidden and rank as run-time values.  A block owns a tile of
+  entries (``simt_tile``) for all T steps, keeps their state in shared
+  memory and runs each step as FP32 products over the tile, the weights
+  streamed through shared memory once a block.
 
+Operand layout.  Both bodies take the ten weights in the layout
+``decode_tile`` documents, contiguous.  The register body takes them
+zero-padded to its bucket.  The simt body takes them zero-padded to rank
+``simt_rank(R)``, R rounded up to a multiple of 4 (hidden unchanged), so
+that every row of R weights is whole 16-byte vectors; it is exact for the
+same reason.  It reads them in place: ``wi`` and ``wh`` as the two halves
+of K of one [2H, 4H] gate product (regrouping the gate columns by unit as
+it stages them into shared memory), ``w_mid`` [H, R R] as [H R, R] (row
+k R + r sits at k R^2 + r R) and ``b_mid`` [R R] as [R, R]; the three heads'
+weights and biases must be 16-byte aligned.
 The weights are fixed for a payload, so the codec readies them once
-(``bucket_operands``, through ``core.nttd.decode_operands``): padded for
-the register body, as they are for the simt body.  ``launches`` counts
-kernel launches of either body, ``simt_launches`` those of the simt body,
-nothing else.
+(``bucket_operands``, through ``core.nttd.decode_operands``); operands
+passed unpadded are padded at each call.  ``launches`` counts kernel
+launches of either body, ``simt_launches`` those of the simt body, nothing
+else.
 """
 from __future__ import annotations
 
@@ -28,9 +40,9 @@ import torch
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels._common import (
     DTYPE_CODES,
+    MAX_SMEM_BYTES,
     check_cuda_operands,
     check_shape,
-    threads_for_smem,
 )
 
 # (hidden, rank) instantiations of csrc/decode_tile.cu, smallest first, as
@@ -39,7 +51,7 @@ from repro_torch.kernels._common import (
 # (16, 8); 18/10 (paper MEDIUM) in (20, 12); hidden = 2 rank up to rank 16
 # in (32, 16); (64, 32) is the largest shape tested
 BUCKETS = ((12, 8), (16, 8), (20, 12), (32, 16), (64, 32))
-SIMT_MAX_THREADS = 64  # kDecodeSimtThreads in csrc/decode_tile_simt.cu
+SIMT_TILE_STEP = 8  # kSimtEntries in csrc/decode_tile_simt.cu: entries of a thread's tile
 launches = 0
 simt_launches = 0
 
@@ -50,11 +62,38 @@ def decode_body(hid: int, rank: int) -> str:
     return "register" if any(hid <= h and rank <= r for h, r in BUCKETS) else "simt"
 
 
-def simt_threads(hid: int, rank: int) -> int:
-    """Threads per block of the simt body: the most, up to 64, whose x, h,
-    h_new, c, v and v_new ((4 H + 2 R) floats a thread) fit a block's shared
-    memory (45 at (256, 128)); raises only when one thread's do not."""
-    return threads_for_smem("decode_tile", 4 * hid + 2 * rank, SIMT_MAX_THREADS)
+def simt_rank(rank: int) -> int:
+    """The rank the simt body runs: R rounded up to a multiple of 4, so that
+    every row of R weights is whole 16-byte vectors."""
+    return -(-rank // 4) * 4
+
+
+def simt_smem_bytes(hid: int, rank: int, tile: int) -> int:
+    """Dynamic shared memory of a simt block owning ``tile`` entries, as
+    ``simt_smem_floats`` in ``csrc/decode_tile_simt.cu`` counts it: x, h,
+    h_new and c ([H][tile] each), v and v_new ([Rp][tile] each, Rp = R
+    rounded up to 4) and two weight stages."""
+    rp = simt_rank(rank)
+    stage = max(min(64 * hid, 8192), 4 * hid + 8, rp)
+    return 4 * (tile * (4 * hid + 2 * rp) + 2 * stage)
+
+
+def simt_tile(hid: int, rank: int) -> int:
+    """Entries a simt block owns: the largest multiple of 8 whose state and
+    weight stages (``simt_smem_bytes``) fit a block's shared memory (136 at
+    (68, 34), 72 at (114, 57), 32 at (256, 128)); raises only when one
+    thread's tile of 8 entries does not fit."""
+    fixed = simt_smem_bytes(hid, rank, 0)
+    per_entry = simt_smem_bytes(hid, rank, 1) - fixed
+    tile = (MAX_SMEM_BYTES - fixed) // per_entry // SIMT_TILE_STEP * SIMT_TILE_STEP
+    if tile < SIMT_TILE_STEP:
+        raise ValueError(
+            f"decode_tile: one tile of {SIMT_TILE_STEP} entries needs "
+            f"{simt_smem_bytes(hid, rank, SIMT_TILE_STEP)} bytes of shared memory at "
+            f"hidden {hid}, rank {rank}, more than the {MAX_SMEM_BYTES} a Hopper block "
+            "can have"
+        )
+    return tile
 
 
 def bucket_for(hid: int, rank: int) -> tuple[int, int]:
@@ -75,18 +114,24 @@ def pad_to_bucket(
     w_first, b_first, w_mid, b_mid, w_last, b_last) to hidden ``hid_to``
     and rank ``rank_to``; the gate blocks (i, f, g, o) of ``wi``, ``wh``
     and ``b`` and the R x R blocks of ``w_mid`` and ``b_mid`` are padded
-    each on its own."""
+    each on its own.  An operand with nothing to pad is returned as it is."""
     emb, wi, wh, b, w_first, b_first, w_mid, b_mid, w_last, b_last = weights
     hid, rank = emb.shape[2], b_first.shape[0]
     dh, dr = hid_to - hid, rank_to - rank
     if dh < 0 or dr < 0:
         raise ValueError(f"cannot pad hidden {hid}, rank {rank} to {hid_to}, {rank_to}")
-    pad = torch.nn.functional.pad
+
+    def pad(t, widths):
+        return torch.nn.functional.pad(t, widths) if any(widths) else t
 
     def gates(w):  # [..., 4H] -> [..., 4 H_to]
+        if not dh:
+            return w
         return pad(w.reshape(*w.shape[:-1], 4, hid), (0, dh)).reshape(*w.shape[:-1], 4 * hid_to)
 
     def cores(w):  # [..., R*R] -> [..., R_to*R_to]
+        if not dr:
+            return w
         return pad(w.reshape(*w.shape[:-1], rank, rank), (0, dr, 0, dr)).reshape(
             *w.shape[:-1], rank_to * rank_to)
 
@@ -101,13 +146,16 @@ def pad_to_bucket(
 
 def bucket_operands(weights: tuple[torch.Tensor, ...]) -> tuple[torch.Tensor, ...]:
     """The ten weight operands of ``decode_tile`` as its body takes them,
-    contiguous: zero-padded to their bucket for the register body, unpadded
-    for the simt body; returned as they are when already so."""
+    contiguous: zero-padded to their bucket for the register body, and to
+    rank ``simt_rank(R)`` (hidden unchanged) for the simt body; returned as
+    they are when already so."""
     hid, rank = weights[0].shape[2], weights[5].shape[0]
     if decode_body(hid, rank) == "register":
         bucket = bucket_for(hid, rank)
         if bucket != (hid, rank):
             weights = pad_to_bucket(weights, *bucket)
+    elif simt_rank(rank) != rank:
+        weights = pad_to_bucket(weights, hid, simt_rank(rank))
     return tuple(t.contiguous() for t in weights)
 
 
@@ -169,15 +217,17 @@ def decode_tile(
         check_shape("decode_tile", key, t, shape)
     body = decode_body(hid, rank)
     weights = bucket_operands(weights)
+    widths = (weights[0].shape[2], weights[5].shape[0])  # the bucket, or the simt rank
     if body == "register":
         entry = lib.repro_decode_tile
-        widths = (weights[0].shape[2], weights[5].shape[0])  # the bucket
-        for key in ("emb", "w_mid"):  # read as vectors from device memory
-            if weights[names.index(key)].data_ptr() % 16:
-                raise ValueError(f"decode_tile: {key} must be 16-byte aligned")
+        vectors = ("emb", "w_mid")
     else:
         entry = lib.repro_decode_tile_simt
-        widths = (hid, rank, simt_threads(hid, rank))
+        widths += (simt_tile(*widths),)
+        vectors = ("w_first", "b_first", "w_mid", "b_mid", "w_last", "b_last")
+    for key in vectors:  # read as 16-byte vectors from device memory
+        if weights[names.index(key)].data_ptr() % 16:
+            raise ValueError(f"decode_tile: {key} must be 16-byte aligned")
     out = torch.empty((bsz,), dtype=emb.dtype, device=device)
     if bsz == 0:
         return out

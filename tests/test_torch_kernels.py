@@ -271,55 +271,137 @@ def test_decode_body_by_shape(hid, rank, body):
 
 
 def test_bucket_operands_leaves_simt_shapes_unpadded():
-    """At (68, 34), the 1 MB budget rule's architecture, the operands go to
-    the simt body as they are: unpadded, contiguous, the same tensors."""
+    """The simt body's operands keep their hidden width unpadded and take
+    rank R rounded up to a multiple of 4, zero-filled: at (68, 34), the
+    1 MB budget rule's architecture, rank 36, the original weights in the
+    top-left of each padded block; at (256, 128) the same tensors."""
     from repro_torch.kernels import decode_tile as tdecode
 
     _, ws = _decode_args(3, 4, 9, 68, 34)
     tws = tuple(torch.from_numpy(np.asarray(w, np.float32)) for w in ws)
     got = tdecode.bucket_operands(tws)
-    assert all(a is b for a, b in zip(got, tws))
-    assert got[0].shape == (4, 9, 68) and got[6].shape == (68, 34 * 34)
+    assert tdecode.simt_rank(34) == 36
+    shapes = [(4, 9, 68), (68, 272), (68, 272), (272,), (68, 36), (36,), (68, 36 * 36),
+              (36 * 36,), (68, 36), (36,)]
+    assert [tuple(t.shape) for t in got] == shapes
+    assert all(t.is_contiguous() for t in got)
+    assert all(a is b for a, b in zip(got[:4], tws[:4]))  # emb and the LSTM as they are
+    for key in (4, 5, 8, 9):  # first and last heads: R columns, then zeros
+        assert torch.equal(got[key][..., :34], tws[key]) and not got[key][..., 34:].any()
+    mid = got[6].view(68, 36, 36)
+    assert torch.equal(mid[:, :34, :34], tws[6].view(68, 34, 34))
+    assert not mid[:, 34:].any() and not mid[:, :, 34:].any()
+    bmid = got[7].view(36, 36)
+    assert torch.equal(bmid[:34, :34], tws[7].view(34, 34))
+    assert not bmid[34:].any() and not bmid[:, 34:].any()
+    _, ws = _decode_args(3, 4, 9, 256, 128)
+    tws = tuple(torch.from_numpy(np.asarray(w, np.float32)) for w in ws)
+    assert all(a is b for a, b in zip(tdecode.bucket_operands(tws), tws))
     # a transposed (non-contiguous) operand comes back contiguous and equal
     wt = tws[1].t().contiguous().t()
     got = tdecode.bucket_operands(tws[:1] + (wt,) + tws[2:])
     assert got[1].is_contiguous() and torch.equal(got[1], tws[1])
 
 
+@pytest.mark.parametrize("shape,tile", [
+    ((68, 34), 136), ((114, 57), 72), ((256, 128), 32), ((65, 4), 184), ((1290, 28), 8),
+])
+def test_simt_tile_fits_shared_memory(shape, tile):
+    """The simt decode body's tile is the largest multiple of 8 entries
+    whose state and two weight stages fit a Hopper block's 232,448 bytes of
+    shared memory."""
+    from repro_torch.kernels import _common
+    from repro_torch.kernels import decode_tile as tdecode
+
+    got = tdecode.simt_tile(*shape)
+    assert got == tile
+    assert got % 8 == 0
+    assert tdecode.simt_smem_bytes(*shape, got) <= _common.MAX_SMEM_BYTES
+    assert tdecode.simt_smem_bytes(*shape, got + 8) > _common.MAX_SMEM_BYTES
+    # the tile is chosen on the rank the body runs, R rounded up to 4
+    assert tdecode.simt_tile(shape[0], tdecode.simt_rank(shape[1])) == got
+
+
 @pytest.mark.parametrize("kernel,shape,threads", [
-    ("decode_tile", (68, 34), 64), ("decode_tile", (114, 57), 64),
-    ("decode_tile", (256, 128), 45), ("decode_tile", (14_500, 28), 1),
     ("lstm_scan", (96,), 64), ("lstm_scan", (256,), 56), ("lstm_scan", (14_528,), 1),
 ])
 def test_simt_threads_fit_shared_memory(kernel, shape, threads):
-    """The simt bodies take the most threads, up to 64, whose state fits a
-    Hopper block's 232,448 bytes of shared memory: (4 H + 2 R) floats a
-    thread in the decode, 4 H in the LSTM scan."""
+    """The LSTM scan's simt body takes the most threads, up to 64, whose
+    state (4 H floats a thread) fits a Hopper block's 232,448 bytes of
+    shared memory."""
     from repro_torch.kernels import _common
-    from repro_torch.kernels import decode_tile as tdecode
     from repro_torch.kernels import lstm as tlstm
 
-    if kernel == "decode_tile":
-        got, floats = tdecode.simt_threads(*shape), 4 * shape[0] + 2 * shape[1]
-    else:
-        got, floats = tlstm.simt_threads(*shape), 4 * shape[0]
+    got, floats = tlstm.simt_threads(*shape), 4 * shape[0]
     assert got == threads
     assert got * floats * 4 <= _common.MAX_SMEM_BYTES
     assert got == 64 or (got + 1) * floats * 4 > _common.MAX_SMEM_BYTES
 
 
-@pytest.mark.parametrize("kernel,shape", [
-    ("decode_tile", (14_600, 1)), ("decode_tile", (1, 29_057)), ("lstm_scan", (14_529,)),
-])
+@pytest.mark.parametrize("shape", [(14_600, 1), (1, 29_057), (1291, 28)])
+def test_simt_tile_raises_past_one_tile(shape):
+    """Only a shape whose tile of 8 entries exceeds a block's shared memory
+    is refused."""
+    from repro_torch.kernels import decode_tile as tdecode
+
+    with pytest.raises(ValueError, match="one tile of 8 entries needs .* bytes of shared memory"):
+        tdecode.simt_tile(*shape)
+
+
+@pytest.mark.parametrize("kernel,shape", [("lstm_scan", (14_529,))])
 def test_simt_threads_raise_past_one_thread(kernel, shape):
     """Only a shape whose single thread's state exceeds a block's shared
     memory is refused."""
-    from repro_torch.kernels import decode_tile as tdecode
     from repro_torch.kernels import lstm as tlstm
 
-    fn = tdecode.simt_threads if kernel == "decode_tile" else tlstm.simt_threads
     with pytest.raises(ValueError, match="one thread's .* bytes of shared memory"):
-        fn(*shape)
+        tlstm.simt_threads(*shape)
+
+
+def _simt_layout_decode(idx: torch.Tensor, ws: tuple[torch.Tensor, ...]) -> torch.Tensor:
+    """The decode as the simt body computes it, in plain torch, from the
+    operands as ``bucket_operands`` lays them out: the gates as one product
+    of [x | h] with [wi; wh], and the mid step as (h (x) v) . W_mid read as
+    [H R, R] (row k R + r) plus v . b_mid read as [R, R]."""
+    emb, wi, wh, b, wf, bf, wm, bm, wl, bl = ws
+    hid, rank = emb.shape[2], bf.shape[0]
+    rows = wm.view(hid * rank, rank)  # no copy: row k R + r at k R^2 + r R
+    assert rows.data_ptr() == wm.data_ptr()
+    w_gates, rows, b_rows = torch.cat([wi, wh]).float(), rows.float(), bm.view(rank, rank).float()
+    emb, b, wf, bf, wl, bl = (t.float() for t in (emb, b, wf, bf, wl, bl))
+    bsz, t_steps = idx.shape
+    h = torch.zeros((bsz, hid))
+    c = torch.zeros((bsz, hid))
+    for t in range(t_steps):
+        gates = torch.cat([emb[t][idx[:, t].long()], h], dim=1) @ w_gates + b
+        i, f, g, o = gates.split(hid, dim=1)
+        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        h = torch.sigmoid(o) * torch.tanh(c)
+        if t == 0:
+            v = h @ wf + bf
+        elif t == t_steps - 1:
+            out = (v * (h @ wl + bl)).sum(-1)
+        else:
+            v = (h[:, :, None] * v[:, None, :]).reshape(bsz, hid * rank) @ rows + v @ b_rows
+    return out
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("t", [3, 10])
+@pytest.mark.parametrize("hid,rank", [(68, 34), (114, 57), (256, 128)])
+def test_simt_layout_decode_matches_jax_oracle(hid, rank, t, dt):
+    """The sum and the operand layout the simt body relies on: the decode
+    from ``bucket_operands``' simt layout (rank padded to a multiple of 4,
+    W_mid read as [H R, R]) equals the JAX oracle on the unpadded
+    weights."""
+    from repro_torch.kernels import decode_tile as tdecode
+
+    idx, ws = _decode_args(9, t, 9, hid, rank, seed=hid + t, width_scaled=True)
+    (jidx, jws), (tidx, tws) = _decode_pair(idx, ws, dt)
+    want = _J_DECODE(jidx, *jws)
+    laid = tdecode.bucket_operands(tuple(tws))
+    assert laid[5].shape == (tdecode.simt_rank(rank),)
+    _close(_simt_layout_decode(tidx, laid), want, dt)
 
 
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
