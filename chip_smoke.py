@@ -12,7 +12,10 @@ Phases, each printing JSON lines:
    path's, must not spill and must leave room for three blocks a SM);
    the simt decode body's resources, which must show no spills, and its
    tile of entries and shared-memory bytes at each wide shape
-   (``device.decode_simt``); then the count of
+   (``device.decode_simt``); the simt ``lstm_scan`` body's resources,
+   which must show no spills either, and its tile of sequences and
+   shared-memory bytes at H 68, 96, 114 and 256 (``device.lstm_simt``);
+   then the count of
    tensor-core instructions (``HGMMA``) per kernel in the library's SASS
    (``cuobjdump -sass``).
 2. kernels: each CUDA kernel against its plain PyTorch version on the card,
@@ -28,8 +31,9 @@ Phases, each printing JSON lines:
    ``lstm_scan`` at B 1000, T 10 at every hidden bucket of its register
    body (12, 16, 20, 32, 64), at widths padded into one (5, 18, 24), on an
    x whose rows are off the 16-byte grid (the scalar-load route), and at
-   H 96 and 256 through its simt body; every lstm case names its body,
-   bucket and load route (``kernels.lstm_buckets``);
+   H 68, 96, 114 and 256 through its simt body; every lstm case names its
+   body, bucket or simt tile of sequences, and load route
+   (``kernels.lstm_buckets``);
    ``tt_contract`` over the reference's grid and at R 34, 57 and 128, each
    case with its lanes per entry (``kernels.tt_cases``);
    ``flash_attention`` over the reference's
@@ -62,8 +66,12 @@ Phases, each printing JSON lines:
    34 saved, loaded onto the card and asked two ``decode_at`` requests of
    65,536 entries, and an Uber-shaped one (183 x 24 x 1140, paper Table II)
    reconstructed whole with ``to_dense``, both against the plain version
-   on the card (rtol = atol = 1e-5).  Every launch of the phase must be
-   the simt decode body's.
+   on the card (rtol = atol = 1e-5).  Every fused launch of the phase must
+   be the simt decode body's.  Two more ``decode_at`` requests of the
+   PEMS-SF payload go through the unfused route (``kernel_impl="cuda"``):
+   ``lstm_scan`` at B 65,536, T 10, H 68 on its simt body, then
+   ``tt_contract`` at K 8, R 34, held to the plain route at 1e-5; the
+   phase launches each exactly twice.
 6. serve: the LM serving path, ``repro_torch.launch.serve.main`` on
    qwen1.5-4b at full width (40 layers, d_model 2560, 20 heads of 128,
    vocab 151,936) in bf16 with random weights from seed 0: 8 requests of
@@ -91,7 +99,12 @@ Phases, each printing JSON lines:
    and (114, 57) like every row (``timing.decode_simt``, with the plain
    version and the bound beside each, and its error there held to 1e-5);
    the first is the ``decode_tile_simt`` row, with the wide phase's
-   launches.
+   launches.  The simt ``lstm_scan`` body is timed at B 65,536, T 10 at
+   H 68, 96 and 114 beside its plain version, cuDNN ``nn.LSTM`` and the
+   bound (``timing.lstm_simt``, its error there held to 1e-5); the first
+   is the ``lstm_scan_simt`` row, with the wide phase's launches, and the
+   one profiler session also requires that a call at H 68 runs the simt
+   kernel alone.
 
 The line before the last is the card's ``name, power.limit`` as
 ``nvidia-smi`` reports them; the last line is the result object.  Any
@@ -136,6 +149,8 @@ SOURCES = {
                          "src/repro/kernels/decode_tile.py:147"),
     "lstm_scan": ("src/repro_torch/kernels/csrc/lstm.cu",
                   "src/repro/kernels/lstm.py:67"),
+    "lstm_scan_simt": ("src/repro_torch/kernels/csrc/lstm_dispatch.cu",
+                       "src/repro/kernels/lstm.py:67"),
     "tt_contract": ("src/repro_torch/kernels/csrc/tt_contract.cu",
                     "src/repro/kernels/tt_contract.py:60"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -354,6 +369,15 @@ def simt_tile(hid: int, rank: int) -> dict:
             "smem_bytes": _decode_tile.simt_smem_bytes(hid, rp, tile)}
 
 
+def lstm_simt_tile(hid: int) -> dict:
+    """The simt lstm_scan body's block at ``hid``: its tile of sequences
+    and its shared-memory bytes."""
+    from repro_torch.kernels import lstm as _lstm
+
+    tile = _lstm.simt_tile(hid)
+    return {"H": hid, "tile": tile, "smem_bytes": _lstm.simt_smem_bytes(hid, tile)}
+
+
 def tt_bytes(b: int, k: int, r: int, elem: int) -> int:
     """Bytes ``tt_contract`` must move: first, mid and last read once, the
     output written once."""
@@ -422,9 +446,12 @@ WIDE_TIMING = ((68, 34), (114, 57))
 # lstm_scan cases beside its register body's buckets: (hidden, x's offset
 # in elements into its buffer).  5 (fig8), 18 (paper MEDIUM) and 24 (fleet
 # repair) are padded inside the kernel, 18's 72-byte rows and an x one
-# element off the 16-byte grid take the scalar loads, 96 and 256 (the
-# budget rule's widest) the simt body, 256 at 56 threads a block.
-LSTM_EXTRA = ((5, 0), (18, 0), (24, 0), (16, 1), (96, 0), (256, 0))
+# element off the 16-byte grid take the scalar loads; 68 and 114 (the
+# budget rule at 1 and 4 MB), 96 and 256 (its widest) the simt body.
+LSTM_EXTRA = ((5, 0), (18, 0), (24, 0), (16, 1), (68, 0), (96, 0), (114, 0), (256, 0))
+# the simt lstm_scan body timed at B REQUEST, T 10 (f32); the first is the
+# wide phase's width
+LSTM_SIMT_TIMING = (68, 96, 114)
 # tt_contract cases (B, K, R): the reference's grid, then the budget rule's
 # ranks 34, 57 and 128
 TT_CASES = ((64, 5, 8), (100, 10, 16), (7, 3, 8), (256, 8, 32), (1000, 8, 34), (517, 5, 57),
@@ -525,6 +552,13 @@ def phase_device(torch):
     require(len(simt) == 2 and all(r["spill_store_bytes"] == r["spill_load_bytes"] == 0
                                    for r in simt),
             f"the simt decode body spills: {simt}")
+    # the simt lstm_scan body likewise, with its tile of sequences
+    simt = [r for r in resources if "lstm_scan_simt_kernel" in r["kernel"]]
+    emit({"phase": "device.lstm_simt", "ptxas": simt,
+          "tiles": [lstm_simt_tile(h) for h, _ in LSTM_EXTRA if h > 64]})
+    require(len(simt) == 2 and all(r["spill_store_bytes"] == r["spill_load_bytes"] == 0
+                                   for r in simt),
+            f"the simt lstm_scan body spills: {simt}")
     sass = sass_hgmma(path)
     if sass["tool"]:
         wgmma = {k: n for k, n in sass["hgmma"].items() if "flash_attention_wgmma" in k}
@@ -630,13 +664,17 @@ def phase_kernels(torch, device):
         # load routes, and its simt body above the largest bucket
         for h, offset in [(h, 0) for h in _lstm.BUCKETS] + list(LSTM_EXTRA):
             x, lw = lstm_inputs(torch, gen, LSTM_B, LSTM_T, h, dtype, device, offset)
-            got = ops.lstm_scan(x, *lw, impl="cuda")
-            err, ulps = record("lstm_scan", dn, got, ref.lstm_scan(x, *lw))
             body = _lstm.lstm_body(h)
+            simt_before = _lstm.simt_launches
+            got = ops.lstm_scan(x, *lw, impl="cuda")
+            require(_lstm.simt_launches == simt_before + (body == "simt"),
+                    f"lstm_scan at H {h} did not run the {body} body")
+            err, ulps = record("lstm_scan" if body == "register" else "lstm_scan_simt", dn, got,
+                               ref.lstm_scan(x, *lw))
             lstm_cases.append({
                 "H": h, "dtype": dn, "body": body,
                 "bucket": _lstm.bucket_for(h) if body == "register" else None,
-                "threads": _lstm.simt_threads(h) if body == "simt" else None,
+                "tile": _lstm.simt_tile(h) if body == "simt" else None,
                 "loads": "vector" if body == "register" and _lstm.vector_rows(x, got)
                 else "scalar", "x_offset_bytes": x.data_ptr() % 16,
                 "max_abs_err": err, "ulps": ulps})
@@ -781,7 +819,11 @@ def phase_wide(torch, device):
     ``load_bytes`` and answers ``WIDE_REQUESTS`` ``decode_at`` requests; an
     Uber-shaped one is reconstructed whole with ``to_dense``.  Both are held
     against the plain route on the card (rtol = atol = 1e-5), and every
-    launch of this phase must have been the simt body's."""
+    fused launch of this phase must have been the simt body's.  The
+    PEMS-SF payload answers ``WIDE_REQUESTS`` more requests through the
+    unfused route (``kernel_impl="cuda"``), each one ``lstm_scan`` launch on
+    its simt body and one ``tt_contract`` launch, held to the plain route
+    likewise.  Returns the launches of the two simt bodies."""
     import numpy as np
 
     from repro_torch.codecs import container, load_bytes
@@ -790,10 +832,13 @@ def phase_wide(torch, device):
     from repro_torch.core.codec import CompressedTensor
     from repro_torch.core.folding import make_folding_spec
     from repro_torch.kernels import decode_tile as _decode_tile
+    from repro_torch.kernels import lstm as _lstm
     from repro_torch.kernels import ops
 
     require(_decode_tile.decode_body(WIDE_HIDDEN, WIDE_RANK) == "simt",
             "the wide architecture does not take the simt decode body")
+    require(_lstm.lstm_body(WIDE_HIDDEN) == "simt",
+            "the wide architecture does not take the simt lstm_scan body")
     rng = np.random.default_rng(SEED)
     cfg = nttd.NTTDConfig(rank=WIDE_RANK, hidden=WIDE_HIDDEN)
     require(cfg.kernel_impl == "auto", f"the default impl is {cfg.kernel_impl!r}")
@@ -809,25 +854,31 @@ def phase_wide(torch, device):
     require(enc.ct.device.type == "cuda", "load_bytes did not load onto the card")
     uber = payloads["uber"][1]
     requests = [np.stack([rng.integers(0, n, REQUEST) for n in PEMS_SHAPE], axis=1)
-                for _ in range(WIDE_REQUESTS)]
+                for _ in range(2 * WIDE_REQUESTS)]
+    enc_cuda = _with_impl(enc, "cuda", NTTDEncoded)
     torch.cuda.synchronize()
 
     ops.reset_launch_counts()
     answers, req_ms = [], []
-    for idx in requests:
+    for i, idx in enumerate(requests):
         t = time.perf_counter()
-        answers.append(enc.decode_at(idx))
+        answers.append((enc if i < WIDE_REQUESTS else enc_cuda).decode_at(idx))
         req_ms.append((time.perf_counter() - t) * 1e3)
     torch.cuda.synchronize()
     t = time.perf_counter()
     dense = uber.to_dense()
     dense_s = time.perf_counter() - t
     launches, simt = ops.launch_counts(), _decode_tile.simt_launches
+    lstm_simt = _lstm.simt_launches
     n_uber = int(np.prod(UBER_SHAPE))
     batches = -(-n_uber // DENSE_BATCH)
     require(simt == launches["decode_tile"] == WIDE_REQUESTS + batches,
             f"the wide phase launched decode_tile {launches['decode_tile']} times, "
             f"{simt} of them the simt body; expected {WIDE_REQUESTS + batches}")
+    require(lstm_simt == launches["lstm_scan"] == launches["tt_contract"] == WIDE_REQUESTS,
+            f"the wide phase's unfused requests launched lstm_scan {launches['lstm_scan']} "
+            f"times, {lstm_simt} of them the simt body, and tt_contract "
+            f"{launches['tt_contract']} times; expected {WIDE_REQUESTS} each")
 
     req_err = 0.0
     plain = _with_impl(enc, "ref", NTTDEncoded)
@@ -845,15 +896,17 @@ def phase_wide(torch, device):
     emit({"phase": "wide", "rank": WIDE_RANK, "hidden": WIDE_HIDDEN, "impl": cfg.kernel_impl,
           "body": _decode_tile.decode_body(WIDE_HIDDEN, WIDE_RANK),
           **simt_tile(WIDE_HIDDEN, WIDE_RANK),
+          "lstm_body": _lstm.lstm_body(WIDE_HIDDEN), "lstm_tile": _lstm.simt_tile(WIDE_HIDDEN),
           "pems_shape": list(PEMS_SHAPE), "pems_folded": list(payloads["pems"][0].folded_shape),
-          "payload_bytes": len(blob), "request_entries": REQUEST, "request_ms": req_ms,
+          "payload_bytes": len(blob), "request_entries": REQUEST,
+          "request_ms": req_ms[:WIDE_REQUESTS], "request_ms_cuda_unfused": req_ms[WIDE_REQUESTS:],
           "uber_shape": list(UBER_SHAPE), "uber_folded": list(payloads["uber"][0].folded_shape),
           "to_dense_entries": n_uber, "to_dense_s": dense_s,
           "to_dense_entries_per_s": n_uber / dense_s, "plain_to_dense_s": plain_dense_s,
           "max_abs_err_requests": req_err, "max_abs_err_to_dense": dense_err,
           "max_abs_value_to_dense": float(np.abs(dense_plain).max()),
-          "launches": launches, "simt_launches": simt})
-    return simt
+          "launches": launches, "simt_launches": simt, "lstm_simt_launches": lstm_simt})
+    return simt, lstm_simt
 
 
 def phase_serve(torch, device):
@@ -984,8 +1037,11 @@ def flash_timing_row(torch, device, launches, errs):
     }
 
 
-def phase_timing(torch, device, enc, idx_np, launches, errs):
-    """Kernel, plain and library times at the main path's shapes."""
+def phase_timing(torch, device, enc, idx_np, launches, errs, simt_lstm):
+    """Kernel, plain and library times at the main path's shapes.
+    ``simt_lstm`` is (the ``lstm_scan_simt`` row, a call of that kernel at
+    the wide shape): the call is profiled with the main path's, and the row
+    gains the device kernels it ran."""
     from repro_torch.core import nttd
     from repro_torch.kernels import decode_tile as _decode_tile
     from repro_torch.kernels import lstm as _lstm
@@ -1057,14 +1113,17 @@ def phase_timing(torch, device, enc, idx_np, launches, errs):
     kernels[0].update(body=_decode_tile.decode_body(h, r),
                       bucket=list(_decode_tile.bucket_for(h, r)))
     # every device kernel or copy that one lstm_scan call, then one
-    # tt_contract call, runs: the register kernel, then the tt_contract
-    # kernel, alone; and lstm_scan's body, bucket and load route
+    # tt_contract call, then one wide lstm_scan call runs: the register
+    # kernel, the tt_contract kernel and the simt lstm_scan kernel, each
+    # alone; and lstm_scan's body, bucket and load route
     lstm_call, tt_call = rows[1][3], rows[2][3]
-    seen = device_kernels(torch, (lstm_call, tt_call))
-    require(len(seen) == 2 and "lstm_scan_register_kernel" in seen[0]
-            and "tt_contract_kernel" in seen[1],
-            f"an lstm_scan call then a tt_contract call ran {seen}, not the "
-            "register kernel and the tt_contract kernel alone")
+    simt_row, simt_call = simt_lstm
+    seen = device_kernels(torch, (lstm_call, tt_call, simt_call))
+    require(len(seen) == 3 and "lstm_scan_register_kernel" in seen[0]
+            and "tt_contract_kernel" in seen[1] and "lstm_scan_simt_kernel" in seen[2],
+            f"an lstm_scan call, a tt_contract call and a wide lstm_scan call ran {seen}, "
+            "not the register kernel, the tt_contract kernel and the simt kernel alone")
+    simt_row["device_ops_per_call"] = seen[2:]
     kernels[1].update(body=_lstm.lstm_body(h), bucket=_lstm.bucket_for(h),
                       loads="vector" if _lstm.vector_rows(x, lstm_call()) else "scalar",
                       device_ops_per_call=seen[:1])
@@ -1072,7 +1131,7 @@ def phase_timing(torch, device, enc, idx_np, launches, errs):
     # byte bound
     bf = [a.to(torch.bfloat16) for a in (first, mids, last)]
     kernels[2].update(body="lane_group", lanes_per_entry=_tt.lanes_per_entry(r),
-                      device_ops_per_call=seen[1:],
+                      device_ops_per_call=seen[1:2],
                       ms_bf16=time_ms(torch, lambda: ops.tt_contract(*bf, impl="cuda"), 20),
                       bound_ms_bf16=bound(ops_t, tt_bytes(b, t - 2, r, 2), PEAK_FP32)["bound_ms"])
     return kernels
@@ -1122,6 +1181,53 @@ def decode_simt_timing(torch, device, launches, errs):
     }
 
 
+def lstm_simt_timing(torch, device, launches, errs):
+    """The simt lstm_scan body at B ``REQUEST``, T 10 (f32) for each width of
+    ``LSTM_SIMT_TIMING``: kernel (mean of 20 launches after 2 warm-ups, as
+    every row), plain version (5), cuDNN ``nn.LSTM`` (20) and the bound, with
+    the tile of sequences and the bound's share of the kernel's time, on a
+    ``timing.lstm_simt`` line.  Returns the kernels-table row of the first
+    width, the wide phase's, and a call of the kernel at that width."""
+    from repro_torch.kernels import lstm as _lstm
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator().manual_seed(SEED)
+    cases, first_call = [], None
+    for h in LSTM_SIMT_TIMING:
+        b, t = REQUEST, 10
+        x, lw = lstm_inputs(torch, gen, b, t, h, torch.float32, device)
+        kern = functools.partial(ops.lstm_scan, x, *lw, impl="cuda")
+        plain = functools.partial(ref.lstm_scan, x, *lw)
+        library = cudnn_lstm(torch, *lw)
+        n_ops, n_bytes = lstm_cost(b, t, h)
+        case = {"H": h, "B": b, "T": t, "body": _lstm.lstm_body(h), **lstm_simt_tile(h),
+                "max_abs_err_at_shape": float((kern() - plain()).abs().max()),
+                "library_max_abs_err": float((library(x) - plain()).abs().max()),
+                "ms": time_ms(torch, kern, 20), "plain_ms": time_ms(torch, plain, 5),
+                "library_ms": time_ms(torch, lambda: library(x), 20),
+                **bound(n_ops, n_bytes, PEAK_FP32), "ops": n_ops, "bytes": n_bytes}
+        case["share_of_bound"] = case["bound_ms"] / case["ms"]
+        require(case["max_abs_err_at_shape"] <= TOL["float32"],
+                f"simt lstm_scan at H {h}: {case['max_abs_err_at_shape']} from the plain "
+                "version")
+        cases.append(case)
+        first_call = first_call or kern
+    emit({"phase": "timing.lstm_simt", "cases": cases})
+    first = cases[0]
+    return {
+        "name": "lstm_scan_simt", "route": "cuda", "source": SOURCES["lstm_scan_simt"][0],
+        "replaces": SOURCES["lstm_scan_simt"][1], "launches": launches,
+        "max_abs_err": errs["lstm_scan_simt"]["float32"],
+        "max_abs_err_bf16": errs["lstm_scan_simt"]["bfloat16"],
+        "ms": first["ms"], "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
+        "bound_by": first["bound_by"], "library_ms": first["library_ms"],
+        "library": "cuDNN torch.nn.LSTM, gates (i, f, g, o)",
+        "library_max_abs_err": first["library_max_abs_err"], "body": first["body"],
+        "tile": first["tile"], "shape": {k: first[k] for k in ("B", "T", "H")},
+        "ops": first["ops"], "bytes": first["bytes"],
+    }, first_call
+
+
 def main() -> int:
     try:
         import torch
@@ -1148,10 +1254,12 @@ def main() -> int:
         errs = phase_kernels(torch, device)
         phase_golden(torch, device)
         enc, idx, launches = phase_main(torch, device)
-        simt_launches = phase_wide(torch, device)
+        simt_launches, lstm_simt_launches = phase_wide(torch, device)
         serve_launches = phase_serve(torch, device)
-        kernels = phase_timing(torch, device, enc, idx, launches, errs)
+        simt_lstm = lstm_simt_timing(torch, device, lstm_simt_launches, errs)
+        kernels = phase_timing(torch, device, enc, idx, launches, errs, simt_lstm)
         kernels.append(decode_simt_timing(torch, device, simt_launches, errs))
+        kernels.append(simt_lstm[0])
         kernels.append(flash_timing_row(torch, device, serve_launches, errs))
         torch.cuda.synchronize()
         emit({"kernels": kernels})

@@ -4,12 +4,13 @@ and variants of its source, on one GPU.
 
     python3 scripts/torch_decode_simt.py [--variants FILE]
 
-A variant is the checkout's ``decode_tile_simt.cu`` with text
-substitutions applied.  ``FILE`` is a JSON object, name -> ``{"subs":
+A variant is the checkout's ``decode_tile_simt.cu`` and the gate product
+it includes, ``simt_tile.cuh``, with text substitutions applied (each to
+the file that holds its text).  ``FILE`` is a JSON object, name -> ``{"subs":
 [[old, new], ...], "tiles": {"H,R": tile}}`` (both keys optional; "tiles"
 overrides ``simt_tile`` at a shape); without it the one variant is the
 body as it is.  Each variant is built alone with ``nvcc`` and the
-package's flags into ``build/decode_simt_variants/``, all in parallel,
+package's flags into ``build/decode_simt_variants/<name>/``, all in parallel,
 and called through its C entry on the operands ``bucket_operands`` lays
 out.  Per variant it prints its ptxas registers and spills, then per shape
 of ``chip_smoke.WIDE_TIMING`` (B 65,536, T 10, M 8, f32, inputs from seed
@@ -38,22 +39,31 @@ import sys
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(HERE, "src", "repro_torch", "kernels", "csrc")
 OUT = os.path.join(HERE, "build", "decode_simt_variants")
+VARIANT_SOURCES = ("decode_tile_simt.cu", "simt_tile.cuh")  # the body first
 
 
 def build(item: tuple[str, dict]) -> tuple[str, str, str]:
-    """Compile one variant -> (name, library path, nvcc output)."""
+    """Compile one variant -> (name, library path, nvcc output).  The
+    variant's copies of the body and ``simt_tile.cuh`` sit side by side, so
+    the body's include finds the copy; other headers come from ``csrc/``."""
     from repro_torch.kernels import _build
 
     name, spec = item
-    with open(os.path.join(CSRC, "decode_tile_simt.cu")) as f:
-        text = f.read()
+    texts = {}
+    for source in VARIANT_SOURCES:
+        with open(os.path.join(CSRC, source)) as f:
+            texts[source] = f.read()
     for old, new in spec.get("subs", []):
-        if old not in text:
-            raise ValueError(f"variant {name}: {old!r} is not in decode_tile_simt.cu")
-        text = text.replace(old, new)
-    cu, so = os.path.join(OUT, f"{name}.cu"), os.path.join(OUT, f"{name}.so")
-    with open(cu, "w") as f:
-        f.write(text)
+        holders = [source for source, text in texts.items() if old in text]
+        if not holders:
+            raise ValueError(f"variant {name}: {old!r} is in none of {VARIANT_SOURCES}")
+        texts[holders[0]] = texts[holders[0]].replace(old, new)
+    out = os.path.join(OUT, name)
+    os.makedirs(out, exist_ok=True)
+    for source, text in texts.items():
+        with open(os.path.join(out, source), "w") as f:
+            f.write(text)
+    cu, so = os.path.join(out, VARIANT_SOURCES[0]), os.path.join(out, f"{name}.so")
     res = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", CSRC, "-shared", cu,
                           "-o", so], capture_output=True, text=True)
     if res.returncode:

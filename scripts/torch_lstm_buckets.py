@@ -11,9 +11,14 @@ prints one JSON line:
 * ``ms``: ``ops.lstm_scan(impl="cuda")``, the body ``lstm_body`` picks
   (``body``, ``bucket``), CUDA events, mean of 20 launches after 2 warm-ups;
   ``max_abs_err`` against the plain version on the card.
-* ``simt_ms``: the simt body (the first port's kernel, which takes any H)
-  on the same inputs, through the library's C entry point, so the two
-  bodies are compared within one call; ``simt_max_abs_err`` likewise.
+* ``simt_ms``: the simt body (products over a tile of sequences, which
+  takes any H up to 1304) on the same inputs at its tile ``simt_tile``,
+  through the library's C entry point, so the two bodies are compared
+  within one call; ``simt_max_abs_err`` likewise.
+* ``tiles``: above the largest bucket, the simt body's ms at two tile
+  rules: the wrapper's (``lstm.simt_tile``, the largest tile that fits)
+  and ``round_tile`` (the tile that fills whole rounds of the gate
+  product's 512 thread tiles).
 * ``library_ms``: cuDNN ``torch.nn.LSTM`` on the same inputs (TF32 off).
 * ``bound_ms``, ``bound_by``: as ``chip_smoke.py``'s ``lstm_scan`` row.
 
@@ -29,7 +34,7 @@ import sys
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BATCH, STEPS = 65_536, 10  # chip_smoke.py's lstm_scan timing shape
-# (hidden, where the repo runs it); 96 is above the largest bucket
+# (hidden, where the repo runs it); 68 and up are above the largest bucket
 WIDTHS = (
     (5, "benchmarks/fig8_expressiveness.py"),
     (8, "benchmarks/common.py NTTD_FIT_OPTS"),
@@ -40,8 +45,23 @@ WIDTHS = (
     (24, "fleet/repair.py refit"),
     (32, "a bucket width"),
     (64, "the largest tested shape"),
+    (68, "the budget rule at 1 MB (PEMS-SF, Uber), chip_smoke.py's wide phase"),
     (96, "above the largest bucket: the simt body"),
+    (114, "the budget rule at 4 MB"),
+    (256, "the budget rule's widest"),
 )
+THREADS = 512  # kSimtThreads in csrc/simt_tile.cuh
+
+
+def round_tile(hid: int) -> int:
+    """Of the tiles that fit (multiples of 8 up to ``lstm.simt_tile``), the
+    one with the most sequences a round of the gate product, whose threads
+    each own 8 sequences x 2 units (the larger tile on a tie)."""
+    from repro_torch.kernels import lstm
+
+    pairs = -(-hid // 2)
+    tiles = range(8, lstm.simt_tile(hid) + 1, 8)
+    return max(tiles, key=lambda tb: (tb / -(-(tb // 8) * pairs // THREADS), tb))
 
 
 def measure(torch, smoke, hid: int) -> dict:
@@ -53,11 +73,11 @@ def measure(torch, smoke, hid: int) -> dict:
     want = ref.lstm_scan(x, wi, wh, b)
     lib = _build.library()
 
-    def simt():
+    def simt(tile=lstm.simt_tile(hid)):
         out = torch.empty_like(x)
         err = lib.repro_lstm_scan(x.data_ptr(), wi.data_ptr(), wh.data_ptr(), b.data_ptr(),
-                                  out.data_ptr(), BATCH, STEPS, hid, lstm.simt_threads(hid),
-                                  0, torch.cuda.current_stream().cuda_stream)
+                                  out.data_ptr(), BATCH, STEPS, hid, tile, 0,
+                                  torch.cuda.current_stream().cuda_stream)
         _build.check(lib, "lstm_scan (simt)", err)
         return out
 
@@ -67,7 +87,13 @@ def measure(torch, smoke, hid: int) -> dict:
         return ops.lstm_scan(x, wi, wh, b, impl="cuda")
 
     body = lstm.lstm_body(hid)
+    tiles = {}
+    if body == "simt":
+        for tile in sorted({lstm.simt_tile(hid), round_tile(hid)}):
+            tiles[tile] = {"ms": smoke.time_ms(torch, lambda: simt(tile), 20),
+                           "max_abs_err": float((simt(tile) - want).abs().max())}
     return {"body": body, "bucket": lstm.bucket_for(hid) if body == "register" else None,
+            "tile": lstm.simt_tile(hid), "round_tile": round_tile(hid), "tiles": tiles,
             "ms": smoke.time_ms(torch, kernel, 20),
             "max_abs_err": float((kernel() - want).abs().max()),
             "simt_ms": smoke.time_ms(torch, simt, 20),

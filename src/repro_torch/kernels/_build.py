@@ -30,7 +30,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("decode_tile.cu", "decode_tile_dispatch.cu", "decode_tile_simt.cu", "lstm.cu",
            "lstm_dispatch.cu", "tt_contract.cu", "flash_attention.cu")
 HEADERS = ("common.cuh", "decode_tile.cuh", "hopper.cuh", "lstm.cuh", "lstm_cell.cuh",
-           "lstm_cell_simt.cuh")
+           "simt_tile.cuh")
 PER_BUCKET = ("decode_tile.cu", "lstm.cu")  # compiled once per bucket and dtype
 DTYPES = ("float", "__nv_bfloat16")
 NVCC_FLAGS = (
@@ -47,7 +47,7 @@ _SIGNATURES = {
     "repro_decode_tile": [_P] * 12 + [_L, _I, _I, _I, _I, _I, _P],
     # idx, emb, wi, wh, b, wf, bf, wm, bm, wl, bl, out, B, T, M, H, R, tile, dtype, stream
     "repro_decode_tile_simt": [_P] * 12 + [_L, _I, _I, _I, _I, _I, _I, _P],
-    # x, wi, wh, b, out, B, T, H, threads, dtype, stream
+    # x, wi, wh, b, out, B, T, H, tile, dtype, stream
     "repro_lstm_scan": [_P] * 5 + [_L, _I, _I, _I, _I, _P],
     # x, wi, wh, b, out, B, T, H, bucket, vec, dtype, stream
     "repro_lstm_scan_register": [_P] * 5 + [_L, _I, _I, _I, _I, _I, _P],

@@ -6,6 +6,7 @@ import torch
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # per-block dynamic shared memory a kernel may opt into on Hopper
 MAX_SMEM_BYTES = 232_448
+SIMT_TILE_STEP = 8  # kSimtEntries in csrc/simt_tile.cuh: entries of a thread's tile
 
 
 def check_cuda_operands(name: str, tensors: dict[str, torch.Tensor], dtype: torch.dtype):
@@ -41,14 +42,16 @@ def check_smem(name: str, threads: int, floats_per_thread: int) -> None:
         )
 
 
-def threads_for_smem(name: str, floats_per_thread: int, most: int = 64) -> int:
-    """Threads per block of a simt body whose threads each keep
-    ``floats_per_thread`` f32 of state in shared memory: the most, up to
-    ``most``, that fit a block's; raises when one thread's state does not."""
-    fit = MAX_SMEM_BYTES // (4 * floats_per_thread)
-    if fit < 1:
-        raise ValueError(
-            f"{name}: one thread's {4 * floats_per_thread} bytes of shared memory exceed "
-            f"the {MAX_SMEM_BYTES} a Hopper block can have"
-        )
-    return min(most, fit)
+def simt_stage_floats(hid: int, rank: int = 0) -> int:
+    """Floats of one weight stage of a simt body (``simt_stage_floats`` in
+    ``csrc/simt_tile.cuh``): 16 gate rows of 4H, at most 8192, and at least
+    one K row of every product."""
+    return max(min(64 * hid, 8192), 4 * hid + 8, rank)
+
+
+def largest_simt_tile(smem_bytes) -> int:
+    """The largest multiple of ``SIMT_TILE_STEP`` entries whose block,
+    ``smem_bytes(tile)`` bytes (affine in the tile), fits a block's shared
+    memory; below ``SIMT_TILE_STEP`` when none does."""
+    fixed = smem_bytes(0)
+    return (MAX_SMEM_BYTES - fixed) // (smem_bytes(1) - fixed) // SIMT_TILE_STEP * SIMT_TILE_STEP

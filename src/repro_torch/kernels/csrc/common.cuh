@@ -1,13 +1,5 @@
 // Helpers shared by the kernels: typed loads through the read-only cache,
 // typed stores and the launch plumbing.
-//
-// The scalar kernels (tt_contract.cu, the LSTM scan's simt body in
-// lstm_dispatch.cu) keep one entry per thread.  A thread's running state
-// (the LSTM h and c, its input row, the TT row vector) lives in dynamic
-// shared memory laid out column-wise, element k of thread tid at
-// [k * nt + tid], so neighbouring threads touch neighbouring banks.
-// Weights are read with __ldg: every thread of a warp reads the same weight
-// at the same time, so each load is one broadcast from L1.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -41,8 +41,11 @@ from repro_torch.kernels import _build, ref
 from repro_torch.kernels._common import (
     DTYPE_CODES,
     MAX_SMEM_BYTES,
+    SIMT_TILE_STEP,
     check_cuda_operands,
     check_shape,
+    largest_simt_tile,
+    simt_stage_floats,
 )
 
 # (hidden, rank) instantiations of csrc/decode_tile.cu, smallest first, as
@@ -51,7 +54,6 @@ from repro_torch.kernels._common import (
 # (16, 8); 18/10 (paper MEDIUM) in (20, 12); hidden = 2 rank up to rank 16
 # in (32, 16); (64, 32) is the largest shape tested
 BUCKETS = ((12, 8), (16, 8), (20, 12), (32, 16), (64, 32))
-SIMT_TILE_STEP = 8  # kSimtEntries in csrc/decode_tile_simt.cu: entries of a thread's tile
 launches = 0
 simt_launches = 0
 
@@ -74,8 +76,7 @@ def simt_smem_bytes(hid: int, rank: int, tile: int) -> int:
     h_new and c ([H][tile] each), v and v_new ([Rp][tile] each, Rp = R
     rounded up to 4) and two weight stages."""
     rp = simt_rank(rank)
-    stage = max(min(64 * hid, 8192), 4 * hid + 8, rp)
-    return 4 * (tile * (4 * hid + 2 * rp) + 2 * stage)
+    return 4 * (tile * (4 * hid + 2 * rp) + 2 * simt_stage_floats(hid, rp))
 
 
 def simt_tile(hid: int, rank: int) -> int:
@@ -83,9 +84,7 @@ def simt_tile(hid: int, rank: int) -> int:
     weight stages (``simt_smem_bytes``) fit a block's shared memory (136 at
     (68, 34), 72 at (114, 57), 32 at (256, 128)); raises only when one
     thread's tile of 8 entries does not fit."""
-    fixed = simt_smem_bytes(hid, rank, 0)
-    per_entry = simt_smem_bytes(hid, rank, 1) - fixed
-    tile = (MAX_SMEM_BYTES - fixed) // per_entry // SIMT_TILE_STEP * SIMT_TILE_STEP
+    tile = largest_simt_tile(lambda n: simt_smem_bytes(hid, rank, n))
     if tile < SIMT_TILE_STEP:
         raise ValueError(
             f"decode_tile: one tile of {SIMT_TILE_STEP} entries needs "

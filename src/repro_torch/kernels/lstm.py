@@ -6,9 +6,13 @@ CPU tensor it runs the plain version ``ref.lstm_scan``.  ``lstm_body``
 names the body, by shape: the register body (``"register"``,
 ``csrc/lstm.cu``) for hidden widths up to the largest bucket, 64, run in
 the smallest bucket of ``BUCKETS`` that holds the width and padded inside
-the kernel; the first port's body (``"simt"``, ``csrc/lstm_dispatch.cu``)
-for wider LSTMs, its block sized to the shared memory (``simt_threads``).
-``launches`` counts kernel launches of either body, nothing else.
+the kernel; the simt body (``"simt"``, ``csrc/lstm_dispatch.cu``) for
+wider LSTMs: a block owns a tile of sequences (``simt_tile``) for all T
+steps, keeps their state in shared memory and runs each step as one FP32
+product over the tile, the weights streamed through shared memory once a
+block, as the fused decode's simt body does.  ``launches`` counts kernel
+launches of either body, ``simt_launches`` those of the simt body; nothing
+else counts.
 """
 from __future__ import annotations
 
@@ -17,17 +21,20 @@ import torch
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels._common import (
     DTYPE_CODES,
+    MAX_SMEM_BYTES,
+    SIMT_TILE_STEP,
     check_cuda_operands,
     check_shape,
-    threads_for_smem,
+    largest_simt_tile,
+    simt_stage_floats,
 )
 
 # hidden widths the register body is instantiated for, smallest first, as
 # REPRO_LSTM_BUCKETS in csrc/lstm.cuh lists them: the decode buckets'
 # widths, holding every LSTM width the repo runs (5, 8, 12, 16, 18, 24, 64)
 BUCKETS = (12, 16, 20, 32, 64)
-SIMT_MAX_THREADS = 64  # kLstmThreads in csrc/lstm_dispatch.cu
 launches = 0
+simt_launches = 0
 
 
 def bucket_for(hid: int) -> int:
@@ -43,11 +50,26 @@ def lstm_body(hid: int) -> str:
     return "register" if hid <= BUCKETS[-1] else "simt"
 
 
-def simt_threads(hid: int) -> int:
-    """Threads per block of the simt body: the most, up to 64, whose x, h,
-    h_new and c (16 H bytes a thread) fit a block's shared memory (56 at
-    H 256); raises only when one thread's do not."""
-    return threads_for_smem("lstm_scan", 4 * hid, SIMT_MAX_THREADS)
+def simt_smem_bytes(hid: int, tile: int) -> int:
+    """Dynamic shared memory of a simt block owning ``tile`` sequences, as
+    ``lstm_simt_smem_floats`` in ``csrc/lstm_dispatch.cu`` counts it: x, h,
+    h_new and c ([H][tile] each) and two weight stages."""
+    return 4 * (tile * 4 * hid + 2 * simt_stage_floats(hid))
+
+
+def simt_tile(hid: int) -> int:
+    """Sequences a simt block owns: the largest multiple of 8 whose state
+    and weight stages (``simt_smem_bytes``) fit a block's shared memory (176
+    at H 68, 112 at 96, 88 at 114, 40 at 256, 8 at 1304); raises when one
+    tile of 8 does not fit (above H 1304)."""
+    tile = largest_simt_tile(lambda n: simt_smem_bytes(hid, n))
+    if tile < SIMT_TILE_STEP:
+        raise ValueError(
+            f"lstm_scan: one tile of {SIMT_TILE_STEP} sequences needs "
+            f"{simt_smem_bytes(hid, SIMT_TILE_STEP)} bytes of shared memory at hidden {hid}, "
+            f"more than the {MAX_SMEM_BYTES} a Hopper block can have"
+        )
+    return tile
 
 
 def vector_rows(x: torch.Tensor, out: torch.Tensor) -> bool:
@@ -63,7 +85,7 @@ def lstm_scan(
 ) -> torch.Tensor:
     """x: [B, T, H], wi: [H, 4H], wh: [H, 4H], b: [4H] -> hs [B, T, H]
     in ``x.dtype``."""
-    global launches
+    global launches, simt_launches
     if x.device.type == "cpu":
         return ref.lstm_scan(x, wi, wh, b)
     lib = _build.library()
@@ -76,7 +98,7 @@ def lstm_scan(
     check_shape("lstm_scan", "b", b, (4 * hid,))
     body = lstm_body(hid)
     if body == "simt":
-        threads = simt_threads(hid)
+        tile = simt_tile(hid)
     elif x.numel() >= 2**31:
         raise ValueError(f"lstm_scan: x's {x.numel()} elements exceed the register body's "
                          "2**31 - 1")
@@ -92,8 +114,9 @@ def lstm_scan(
                 DTYPE_CODES[x.dtype], stream,
             )
         else:
-            err = lib.repro_lstm_scan(*ptrs, bsz, t_steps, hid, threads, DTYPE_CODES[x.dtype],
+            err = lib.repro_lstm_scan(*ptrs, bsz, t_steps, hid, tile, DTYPE_CODES[x.dtype],
                                       stream)
     _build.check(lib, f"lstm_scan ({body})", err)
     launches += 1
+    simt_launches += body == "simt"
     return out

@@ -15,7 +15,8 @@ No path falls back from the kernel to the plain version: ``attention``
 pads any length to the kernel's tile instead.
 
 ``launch_counts`` / ``reset_launch_counts`` read and clear the wrappers'
-launch counters (the reset clears ``decode_tile.simt_launches`` too).
+launch counters (the reset clears ``decode_tile.simt_launches`` and
+``lstm.simt_launches`` too).
 """
 from __future__ import annotations
 
@@ -44,7 +45,7 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     for mod in _KERNELS.values():
         mod.launches = 0
-    _dt.simt_launches = 0
+    _dt.simt_launches = _lstm.simt_launches = 0
 
 
 def tt_contract(

@@ -155,14 +155,22 @@ def test_tt_contract_empty_batch():
         assert out.shape == (0,)
 
 
+def _lstm_args(b, t, h, seed):
+    """x, wi, wh, b scaled as the reference's tests (weights 0.3, bias 0.1)."""
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(b, t, h)), rng.normal(size=(h, 4 * h)) * 0.3,
+            rng.normal(size=(h, 4 * h)) * 0.3, rng.normal(size=(4 * h,)) * 0.1)
+
+
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
-@pytest.mark.parametrize("b,t,h", [(16, 6, 8), (50, 9, 16), (33, 12, 32), (8, 3, 64), (0, 3, 16)])
+@pytest.mark.parametrize("b,t,h", [(16, 6, 8), (50, 9, 16), (33, 12, 32), (8, 3, 64), (0, 3, 16),
+                                   (9, 4, 68), (7, 3, 114), (5, 3, 256)])
 def test_lstm_scan_matches_jax(b, t, h, dt):
-    rng = np.random.default_rng(b + t + h)
-    jx, tx = _pair(rng.normal(size=(b, t, h)), dt)
-    jwi, twi = _pair(rng.normal(size=(h, 4 * h)) * 0.3, dt)
-    jwh, twh = _pair(rng.normal(size=(h, 4 * h)) * 0.3, dt)
-    jb, tb = _pair(rng.normal(size=(4 * h,)) * 0.1, dt)
+    """The last three widths are the simt body's (the budget rule's 1 MB, 4 MB
+    and widest), at the reference's scales: the gates saturate rather than
+    grow with H, so the f32 sums stay within the tolerance unscaled."""
+    (jx, tx), (jwi, twi), (jwh, twh), (jb, tb) = (_pair(a, dt) for a in
+                                                  _lstm_args(b, t, h, b + t + h))
     want = _J_LSTM(jx, jwi, jwh, jb)
     got = tref.lstm_scan(tx, twi, twh, tb)
     assert got.dtype == DTYPES[dt][1] and got.shape == (b, t, h)
@@ -322,20 +330,23 @@ def test_simt_tile_fits_shared_memory(shape, tile):
     assert tdecode.simt_tile(shape[0], tdecode.simt_rank(shape[1])) == got
 
 
-@pytest.mark.parametrize("kernel,shape,threads", [
-    ("lstm_scan", (96,), 64), ("lstm_scan", (256,), 56), ("lstm_scan", (14_528,), 1),
-])
-def test_simt_threads_fit_shared_memory(kernel, shape, threads):
-    """The LSTM scan's simt body takes the most threads, up to 64, whose
-    state (4 H floats a thread) fits a Hopper block's 232,448 bytes of
-    shared memory."""
+@pytest.mark.parametrize("hid,tile", [(68, 176), (96, 112), (114, 88), (256, 40), (1304, 8)])
+def test_lstm_simt_tile_fits_shared_memory(hid, tile):
+    """The simt lstm_scan body's tile is the largest multiple of 8 sequences
+    whose state (x, h, h_new, c: 4 H floats a sequence) and two weight
+    stages fit a Hopper block's 232,448 bytes of shared memory."""
     from repro_torch.kernels import _common
     from repro_torch.kernels import lstm as tlstm
 
-    got, floats = tlstm.simt_threads(*shape), 4 * shape[0]
-    assert got == threads
-    assert got * floats * 4 <= _common.MAX_SMEM_BYTES
-    assert got == 64 or (got + 1) * floats * 4 > _common.MAX_SMEM_BYTES
+    got = tlstm.simt_tile(hid)
+    assert got == tile
+    assert got % 8 == 0
+    assert tlstm.simt_smem_bytes(hid, got) <= _common.MAX_SMEM_BYTES
+    assert tlstm.simt_smem_bytes(hid, got + 8) > _common.MAX_SMEM_BYTES
+    # the decode's rule with no rank: the same state and weight stages
+    from repro_torch.kernels import decode_tile as tdecode
+
+    assert tlstm.simt_smem_bytes(hid, got) == tdecode.simt_smem_bytes(hid, 0, got)
 
 
 @pytest.mark.parametrize("shape", [(14_600, 1), (1, 29_057), (1291, 28)])
@@ -348,14 +359,14 @@ def test_simt_tile_raises_past_one_tile(shape):
         tdecode.simt_tile(*shape)
 
 
-@pytest.mark.parametrize("kernel,shape", [("lstm_scan", (14_529,))])
-def test_simt_threads_raise_past_one_thread(kernel, shape):
-    """Only a shape whose single thread's state exceeds a block's shared
+@pytest.mark.parametrize("hid", [1305, 14_529])
+def test_lstm_simt_tile_raises_past_one_tile(hid):
+    """Only a width whose tile of 8 sequences exceeds a block's shared
     memory is refused."""
     from repro_torch.kernels import lstm as tlstm
 
-    with pytest.raises(ValueError, match="one thread's .* bytes of shared memory"):
-        tlstm.simt_threads(*shape)
+    with pytest.raises(ValueError, match="one tile of 8 sequences needs .* bytes of shared memory"):
+        tlstm.simt_tile(hid)
 
 
 def _simt_layout_decode(idx: torch.Tensor, ws: tuple[torch.Tensor, ...]) -> torch.Tensor:
@@ -404,6 +415,40 @@ def test_simt_layout_decode_matches_jax_oracle(hid, rank, t, dt):
     _close(_simt_layout_decode(tidx, laid), want, dt)
 
 
+def _simt_layout_lstm(x, wi, wh, b) -> torch.Tensor:
+    """The LSTM scan as the simt body computes it, in plain torch: each
+    step's gates as one product of [x_t | h] with [wi; wh] (x's K rows, then
+    h's), plus b, in f32; every h in x's dtype."""
+    bsz, t_steps, hid = x.shape
+    w_gates, b = torch.cat([wi, wh]).float(), b.float()
+    h = torch.zeros((bsz, hid))
+    c = torch.zeros((bsz, hid))
+    outs = []
+    for t in range(t_steps):
+        gates = torch.cat([x[:, t].float(), h], dim=1) @ w_gates + b
+        i, f, g, o = gates.split(hid, dim=1)
+        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        h = torch.sigmoid(o) * torch.tanh(c)
+        outs.append(h)
+    return torch.stack(outs, dim=1).to(x.dtype)
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hid", [68, 96, 114, 256])
+def test_simt_layout_lstm_matches_jax_oracle(hid, dt):
+    """The order of sums the simt lstm_scan body relies on: one K = 2H
+    product over [x_t | h] per step, against the JAX oracle's two."""
+    from repro_torch.kernels import lstm as tlstm
+
+    assert tlstm.lstm_body(hid) == "simt"
+    (jx, tx), (jwi, twi), (jwh, twh), (jb, tb) = (_pair(a, dt) for a in
+                                                  _lstm_args(11, 6, hid, hid))
+    want = _J_LSTM(jx, jwi, jwh, jb)
+    got = _simt_layout_lstm(tx, twi, twh, tb)
+    assert got.dtype == DTYPES[dt][1] and got.shape == (11, 6, hid)
+    _close(got, want, dt)
+
+
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
 @pytest.mark.parametrize("t", [3, 5])
 @pytest.mark.parametrize("hid,rank,b", [(68, 34, 33), (256, 128, 8)])
@@ -445,7 +490,7 @@ def test_lstm_bucket_for_the_repo_widths(hid, bucket):
 
 
 @pytest.mark.parametrize("hid,body", [(1, "register"), (64, "register"), (65, "simt"),
-                                      (96, "simt")])
+                                      (68, "simt"), (96, "simt"), (114, "simt")])
 def test_lstm_body_by_shape(hid, body):
     """Up to the largest bucket the register body runs, above it the simt
     body, which has no bucket."""
