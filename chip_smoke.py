@@ -49,6 +49,19 @@ Phases, each printing JSON lines:
    element by element: within 1 bf16 ulp of each element's own value plus
    2^-16 of its row's largest, which a kernel that rounds p to bf16
    fails (the timing row shows that on a bf16-p control).
+   kernels.bwd: the two backward kernels (``lstm_scan``'s, ``csrc/lstm_bwd.cu``,
+   and ``tt_contract``'s, ``csrc/tt_contract_bwd.cu``) against their plain
+   versions, autograd of the plain forwards: ``lstm_scan`` at (B 8192, T 10,
+   H 12), (8192, 10, 18), (4096, 10, 68) and (1024, 5, 256), ``tt_contract``
+   at (B 8192, K 8, R 6), (8192, 8, 10), (4096, 8, 34), (256, 4, 128) and
+   (1001, 8, 10), B off the block, on the operands a training step makes
+   (``training_inputs``); each gradient within atol 1e-5 + rtol 1e-4 of its
+   largest value, and every ``lstm_scan`` gradient no further from an f64
+   evaluation than 4x the plain version's (a weight's gradient sums B T
+   rows, which near 0 no two f32 summation orders hold to 1e-5); then once
+   through autograd, where the Functions' backward passes must be the
+   kernels.  The device phase prints their ptxas rows
+   (``device.bwd``).
 3. golden: ``tests/golden/v2_nttd.bin`` decoded on the card against
    ``tests/golden/expected.npz`` (rtol 1e-5, atol 1e-6), and the chunked
    NTTD payload ``benchmarks/results/fig5_stream_payload.tcdc`` decoded
@@ -72,7 +85,22 @@ Phases, each printing JSON lines:
    ``lstm_scan`` at B 65,536, T 10, H 68 on its simt body, then
    ``tt_contract`` at K 8, R 34, held to the plain route at 1e-5; the
    phase launches each exactly twice.
-6. serve: the LM serving path, ``repro_torch.launch.serve.main`` on
+6. fit: Alg. 1 at full width, ``get_codec("nttd").fit`` on its default
+   device with the paper's MEDIUM (rank 10, hidden 18, batch 8192, lr
+   1e-2) on the PEMS-SF replica at its Table II shape (963 x 144 x 440,
+   ``repro_torch.data.synthetic_tensors``), 6 epochs of 2^21 entries with
+   one Alg. 3 sweep (the cuts are in its ``reduced`` field).  Every
+   training step launches the forward and backward ``lstm_scan`` and
+   ``tt_contract`` kernels once, every epoch's fitness the fused decode,
+   and no plain version runs (counted).  It prints the seconds of TSP
+   init, training, reorder and fitness, steps/s, entries/s, the fitness
+   and loss per epoch, the swaps, the launches and the payload's size; the
+   payload's exact fitness over all entries must match the best sampled
+   one within 1e-2, and the saved payload must load and answer as fitted.
+   fit.parity: ``compress`` twice on the mini replica from the same seed,
+   the plain versions ("ref") against the kernels ("auto"): fitness within
+   1e-3 at every epoch; a mode whose accepted swaps differ is printed.
+7. serve: the LM serving path, ``repro_torch.launch.serve.main`` on
    qwen1.5-4b at full width (40 layers, d_model 2560, 20 heads of 128,
    vocab 151,936) in bf16 with random weights from seed 0: 8 requests of
    seeded prompt lengths (128, 2048 and six others, at least one not a
@@ -82,7 +110,7 @@ Phases, each printing JSON lines:
    (``--attn-impl ref``): the prefill logits must agree within
    ``LOGIT_REL_TOL`` of max|logit|, and the greedy tokens wherever the
    oracle run's top-2 margin exceeds twice the largest logit difference.
-7. timing: each kernel, its plain version and, where one exists, one
+8. timing: each kernel, its plain version and, where one exists, one
    PyTorch call computing the same function (cuDNN ``nn.LSTM`` for
    ``lstm_scan``, one ``torch.einsum`` over the whole chain for
    ``tt_contract``, ``scaled_dot_product_attention`` for
@@ -104,7 +132,13 @@ Phases, each printing JSON lines:
    bound (``timing.lstm_simt``, its error there held to 1e-5); the first
    is the ``lstm_scan_simt`` row, with the wide phase's launches, and the
    one profiler session also requires that a call at H 68 runs the simt
-   kernel alone.
+   kernel alone.  The two backward kernels are timed at the MEDIUM fit
+   shape (B 8192, T 10, H 18, R 10, K 8): the whole backward call a step
+   makes (for ``lstm_scan`` also the kernel alone), the plain version and,
+   for ``lstm_scan``, cuDNN ``nn.LSTM``'s backward; a ``timing.fit_step``
+   line sets the four kernels of a step beside the fit's seconds a step.
+   Every forward row also carries its launches on the fit path
+   (``launches_fit``).
 
 The line before the last is the card's ``name, power.limit`` as
 ``nvidia-smi`` reports them; the last line is the result object.  Any
@@ -113,6 +147,7 @@ rest of the checkout beside this file, it exits non-zero at once.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import json
@@ -155,6 +190,10 @@ SOURCES = {
                     "src/repro/kernels/tt_contract.py:60"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/attention.py:114"),
+    "lstm_scan_bwd": ("src/repro_torch/kernels/csrc/lstm_bwd.cu",
+                      "src/repro/kernels/lstm.py:67"),
+    "tt_contract_bwd": ("src/repro_torch/kernels/csrc/tt_contract_bwd.cu",
+                        "src/repro/kernels/tt_contract.py:60"),
 }
 NTTD_KERNELS = ("decode_tile", "lstm_scan", "tt_contract")
 SERVE_ARCH = "qwen1.5-4b"
@@ -460,6 +499,28 @@ LSTM_B, LSTM_T = 1000, 10
 # registers a thread that leave room for three blocks of 128 threads a SM
 # (65,536 registers, allocated in steps of 8 a thread)
 LSTM_H16_REGISTERS = 168
+# the backward kernels against their plain versions, per gradient
+BWD_RTOL, BWD_ATOL = 1e-4, 1e-5
+# lstm_scan backward cases (B, T, H): the paper's SMALL and MEDIUM widths
+# at their fit batches, the budget rule's 1 MB width and its widest
+BWD_LSTM_CASES = ((8192, 10, 12), (8192, 10, 18), (4096, 10, 68), (1024, 5, 256))
+# tt_contract backward cases (B, K, R): SMALL's and MEDIUM's ranks at K 8
+# (PEMS-SF's d' 10), the 1 MB rank, the widest, and a B off the block of
+# entries (16 a block at R 10)
+BWD_TT_CASES = ((8192, 8, 6), (8192, 8, 10), (4096, 8, 34), (256, 4, 128), (1001, 8, 10))
+# the fit phase: the paper's MEDIUM on the PEMS-SF replica at its Table II
+# shape, 6 epochs so that one Alg. 3 sweep runs after the fifth, 2^21
+# entries (256 steps of 8192) an epoch
+FIT_DATASET = "pems_sf"
+FIT_EPOCHS, FIT_REORDER = 6, 5
+FIT_ENTRIES = 1 << 21
+FIT_REDUCED = [
+    "epochs: 6 of MEDIUM's 200, so that exactly one Alg. 3 sweep runs (reorder_warmup = "
+    "reorder_every = 5)",
+    "entries_per_epoch: 2^21 (256 steps of 8192) of the tensor's 61,015,680",
+]
+# the fit.parity phase: fitness histories of the "ref" and "auto" routes
+FIT_PARITY_TOL = 1e-3
 
 
 # ---------------------------------------------------------------------------
@@ -559,6 +620,14 @@ def phase_device(torch):
     require(len(simt) == 2 and all(r["spill_store_bytes"] == r["spill_load_bytes"] == 0
                                    for r in simt),
             f"the simt lstm_scan body spills: {simt}")
+    # the backward kernels: their resources, and the lstm backward's tile of
+    # sequences at the widths it is held at
+    from repro_torch.kernels import lstm as _lstm
+
+    bwd = [r for r in resources if "_bwd_kernel" in r["kernel"]]
+    emit({"phase": "device.bwd", "ptxas": bwd,
+          "lstm_bwd_tiles": {h: _lstm.bwd_tile(h) for _, _, h in BWD_LSTM_CASES}})
+    require(len(bwd) == 2, f"ptxas reports {len(bwd)} backward kernels, expected 2: {bwd}")
     sass = sass_hgmma(path)
     if sass["tool"]:
         wgmma = {k: n for k, n in sass["hgmma"].items() if "flash_attention_wgmma" in k}
@@ -1228,6 +1297,452 @@ def lstm_simt_timing(torch, device, launches, errs):
     }, first_call
 
 
+def compare_grads(torch, got, want) -> list[float]:
+    """Max abs error of each gradient; fails unless it is within
+    ``BWD_ATOL`` + ``BWD_RTOL`` x the gradient's largest |value| (the
+    tolerance a gradient as a whole, not element by element: a weight's
+    gradient sums B T rows, and where such a sum cancels to near 0 any two
+    f32 orders of summation differ by more than the atol, though both sit
+    as close to an f64 evaluation: ``lstm_f64_bwd``)."""
+    errs = []
+    require(len(got) == len(want), f"{len(got)} gradients, expected {len(want)}")
+    for i, (g, w) in enumerate(zip(got, want)):
+        require(g.shape == w.shape and g.dtype == w.dtype,
+                f"gradient {i}: {tuple(g.shape)} {g.dtype} != {tuple(w.shape)} {w.dtype}")
+        require(bool(torch.isfinite(g).all()), f"gradient {i} is not finite")
+        worst = float((g - w).abs().max()) if g.numel() else 0.0
+        largest = float(w.abs().max()) if w.numel() else 0.0
+        require(worst <= BWD_ATOL + BWD_RTOL * largest,
+                f"gradient {i}: max abs err {worst} beyond atol {BWD_ATOL} + rtol {BWD_RTOL} "
+                f"x its largest value {largest}")
+        errs.append(worst)
+    return errs
+
+
+def beyond_elementwise(torch, got, want) -> list[int]:
+    """Elements of each gradient beyond ``BWD_ATOL`` + ``BWD_RTOL`` x their
+    own |value| (printed beside the check)."""
+    return [int(((g - w).abs() > BWD_ATOL + BWD_RTOL * w.abs()).sum())
+            for g, w in zip(got, want)]
+
+
+def training_inputs(torch, gen, b, t, hid, rank, device):
+    """The operands a training step hands the backward kernels: an NTTD at
+    (hid, rank) from the codec's own init (its biases drawn N(0, 0.1), as
+    after some training, so the bias paths carry values), B random entries
+    of the PEMS-SF index space folded to d' = T, normalized targets drawn
+    N(0, 1), the summed squared error's gradient taken through the plain
+    route.  Returns the lstm_scan backward's (x, (wi, wh, b), dhs) and the
+    tt_contract backward's (first, mid, last, dout)."""
+    from repro_torch.core import nttd
+    from repro_torch.core.folding import make_folding_spec
+    from repro_torch.kernels import ref
+
+    spec = make_folding_spec(PEMS_SHAPE, t)
+    cfg = nttd.NTTDConfig(rank=rank, hidden=hid)
+    params = nttd.init_params(gen, spec, cfg, device)
+    for head in ("lstm", "head_first", "head_mid", "head_last"):
+        params[head]["b"] = params[head]["b"] + 0.1 * torch.randn(
+            params[head]["b"].shape, generator=gen).to(device)
+    pos = torch.stack([torch.randint(0, n, (b,), generator=gen) for n in PEMS_SHAPE], 1)
+    folded = spec.fold_indices(pos.to(device))
+    x = torch.stack([params[f"embed_{m}"][folded[:, j]]
+                     for j, m in enumerate(spec.folded_shape)], dim=1).contiguous()
+    lstm = params["lstm"]
+    vals = torch.randn((b,), generator=gen).to(device)
+    with torch.enable_grad():
+        hs = ref.lstm_scan(x, lstm["wi"], lstm["wh"], lstm["b"]).requires_grad_()
+        first = hs[:, 0] @ params["head_first"]["w"] + params["head_first"]["b"]
+        last = hs[:, -1] @ params["head_last"]["w"] + params["head_last"]["b"]
+        mid = (hs[:, 1:-1] @ params["head_mid"]["w"] + params["head_mid"]["b"]).reshape(
+            b, t - 2, rank, rank)
+        cores = [a.detach().contiguous().requires_grad_() for a in (first, mid, last)]
+        pred = ref.tt_contract(*cores)
+        dout = 2 * (pred - vals).detach()
+        dhs = torch.autograd.grad((first, mid, last), hs, torch.autograd.grad(
+            pred, cores, dout))[0]
+    return ((x, (lstm["wi"], lstm["wh"], lstm["b"]), dhs.contiguous()),
+            tuple(a.detach() for a in cores) + (dout,))
+
+
+def lstm_bwd_inputs(torch, gen, b, t, h, device):
+    """``training_inputs``' lstm_scan operands at hidden ``h`` (rank h / 2,
+    the budget rule's ratio)."""
+    return training_inputs(torch, gen, b, t, h, max(1, h // 2), device)[0]
+
+
+def tt_bwd_inputs(torch, gen, b, k, r, device):
+    """``training_inputs``' tt_contract operands at rank ``r`` and K mid
+    cores (hidden 2 r, d' = K + 2)."""
+    return training_inputs(torch, gen, b, k + 2, 2 * r, r, device)[1]
+
+
+def lstm_f64_bwd(torch, x, wi, wh, b, dhs):
+    """The lstm_scan gradients evaluated in f64 (autograd of the plain
+    forward's math without its f32 casts): the yardstick of the unit-scale
+    reading."""
+    with torch.enable_grad():
+        leaves = [a.double().requires_grad_() for a in (x, wi, wh, b)]
+        xd, wid, whd, bd = leaves
+        bsz, t_steps, hid = x.shape
+        h = c = torch.zeros((bsz, hid), dtype=torch.float64, device=x.device)
+        outs = []
+        for t in range(t_steps):
+            i, f, g, o = (xd[:, t] @ wid + h @ whd + bd).split(hid, dim=-1)
+            c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+            h = torch.sigmoid(o) * torch.tanh(c)
+            outs.append(h)
+        return torch.autograd.grad(torch.stack(outs, 1), leaves, dhs.double())
+
+
+def lstm_bwd_cost(b: int, t: int, h: int) -> tuple[int, int]:
+    """(FLOP, bytes) of the whole ``lstm_scan`` backward: per entry and step
+    16 H^2 to recompute the gates, 8 H^2 for dG wh^T and 24 H^2 for dx, dwi
+    and dwh; x, hs, dhs and the weights read once, dx and the weights'
+    gradients written once."""
+    return b * t * 48 * h * h, (4 * b * t * h + 16 * h * h + 8 * h) * 4
+
+
+def lstm_bwd_kernel_cost(b: int, t: int, h: int) -> tuple[int, int]:
+    """(FLOP, bytes) of the backward kernel alone: the gates recomputed and
+    dG wh^T; x, hs, dhs and the weights read, dG [B, T, 4H] written."""
+    return b * t * 24 * h * h, (7 * b * t * h + 8 * h * h + 4 * h) * 4
+
+
+def tt_bwd_cost(b: int, k: int, r: int) -> tuple[int, int]:
+    """(FLOP, bytes) of the ``tt_contract`` backward: per entry 2 R^2 a mid
+    core for the prefix, 2 R^2 for the suffix and 2 R^2 for dmid; first,
+    mid, last and dout read once, dfirst, dmid and dlast written once."""
+    return b * (6 * k * r * r + 4 * r), (4 * b * r + 2 * b * k * r * r + b) * 4
+
+
+def cudnn_lstm_backward(torch, x, wi, wh, bias, dhs):
+    """cuDNN ``torch.nn.LSTM`` holding wi, wh, b as ``cudnn_lstm`` does, run
+    forward once with its graph kept: a function that runs its backward
+    (dx and every weight's gradient) against ``dhs``, ``lstm_scan_bwd``'s
+    library yardstick.  Returns (run, a function giving dx, dwi, dwh, db in
+    ``lstm_scan``'s layout)."""
+    h = wi.shape[0]
+    net = torch.nn.LSTM(h, h, batch_first=True).to(wi.device)
+    with torch.no_grad():
+        net.weight_ih_l0.copy_(wi.T)
+        net.weight_hh_l0.copy_(wh.T)
+        net.bias_ih_l0.copy_(bias)
+        net.bias_hh_l0.zero_()
+    xg = x.detach().clone().requires_grad_()
+    out = net(xg)[0]
+    inputs = (xg, net.weight_ih_l0, net.weight_hh_l0, net.bias_ih_l0, net.bias_hh_l0)
+
+    def run():
+        return torch.autograd.grad(out, inputs, dhs, retain_graph=True)
+
+    def grads():
+        dx, dwi, dwh, db, _ = run()
+        return dx, dwi.T, dwh.T, db
+    return run, grads
+
+
+def phase_kernels_bwd(torch, device):
+    """Each backward kernel against its plain version (autograd of the plain
+    forward) on the card, every gradient within ``BWD_RTOL`` / ``BWD_ATOL``;
+    each call must launch its kernel once."""
+    from repro_torch.kernels import lstm as _lstm
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import tt_contract as _tt
+
+    gen = torch.Generator().manual_seed(SEED)
+    errs = {"lstm_scan_bwd": 0.0, "tt_contract_bwd": 0.0}
+    lstm_cases, tt_cases = [], []
+    for b, t, h in BWD_LSTM_CASES:
+        x, lw, dhs = lstm_bwd_inputs(torch, gen, b, t, h, device)
+        hs = ops.lstm_scan(x, *lw, impl="cuda")  # the forward kernel's, as training saves it
+        before = _lstm.bwd_launches
+        got = _lstm.lstm_scan_bwd(x, *lw, hs, dhs)
+        require(_lstm.bwd_launches == before + 1, f"lstm_scan_bwd at H {h} launched no kernel")
+        plain = ref.lstm_scan_bwd(x, *lw, dhs)
+        err = compare_grads(torch, got, plain)
+        errs["lstm_scan_bwd"] = max(errs["lstm_scan_bwd"], *err)
+        # both against an f64 evaluation: the kernel's route may be no less
+        # accurate than the plain version's, within a factor of 4
+        exact = lstm_f64_bwd(torch, x, *lw, dhs)
+        vs_f64 = [(float((g.double() - e).abs().max()), float((p.double() - e).abs().max()))
+                  for g, p, e in zip(got, plain, exact)]
+        require(all(k <= 4 * p + BWD_ATOL for k, p in vs_f64),
+                f"lstm_scan_bwd at H {h}: (kernel, plain) errors against f64 {vs_f64}")
+        names = ("dx", "dwi", "dwh", "db")
+        lstm_cases.append({"B": b, "T": t, "H": h, "tile": _lstm.bwd_tile(h),
+                           "max_abs_err": dict(zip(names, err)),
+                           "largest": dict(zip(names, (float(p.abs().max()) for p in plain))),
+                           "kernel_plain_vs_f64": dict(zip(names, vs_f64)),
+                           "beyond_elementwise": dict(zip(names, beyond_elementwise(
+                               torch, got, plain)))})
+    for b, k, r in BWD_TT_CASES:
+        first, mid, last, dout = tt_bwd_inputs(torch, gen, b, k, r, device)
+        before = _tt.bwd_launches
+        got = _tt.tt_contract_bwd(first, mid, last, dout)
+        require(_tt.bwd_launches == before + 1, f"tt_contract_bwd at R {r} launched no kernel")
+        plain = ref.tt_contract_bwd(first, mid, last, dout)
+        err = compare_grads(torch, got, plain)
+        errs["tt_contract_bwd"] = max(errs["tt_contract_bwd"], *err)
+        names = ("dfirst", "dmid", "dlast")
+        tt_cases.append({"B": b, "K": k, "R": r, "lanes_per_entry": _tt.lanes_per_entry(r),
+                         "entries_per_block": _tt.THREADS // _tt.lanes_per_entry(r),
+                         "max_abs_err": dict(zip(names, err)),
+                         "largest": dict(zip(names, (float(p.abs().max()) for p in plain))),
+                         "beyond_elementwise": dict(zip(names, beyond_elementwise(
+                             torch, got, plain)))})
+    # a reading at unit scale (x, dhs ~ N(0, 1), weights 0.3): there the
+    # weight gradients' f32 sums over B T = 81,920 rows differ between any two
+    # summation orders by more than the atol near 0, so both versions are
+    # held against an f64 evaluation instead, and printed
+    b, t, h = BWD_LSTM_CASES[0]
+    x, lw = lstm_inputs(torch, gen, b, t, h, torch.float32, device)
+    dhs = torch.randn((b, t, h), generator=gen).to(device)
+    exact = lstm_f64_bwd(torch, x, *lw, dhs)
+    got = _lstm.lstm_scan_bwd(x, *lw, ops.lstm_scan(x, *lw, impl="cuda"), dhs)
+    plain = ref.lstm_scan_bwd(x, *lw, dhs)
+    unit = {"B": b, "T": t, "H": h, **{
+        name: {"kernel_vs_f64": float((g.double() - e).abs().max()),
+               "plain_vs_f64": float((p.double() - e).abs().max()),
+               "kernel_vs_plain": float((g - p).abs().max()), "largest": float(e.abs().max())}
+        for name, g, p, e in zip(("dx", "dwi", "dwh", "db"), got, plain, exact)}}
+    # through autograd: the Functions' backward passes are the kernels
+    x, lw, dhs = lstm_bwd_inputs(torch, gen, 64, 10, 18, device)
+    leaves = [a.clone().requires_grad_() for a in (x, *lw)]
+    before = (_lstm.bwd_launches, _tt.bwd_launches)
+    torch.autograd.backward(ops.lstm_scan(*leaves, impl="cuda"), dhs)
+    first, mid, last, dout = tt_bwd_inputs(torch, gen, 64, 8, 10, device)
+    tt_leaves = [a.clone().requires_grad_() for a in (first, mid, last)]
+    torch.autograd.backward(ops.tt_contract(*tt_leaves, impl="cuda"), dout)
+    require((_lstm.bwd_launches, _tt.bwd_launches) == (before[0] + 1, before[1] + 1),
+            "autograd through lstm_scan and tt_contract did not run the backward kernels")
+    compare_grads(torch, [a.grad for a in leaves], ref.lstm_scan_bwd(x, *lw, dhs))
+    compare_grads(torch, [a.grad for a in tt_leaves], ref.tt_contract_bwd(first, mid, last, dout))
+    torch.cuda.synchronize()
+    emit({"phase": "kernels.bwd", "rtol": BWD_RTOL, "atol": BWD_ATOL,
+          "inputs": "training_inputs: an NTTD at its init scales on PEMS-SF's index space",
+          "lstm_scan_bwd": lstm_cases, "tt_contract_bwd": tt_cases, "max_abs_err": errs,
+          "lstm_scan_bwd_unit_scale": unit})
+    return errs
+
+
+@contextlib.contextmanager
+def plain_calls_counted(ref):
+    """Count the calls of every plain kernel version in ``ref`` while the
+    block runs (the wrappers and ``ops`` call them through the module)."""
+    names = ("nttd_decode_tile", "lstm_scan", "tt_contract", "lstm_scan_bwd", "tt_contract_bwd")
+    counts = dict.fromkeys(names, 0)
+    saved = {name: getattr(ref, name) for name in names}
+
+    def counted(name):
+        def call(*args, **kwargs):
+            counts[name] += 1
+            return saved[name](*args, **kwargs)
+        return call
+
+    for name in names:
+        setattr(ref, name, counted(name))
+    try:
+        yield counts
+    finally:
+        for name, fn in saved.items():
+            setattr(ref, name, fn)
+
+
+def fit_options(**extra) -> dict:
+    """The paper's MEDIUM (rank 10, hidden 18, batch 8192, lr 1e-2) as
+    ``NTTDCodec.fit`` options, cut to ``FIT_EPOCHS`` epochs with one Alg. 3
+    sweep."""
+    from repro_torch.configs import tensorcodec_paper
+
+    return {**dataclasses.asdict(tensorcodec_paper.MEDIUM), "epochs": FIT_EPOCHS,
+            "reorder_warmup": FIT_REORDER, "reorder_every": FIT_REORDER, **extra}
+
+
+def phase_fit(torch, device):
+    """Alg. 1 at full width: the paper's MEDIUM on the PEMS-SF replica at
+    its Table II shape, through ``get_codec("nttd").fit`` on its default
+    device (the card).  Every training step must launch the forward and
+    backward ``lstm_scan`` and ``tt_contract`` kernels once, every epoch's
+    fitness the fused decode, and no plain version may run.  The payload's
+    whole-tensor fitness must match the best sampled fitness of the fit,
+    and the payload must load and answer as fitted.  Returns the phase's
+    launches and its seconds per training step."""
+    import numpy as np
+
+    from repro_torch.codecs import get_codec, load_bytes
+    from repro_torch.data import synthetic_tensors
+    from repro_torch.kernels import ops, ref
+
+    t0 = time.perf_counter()
+    x = synthetic_tensors.load(FIT_DATASET, mini=False, seed=SEED)
+    tensor_s = time.perf_counter() - t0
+    require(x.shape == PEMS_SHAPE, f"the {FIT_DATASET} replica has shape {x.shape}")
+    opts = fit_options(entries_per_epoch=FIT_ENTRIES)
+    require(opts["kernel_impl"] == "auto", f"the default impl is {opts['kernel_impl']!r}")
+    with plain_calls_counted(ref) as plain:
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t = time.perf_counter()
+        enc = get_codec("nttd").fit(x, **opts)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t
+        launches = ops.launch_counts()
+    require(enc.ct.device.type == "cuda", "the fit did not run on the card")
+    require(sum(plain.values()) == 0, f"plain versions ran on the fit path: {plain}")
+    log = enc.log
+    steps = FIT_ENTRIES // opts["batch_size"] * log.epochs_run
+    train = {k: launches[k] for k in ("lstm_scan", "lstm_scan_bwd", "tt_contract",
+                                      "tt_contract_bwd")}
+    require(set(train.values()) == {steps},
+            f"{steps} training steps launched {train}; expected one of each a step")
+    require(launches["decode_tile"] >= log.epochs_run,
+            f"decode_tile launched {launches['decode_tile']} times in {log.epochs_run} epochs")
+    require(len(log.reorder_stats) == (log.epochs_run > FIT_REORDER),
+            f"{len(log.reorder_stats)} Alg. 3 sweeps in {log.epochs_run} epochs")
+    require(all(math.isfinite(v) for v in log.fitness_history + log.loss_history),
+            "non-finite fitness or loss")
+    # what comes out: the returned payload's exact fitness over all entries
+    # is the best epoch's sampled one (4M entries), and it reloads intact
+    t = time.perf_counter()
+    full = enc.fitness(x)
+    full_s = time.perf_counter() - t
+    best = max(log.fitness_history)
+    require(abs(full - best) < 1e-2, f"payload fitness {full} vs the fit's best {best}")
+    blob = enc.save()
+    idx = np.stack([np.random.default_rng(SEED).integers(0, n, REQUEST) for n in PEMS_SHAPE],
+                   axis=1)
+    got = load_bytes(blob).decode_at(idx)
+    require(bool(np.isfinite(got).all()), "non-finite decode of the fitted payload")
+    np.testing.assert_allclose(got, enc.decode_at(idx), rtol=1e-5, atol=1e-6)
+    steps_per_s = steps / log.seconds_train
+    emit({"phase": "fit", "dataset": FIT_DATASET, "shape": list(x.shape),
+          "folded_shape": list(enc.ct.spec.folded_shape), "config": {
+              k: opts[k] for k in ("rank", "hidden", "batch_size", "lr", "epochs",
+                                   "reorder_warmup", "reorder_every", "reorder_samples",
+                                   "entries_per_epoch", "kernel_impl")},
+          "reduced": FIT_REDUCED, "tensor_seconds": tensor_s, "seconds": fit_s,
+          "seconds_init_order": log.seconds_init_order, "seconds_train": log.seconds_train,
+          "seconds_reorder": log.seconds_reorder,
+          "seconds_fitness": fit_s - log.seconds_init_order - log.seconds_train
+          - log.seconds_reorder,
+          "epochs_run": log.epochs_run, "steps": steps, "steps_per_s": steps_per_s,
+          "train_entries_per_s": steps_per_s * opts["batch_size"],
+          "fitness_history": log.fitness_history, "loss_history": log.loss_history,
+          "swaps": [[s.mode, s.pairs, s.accepted] for s in log.reorder_stats[0]]
+          if log.reorder_stats else [],
+          "fitness_full": full, "fitness_full_seconds": full_s, "launches": launches,
+          "plain_calls": plain, "payload_bytes": len(blob),
+          "payload_bytes_v_a": enc.payload_bytes()})
+    return launches, log.seconds_train / steps
+
+
+def phase_fit_parity(torch, device):
+    """``compress`` twice on the card from the same seed (so the same
+    initial params) on the mini PEMS-SF replica: the plain versions ("ref")
+    and the kernels ("auto").  The fitness histories must agree within
+    ``FIT_PARITY_TOL`` at every epoch; where the accepted swaps of a mode
+    differ, the mode is printed."""
+    from repro_torch.core import codec
+    from repro_torch.data import synthetic_tensors
+    from repro_torch.kernels import ops
+
+    x = synthetic_tensors.load(FIT_DATASET, mini=True, seed=SEED)
+    runs = {}
+    for impl in ("ref", "auto"):
+        ops.reset_launch_counts()
+        t = time.perf_counter()
+        _, log = codec.compress(x, codec.CodecConfig(**fit_options(kernel_impl=impl)))
+        torch.cuda.synchronize()
+        runs[impl] = (log, time.perf_counter() - t, ops.launch_counts())
+    (plain, plain_s, plain_launches), (kern, kern_s, launches) = runs["ref"], runs["auto"]
+    require(not any(plain_launches.values()), f"the ref route launched {plain_launches}")
+    require(all(launches[k] > 0 for k in ("decode_tile", "lstm_scan", "lstm_scan_bwd",
+                                          "tt_contract", "tt_contract_bwd")),
+            f"the auto route launched {launches}")
+    require(len(kern.fitness_history) == len(plain.fitness_history),
+            f"{kern.epochs_run} epochs against the ref route's {plain.epochs_run}")
+    diffs = [abs(a - b) for a, b in zip(kern.fitness_history, plain.fitness_history)]
+    require(max(diffs) <= FIT_PARITY_TOL,
+            f"fitness histories differ by {max(diffs)} (limit {FIT_PARITY_TOL}): "
+            f"{kern.fitness_history} vs {plain.fitness_history}")
+    swaps = [[[s.mode, s.pairs, s.accepted] for s in stats] for stats in kern.reorder_stats]
+    plain_swaps = [[[s.mode, s.pairs, s.accepted] for s in stats]
+                   for stats in plain.reorder_stats]
+    differ = [a[0] for sweep, psweep in zip(swaps, plain_swaps) for a, b in zip(sweep, psweep)
+              if a != b]
+    emit({"phase": "fit.parity", "dataset": FIT_DATASET, "shape": list(x.shape),
+          "tolerance": FIT_PARITY_TOL, "fitness_auto": kern.fitness_history,
+          "fitness_ref": plain.fitness_history, "max_fitness_diff": max(diffs),
+          "loss_auto": kern.loss_history, "loss_ref": plain.loss_history,
+          "swaps_auto": swaps, "swaps_ref": plain_swaps, "modes_whose_swaps_differ": differ,
+          "seconds_auto": kern_s, "seconds_ref": plain_s, "launches_auto": launches})
+
+
+def bwd_timing(torch, device, fit_launches, errs, step_s):
+    """The two backward kernels at the MEDIUM fit shape (B 8192, T 10 (PEMS-
+    SF's d'), H 18, R 10, K 8): the whole backward call a training step
+    makes, the kernel alone where the call adds products, the plain
+    version and, for ``lstm_scan``, cuDNN's backward, with CUDA events like
+    every row.  A ``timing.fit_step`` line sets the four kernels of a step
+    beside the fit phase's seconds a step.  Returns the two rows."""
+    from repro_torch.kernels import lstm as _lstm
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import tt_contract as _tt
+
+    b, t, h, r = 8192, 10, 18, 10
+    k = t - 2
+    gen = torch.Generator().manual_seed(SEED)
+    x, lw, dhs = lstm_bwd_inputs(torch, gen, b, t, h, device)
+    hs = ops.lstm_scan(x, *lw, impl="cuda")
+    first, mid, last, dout = tt_bwd_inputs(torch, gen, b, k, r, device)
+    lib_run, lib_grads = cudnn_lstm_backward(torch, x, *lw, dhs)
+    plain_grads = ref.lstm_scan_bwd(x, *lw, dhs)
+    lib_err = max(float((g - w).abs().max()) for g, w in zip(lib_grads(), plain_grads))
+    rows = []
+    n_ops, n_bytes = lstm_bwd_cost(b, t, h)
+    k_ops, k_bytes = lstm_bwd_kernel_cost(b, t, h)
+    rows.append({
+        "name": "lstm_scan_bwd", "route": "cuda", "source": SOURCES["lstm_scan_bwd"][0],
+        "replaces": SOURCES["lstm_scan_bwd"][1], "launches": fit_launches["lstm_scan_bwd"],
+        "max_abs_err": errs["lstm_scan_bwd"],
+        "ms": time_ms(torch, lambda: _lstm.lstm_scan_bwd(x, *lw, hs, dhs), 20),
+        "plain_ms": time_ms(torch, lambda: ref.lstm_scan_bwd(x, *lw, dhs), 5),
+        **bound(n_ops, n_bytes, PEAK_FP32),
+        "library_ms": time_ms(torch, lib_run, 20),
+        "library": "cuDNN torch.nn.LSTM backward: autograd.grad of a kept forward graph, "
+                   "dx and every weight", "library_max_abs_err": lib_err,
+        "kernel_ms": time_ms(torch, lambda: _lstm.bwd_gates(x, *lw, hs, dhs), 20),
+        "kernel_bound_ms": bound(k_ops, k_bytes, PEAK_FP32)["bound_ms"],
+        "tile": _lstm.bwd_tile(h), "shape": {"B": b, "T": t, "H": h},
+        "ops": n_ops, "bytes": n_bytes,
+        "note": "ms: the wrapper (kernel, then dx, dwi, dwh, db as matmuls); kernel_ms: the "
+                "kernel alone (dG); plain_ms: autograd of the plain forward, forward included",
+    })
+    n_ops, n_bytes = tt_bwd_cost(b, k, r)
+    rows.append({
+        "name": "tt_contract_bwd", "route": "cuda", "source": SOURCES["tt_contract_bwd"][0],
+        "replaces": SOURCES["tt_contract_bwd"][1], "launches": fit_launches["tt_contract_bwd"],
+        "max_abs_err": errs["tt_contract_bwd"],
+        "ms": time_ms(torch, lambda: _tt.tt_contract_bwd(first, mid, last, dout), 20),
+        "plain_ms": time_ms(torch, lambda: ref.tt_contract_bwd(first, mid, last, dout), 5),
+        **bound(n_ops, n_bytes, PEAK_FP32), "library_ms": None,
+        "library": None, "library_max_abs_err": None,
+        "lanes_per_entry": _tt.lanes_per_entry(r), "shape": {"B": b, "K": k, "R": r},
+        "ops": n_ops, "bytes": n_bytes,
+    })
+    step = {"lstm_scan": time_ms(torch, lambda: ops.lstm_scan(x, *lw, impl="cuda"), 20),
+            "lstm_scan_bwd": rows[0]["ms"],
+            "tt_contract": time_ms(torch, lambda: ops.tt_contract(first, mid, last,
+                                                                  impl="cuda"), 20),
+            "tt_contract_bwd": rows[1]["ms"]}
+    kernel_ms = sum(step.values())
+    emit({"phase": "timing.fit_step", "shape": {"B": b, "T": t, "H": h, "R": r},
+          "ms": step, "kernels_ms": kernel_ms, "step_ms": step_s * 1e3,
+          "kernels_share_of_step": kernel_ms / (step_s * 1e3)})
+    return rows
+
+
 def main() -> int:
     try:
         import torch
@@ -1252,15 +1767,21 @@ def main() -> int:
     try:
         smi = phase_device(torch)
         errs = phase_kernels(torch, device)
+        errs.update(phase_kernels_bwd(torch, device))
         phase_golden(torch, device)
         enc, idx, launches = phase_main(torch, device)
         simt_launches, lstm_simt_launches = phase_wide(torch, device)
+        fit_launches, step_s = phase_fit(torch, device)
+        phase_fit_parity(torch, device)
         serve_launches = phase_serve(torch, device)
         simt_lstm = lstm_simt_timing(torch, device, lstm_simt_launches, errs)
         kernels = phase_timing(torch, device, enc, idx, launches, errs, simt_lstm)
+        for row in kernels:  # the forward kernels' launches on the fit path too
+            row["launches_fit"] = fit_launches[row["name"]]
         kernels.append(decode_simt_timing(torch, device, simt_launches, errs))
         kernels.append(simt_lstm[0])
         kernels.append(flash_timing_row(torch, device, serve_launches, errs))
+        kernels.extend(bwd_timing(torch, device, fit_launches, errs, step_s))
         torch.cuda.synchronize()
         emit({"kernels": kernels})
     except Exception:  # any failed phase fails the run, with its traceback

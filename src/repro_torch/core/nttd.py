@@ -111,6 +111,12 @@ def count_params(params: Params) -> int:
     return sum(int(p.numel()) for p in _leaves(params))
 
 
+def count_param_shapes(spec: FoldingSpec, cfg: NTTDConfig) -> int:
+    """``count_params`` of the params ``init_params`` would make, from
+    ``param_shapes`` alone."""
+    return sum(math.prod(shape) for shape in _leaves(param_shapes(spec, cfg)))
+
+
 def params_device(params: Params) -> torch.device:
     return next(_leaves(params)).device
 
@@ -165,6 +171,27 @@ def decode_operands(
     return bucket_operands(ws) if ws[0].device.type == "cuda" else ws
 
 
+def _embed(params: Params, folded_idx: torch.Tensor, spec: FoldingSpec) -> torch.Tensor:
+    """x [B, d', h]: row ``folded_idx[:, j]`` of mode j's table, one
+    ``F.embedding`` per distinct table over all the modes that share it.
+    The same values as one gather per mode; its gradient sums a table's
+    rows over those modes with PyTorch's embedding backward, which sums a
+    row's duplicate indices in parallel segments (the backward of a gather
+    sums them one after another, and a table of 8 rows gets ~B d' / 8 of
+    them)."""
+    modes: dict[int, list[int]] = {}
+    for j, m in enumerate(spec.folded_shape):
+        modes.setdefault(m, []).append(j)
+    parts, order = [], []
+    for m, js in modes.items():
+        parts.append(torch.nn.functional.embedding(folded_idx[:, js], params[f"embed_{m}"]))
+        order += js
+    x = torch.cat(parts, dim=1)
+    if order != sorted(order):
+        x = x[:, np.argsort(order)]
+    return x
+
+
 def apply(
     params: Params,
     folded_idx: torch.Tensor,  # [B, d'] integer
@@ -181,6 +208,16 @@ def apply(
     ``torch.matmul``; they are full f32 on the card only while
     ``torch.backends.cuda.matmul.allow_tf32`` is False (PyTorch's default),
     which this function leaves to the caller.
+
+    Training differentiates the unfused route: on the card "cuda" is the
+    training forward (embedding gather, the ``lstm_scan`` Function, the head
+    matmuls, the ``tt_contract`` Function), whose gradients run the two
+    backward kernels, and autograd sums the shared embedding tables'
+    gradients over the modes.  The fused decode has no backward, so
+    ``core.codec.compress`` trains with "cuda" where its impl is "auto",
+    "fused" or "cuda", and predicts (fitness, Alg. 3) with its own impl: on
+    the card "auto" is the fused decode.  The reference trains and predicts
+    on one ``kernel_impl``.
     """
     d_prime = spec.d_prime
     r = cfg.rank
@@ -191,10 +228,7 @@ def apply(
             impl=cfg.kernel_impl,
         )
     # --- embedding lookup (shared tables by mode length) -------------------
-    embeds = [
-        params[f"embed_{m}"][folded_idx[:, j]] for j, m in enumerate(spec.folded_shape)
-    ]
-    x = torch.stack(embeds, dim=1)  # [B, d', h]
+    x = _embed(params, folded_idx, spec)  # [B, d', h]
     # --- LSTM encoder -------------------------------------------------------
     lstm = params["lstm"]
     hs = ops.lstm_scan(x, lstm["wi"], lstm["wh"], lstm["b"], impl=cfg.kernel_impl)

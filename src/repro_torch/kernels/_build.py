@@ -28,7 +28,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("decode_tile.cu", "decode_tile_dispatch.cu", "decode_tile_simt.cu", "lstm.cu",
-           "lstm_dispatch.cu", "tt_contract.cu", "flash_attention.cu")
+           "lstm_dispatch.cu", "lstm_bwd.cu", "tt_contract.cu", "tt_contract_bwd.cu",
+           "flash_attention.cu")
 HEADERS = ("common.cuh", "decode_tile.cuh", "hopper.cuh", "lstm.cuh", "lstm_cell.cuh",
            "simt_tile.cuh")
 PER_BUCKET = ("decode_tile.cu", "lstm.cu")  # compiled once per bucket and dtype
@@ -51,8 +52,12 @@ _SIGNATURES = {
     "repro_lstm_scan": [_P] * 5 + [_L, _I, _I, _I, _I, _P],
     # x, wi, wh, b, out, B, T, H, bucket, vec, dtype, stream
     "repro_lstm_scan_register": [_P] * 5 + [_L, _I, _I, _I, _I, _I, _P],
+    # x, wi, wh, b, hs, dhs, wh^T, dG, c scratch, B, T, H, tile, stream (f32)
+    "repro_lstm_scan_bwd": [_P] * 9 + [_L, _I, _I, _I, _P],
     # first, mid, last, out, B, K, R, lanes per entry, dtype, stream
     "repro_tt_contract": [_P] * 4 + [_L, _I, _I, _I, _I, _P],
+    # first, mid, last, dout, dfirst, dmid, dlast, B, K, R, lanes per entry, stream (f32)
+    "repro_tt_contract_bwd": [_P] * 7 + [_L, _I, _I, _I, _P],
     # q, k, v, out, B, Sq, Skv, Hq, Hkv, D, q_offset, kv_valid, causal, scale, dtype, stream
     "repro_flash_attention": [_P] * 4 + [_I] * 9 + [ctypes.c_float, _I, _P],
     # the same arguments as repro_flash_attention

@@ -14,9 +14,17 @@ on a CPU tensor.  So "auto" and "fused" resolve by the tensors' device.
 No path falls back from the kernel to the plain version: ``attention``
 pads any length to the kernel's tile instead.
 
+Gradients: on CUDA tensors ``lstm_scan`` and ``tt_contract`` are
+``torch.autograd.Function``s whose backward passes are the hand-written
+backward kernels (``lstm.lstm_scan_bwd``, ``tt_contract.tt_contract_bwd``);
+the K == 0 row dot and every "ref" route are differentiated by autograd.
+``nttd_decode_tile`` is forward only for every impl but "ref": asking it
+for a gradient raises.
+
 ``launch_counts`` / ``reset_launch_counts`` read and clear the wrappers'
-launch counters (the reset clears ``decode_tile.simt_launches`` and
-``lstm.simt_launches`` too).
+launch counters, the backward kernels' (``lstm_scan_bwd``,
+``tt_contract_bwd``) included; the reset clears
+``decode_tile.simt_launches`` and ``lstm.simt_launches`` too.
 """
 from __future__ import annotations
 
@@ -38,13 +46,20 @@ def _check_impl(impl: str, impls: tuple[str, ...] = IMPLS) -> None:
         raise ValueError(f"unknown kernel impl {impl!r}; expected one of {impls}")
 
 
+_BWD_KERNELS = {"lstm_scan_bwd": _lstm, "tt_contract_bwd": _tt}
+
+
 def launch_counts() -> dict[str, int]:
-    return {name: mod.launches for name, mod in _KERNELS.items()}
+    counts = {name: mod.launches for name, mod in _KERNELS.items()}
+    counts.update({name: mod.bwd_launches for name, mod in _BWD_KERNELS.items()})
+    return counts
 
 
 def reset_launch_counts() -> None:
     for mod in _KERNELS.values():
         mod.launches = 0
+    for mod in _BWD_KERNELS.values():
+        mod.bwd_launches = 0
     _dt.simt_launches = _lstm.simt_launches = 0
 
 
@@ -101,7 +116,28 @@ def nttd_decode_tile(
     heads = (w_first, b_first, w_mid, b_mid, w_last, b_last)
     if impl == "ref":
         return _ref.nttd_decode_tile(idx, emb, wi, wh, b, *heads)
-    return _dt.decode_tile(idx, emb, wi, wh, b, *heads)
+    operands = (idx, emb, wi, wh, b, *heads)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in operands):
+        return _ForwardOnlyDecode.apply(*operands)
+    return _dt.decode_tile(*operands)
+
+
+class _ForwardOnlyDecode(torch.autograd.Function):
+    """The fused decode (``decode_tile.decode_tile``), which has no
+    backward: a gradient asked of it raises instead of leaving the
+    operands' gradients quietly unset."""
+
+    @staticmethod
+    def forward(ctx, *operands):
+        return _dt.decode_tile(*operands)
+
+    @staticmethod
+    def backward(ctx, dout):
+        raise RuntimeError(
+            "nttd_decode_tile (the fused decode) is forward only; train through the "
+            "unfused kernels (impl 'cuda'), whose lstm_scan and tt_contract have backward "
+            "kernels"
+        )
 
 
 CHUNKED_THRESHOLD = 2048  # the oracle switches to q-chunked attention here

@@ -8,6 +8,9 @@ holds each kernel against it on the card.  They are ports of
 dtype and casts the result back, as the kernels do.  ``flash_attention``
 is the flash kernel's plain version; ``mha_attention`` and
 ``mha_attention_chunked`` are the oracles the LM's ``ref`` route runs.
+The backward kernels' plain versions (``lstm_scan_bwd``,
+``tt_contract_bwd``) are autograd of the plain forwards, as the
+reference's gradients are ``jax.grad`` of its oracles.
 """
 from __future__ import annotations
 
@@ -53,6 +56,31 @@ def lstm_scan(
     if not outs:
         return torch.empty((bsz, 0, hid), dtype=x.dtype, device=x.device)
     return torch.stack(outs, dim=1).to(x.dtype)
+
+
+def _grad_of(fn, inputs: tuple[torch.Tensor, ...], dout: torch.Tensor):
+    """Gradients of ``fn(*inputs)`` against ``dout``, w.r.t. every input
+    (zeros for an input the output does not reach: mid when K == 0)."""
+    with torch.enable_grad():
+        leaves = tuple(t.detach().requires_grad_() for t in inputs)
+        grads = torch.autograd.grad(fn(*leaves), leaves, dout, allow_unused=True)
+    return tuple(torch.zeros_like(t) if g is None else g for t, g in zip(inputs, grads))
+
+
+def tt_contract_bwd(
+    first: torch.Tensor, mid: torch.Tensor, last: torch.Tensor, dout: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of the ``tt_contract`` backward kernel: autograd of
+    ``tt_contract`` -> (dfirst [B, R], dmid [B, K, R, R], dlast [B, R])."""
+    return _grad_of(tt_contract, (first, mid, last), dout)
+
+
+def lstm_scan_bwd(
+    x: torch.Tensor, wi: torch.Tensor, wh: torch.Tensor, b: torch.Tensor, dhs: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of the ``lstm_scan`` backward kernel: autograd of
+    ``lstm_scan`` against ``dhs`` [B, T, H] -> (dx, dwi, dwh, db)."""
+    return _grad_of(lstm_scan, (x, wi, wh, b), dhs)
 
 
 def nttd_decode_tile(

@@ -75,6 +75,8 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         convert.params_from_numpy({"w": np.zeros(3, np.float32)})
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        codecs.get_codec("nttd").fit(np.zeros((4, 4, 4), np.float32), epochs=1)
     assert codecs.load_bytes(blob, device="cpu").ct.device.type == "cpu"
 
 
@@ -82,6 +84,8 @@ def test_wrappers_raise_when_the_library_cannot_be_built(monkeypatch):
     """A non-CPU request goes to the kernel or raises; it never runs the
     plain version instead."""
     from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import lstm as _lstm
+    from repro_torch.kernels import tt_contract as _tt
 
     monkeypatch.setattr(shutil, "which", lambda name: None)
     monkeypatch.setenv("CUDA_HOME", os.path.join(ROOT, "no-such-cuda"))
@@ -99,12 +103,19 @@ def test_wrappers_raise_when_the_library_cannot_be_built(monkeypatch):
                                     torch.zeros((4, 4), **meta), impl="cuda"),
             lambda: ops.attention(*(torch.zeros((1, 130, 2, 8), **meta) for _ in range(3)),
                                   impl="auto"),
+            lambda: _lstm.lstm_scan_bwd(*(torch.zeros(s, **meta) for s in
+                                          [(4, 3, 8), (8, 32), (8, 32), (32,), (4, 3, 8),
+                                           (4, 3, 8)])),
+            lambda: _tt.tt_contract_bwd(torch.zeros((4, 4), **meta),
+                                        torch.zeros((4, 2, 4, 4), **meta),
+                                        torch.zeros((4, 4), **meta), torch.zeros((4,), **meta)),
         ]
         for call in calls:
             with pytest.raises(RuntimeError, match="cannot build"):
                 call()
         assert ops.launch_counts() == {"decode_tile": 0, "lstm_scan": 0, "tt_contract": 0,
-                                       "flash_attention": 0}
+                                       "flash_attention": 0, "lstm_scan_bwd": 0,
+                                       "tt_contract_bwd": 0}
     finally:
         _build.library.cache_clear()
 

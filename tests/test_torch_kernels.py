@@ -205,8 +205,15 @@ def test_cpu_runs_count_no_launches():
     tops.nttd_decode_tile(tidx, *tws, impl="auto")
     q = torch.zeros((1, 130, 2, 8))
     tops.attention(q, q, q, impl="auto")
+    x = torch.randn((4, 3, 16), requires_grad=True)
+    first = torch.randn((4, 8), requires_grad=True)
+    hs = tops.lstm_scan(x, *(w.detach() for w in tws[1:4]), impl="cuda")
+    (hs.sum() + tops.tt_contract(first, torch.randn((4, 2, 8, 8)), first, impl="cuda").sum()
+     ).backward()
+    assert x.grad is not None and first.grad is not None
     assert tops.launch_counts() == {"decode_tile": 0, "lstm_scan": 0, "tt_contract": 0,
-                                    "flash_attention": 0}
+                                    "flash_attention": 0, "lstm_scan_bwd": 0,
+                                    "tt_contract_bwd": 0}
 
 
 @pytest.mark.parametrize("hid,rank", [(12, 5), (4, 2), (12, 6), (18, 10)])
@@ -555,3 +562,198 @@ def test_lstm_bucket_padding_is_exact(hid):
     assert got.shape == (33, 7, hid + pad)
     _close(got[..., :hid], want, "float32")
     assert not got[..., hid:].any()
+
+
+# ---------------------------------------------------------------------------
+# backward kernels: plain versions against jax.grad, and the kernels' sums
+# ---------------------------------------------------------------------------
+BWD_TOL = dict(rtol=1e-4, atol=1e-6)
+
+
+def _close_all(got, want) -> None:
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and tuple(g.shape) == tuple(np.shape(w))
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **BWD_TOL)
+
+
+def _lstm_bwd_case(b, t, h, seed, width_scaled=False):
+    """x, wi, wh, b as ``_lstm_args`` and a gradient dhs, all f32 numpy.
+    ``width_scaled`` multiplies x, wi and wh by sqrt(16 / H), so that a wide
+    case's gates and gradients stay at H 16's scale (the codec's own
+    embeddings start at N(0, 1 / H)): at unit scale and H 256 the gradients
+    reach ~7, and the two packages' f32 sums in different orders differ by
+    up to 2.6e-6 there, past the 1e-6 atol on the elements near 0."""
+    x, wi, wh, bias = _lstm_args(b, t, h, seed)
+    if width_scaled:
+        x, wi, wh = (a * np.sqrt(16 / h) for a in (x, wi, wh))
+    dhs = np.random.default_rng(seed + 1).normal(size=(b, t, h))
+    return [np.asarray(a, np.float32) for a in (x, wi, wh, bias, dhs)]
+
+
+def _jax_lstm_grads(x, wi, wh, b, dhs):
+    _, vjp = jax.vjp(jref.lstm_scan, *(jnp.asarray(a) for a in (x, wi, wh, b)))
+    return vjp(jnp.asarray(dhs))
+
+
+@pytest.mark.parametrize("b,t,h,scaled", [(9, 6, 5, False), (9, 6, 12, False), (9, 10, 18, False),
+                                          (7, 5, 68, False), (5, 4, 256, True)])
+def test_lstm_scan_bwd_matches_jax_grad(b, t, h, scaled):
+    """ref.lstm_scan_bwd and the wrapper's CPU route against jax.grad of the
+    reference oracle; H 256 with its weights scaled to the width."""
+    from repro_torch.kernels import lstm as tlstm
+
+    arrs = _lstm_bwd_case(b, t, h, seed=h + t, width_scaled=scaled)
+    want = _jax_lstm_grads(*arrs)
+    tx, twi, twh, tb, tdhs = (torch.from_numpy(a) for a in arrs)
+    _close_all(tref.lstm_scan_bwd(tx, twi, twh, tb, tdhs), want)
+    hs = tops.lstm_scan(tx, twi, twh, tb)
+    _close_all(tlstm.lstm_scan_bwd(tx, twi, twh, tb, hs, tdhs), want)
+
+
+def _lstm_bwd_as_kernel(x, wi, wh, b, hs, dhs):
+    """The lstm_scan backward as csrc/lstm_bwd.cu computes it, in plain
+    torch: phase 1 recomputes every step's gates from x_t and the saved
+    h_{t-1} and runs c forward; phase 2 sweeps t backwards (dh = dhs_t +
+    dh_rec, dc carried through f, dG_t, dh_rec = dG_t wh^T); then the
+    wrapper's products over B T."""
+    bsz, t_steps, hid = x.shape
+    h_prev = torch.cat([torch.zeros((bsz, 1, hid)), hs[:, :-1]], dim=1)
+    acts, cs, c = [], [], torch.zeros((bsz, hid))
+    for t in range(t_steps):
+        gates = torch.cat([x[:, t], h_prev[:, t]], dim=1) @ torch.cat([wi, wh]) + b
+        i, f, g, o = gates.split(hid, dim=1)
+        i, f, g, o = torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g), torch.sigmoid(o)
+        c = f * c + i * g
+        acts.append((i, f, g, o))
+        cs.append(c)
+    dg = torch.empty((bsz, t_steps, 4 * hid))
+    dh_rec, dc_carry = torch.zeros((bsz, hid)), torch.zeros((bsz, hid))
+    for t in reversed(range(t_steps)):
+        i, f, g, o = acts[t]
+        c_prev = cs[t - 1] if t else torch.zeros((bsz, hid))
+        dh = dhs[:, t] + dh_rec
+        tc = torch.tanh(cs[t])
+        dc = dc_carry + dh * o * (1 - tc * tc)
+        dc_carry = dc * f
+        dg[:, t] = torch.cat([dc * g * i * (1 - i), dc * c_prev * f * (1 - f),
+                              dc * i * (1 - g * g), dh * tc * o * (1 - o)], dim=1)
+        dh_rec = dg[:, t] @ wh.t().contiguous()  # dG_t . wh^T, as the kernel reads wh^T
+    dg2 = dg.reshape(-1, 4 * hid)
+    return ((dg2 @ wi.t()).view(bsz, t_steps, hid), x.reshape(-1, hid).t() @ dg2,
+            h_prev.reshape(-1, hid).t() @ dg2, dg2.sum(0))
+
+
+@pytest.mark.parametrize("h", [5, 18, 68, 256])
+def test_lstm_bwd_kernel_sums_match_jax_grad(h):
+    """The backward kernel's algorithm (recompute from the saved h, reverse
+    sweep, products over B T) against jax.grad."""
+    arrs = _lstm_bwd_case(6, 5, h, seed=3 * h, width_scaled=h > 64)
+    tx, twi, twh, tb, tdhs = (torch.from_numpy(a) for a in arrs)
+    _close_all(_lstm_bwd_as_kernel(tx, twi, twh, tb, tref.lstm_scan(tx, twi, twh, tb), tdhs),
+               _jax_lstm_grads(*arrs))
+
+
+def _tt_bwd_case(b, k, r, seed):
+    rng = np.random.default_rng(seed)
+    return [np.asarray(a, np.float32) for a in (
+        rng.normal(size=(b, r)), rng.normal(size=(b, k, r, r)) * (0.5 / np.sqrt(r)),
+        rng.normal(size=(b, r)), rng.normal(size=(b,)))]
+
+
+def _jax_tt_grads(first, mid, last, dout):
+    _, vjp = jax.vjp(jref.tt_contract, *(jnp.asarray(a) for a in (first, mid, last)))
+    return vjp(jnp.asarray(dout))
+
+
+@pytest.mark.parametrize("k", [0, 1, 8])
+@pytest.mark.parametrize("r", [1, 6, 10, 34])
+def test_tt_contract_bwd_matches_jax_grad(r, k):
+    """ref.tt_contract_bwd, the wrapper's CPU route and autograd through the
+    dispatcher (K == 0: its row dot) against jax.grad of the oracle."""
+    from repro_torch.kernels import tt_contract as ttt
+
+    arrs = _tt_bwd_case(13, k, r, seed=10 * k + r)
+    want = _jax_tt_grads(*arrs)
+    tf, tm, tl, td = (torch.from_numpy(a) for a in arrs)
+    _close_all(tref.tt_contract_bwd(tf, tm, tl, td), want)
+    _close_all(ttt.tt_contract_bwd(tf, tm, tl, td), want)
+    leaves = [a.clone().requires_grad_() for a in (tf, tm, tl)]
+    torch.autograd.backward(tops.tt_contract(*leaves, impl="cuda"), td)
+    # K == 0: mid (empty) is not reached and keeps no gradient
+    _close_all([torch.zeros_like(a) if a.grad is None else a.grad for a in leaves], want)
+
+
+def _tt_bwd_as_kernel(first, mid, last, dout):
+    """The tt_contract backward as csrc/tt_contract_bwd.cu computes it:
+    every prefix v_0 .. v_K kept, then the suffix u swept from ``last``,
+    dmid_k = g v_{k-1} (x) u_{k+1} and u_k = mid_k u_{k+1} row by row."""
+    k_steps = mid.shape[1]
+    vs = [first]
+    for k in range(k_steps):
+        vs.append(torch.einsum("br,brs->bs", vs[-1], mid[:, k]))
+    g = dout[:, None]
+    dmid = torch.empty_like(mid)
+    u = last
+    for k in reversed(range(k_steps)):
+        dmid[:, k] = g[:, :, None] * vs[k][:, :, None] * u[:, None, :]
+        u = (mid[:, k] * u[:, None, :]).sum(-1)
+    return g * u, dmid, g * vs[k_steps]
+
+
+@pytest.mark.parametrize("b,k,r", [(13, 1, 6), (13, 8, 10), (5, 4, 128)])
+def test_tt_bwd_kernel_sums_match_jax_grad(b, k, r):
+    arrs = _tt_bwd_case(b, k, r, seed=r)
+    tf, tm, tl, td = (torch.from_numpy(a) for a in arrs)
+    _close_all(_tt_bwd_as_kernel(tf, tm, tl, td), _jax_tt_grads(*arrs))
+
+
+def test_tt_contract_bwd_wide_matches_jax_grad():
+    """The widest chain the budget rule reaches, R 128."""
+    arrs = _tt_bwd_case(5, 4, 128, seed=128)
+    _close_all(tref.tt_contract_bwd(*(torch.from_numpy(a) for a in arrs)), _jax_tt_grads(*arrs))
+
+
+def _meta(*shape, dtype=torch.float32):
+    return torch.zeros(shape, dtype=dtype, device="meta")
+
+
+@pytest.mark.parametrize("dtype,hid,match", [
+    (torch.bfloat16, 16, "float32 only"), (torch.float16, 16, "float32 only"),
+    (torch.float32, 257, "hidden 257 outside 1..256"), (torch.float32, 1304, "outside 1..256"),
+])
+def test_lstm_scan_bwd_wrapper_limits(dtype, hid, match):
+    """The backward kernel's wrapper refuses what the kernel does not take
+    before it builds or launches anything (meta tensors: no card)."""
+    from repro_torch.kernels import lstm as tlstm
+
+    args = [_meta(4, 3, hid, dtype=dtype), _meta(hid, 4 * hid, dtype=dtype),
+            _meta(hid, 4 * hid, dtype=dtype), _meta(4 * hid, dtype=dtype),
+            _meta(4, 3, hid, dtype=dtype), _meta(4, 3, hid, dtype=dtype)]
+    with pytest.raises(ValueError, match=match):
+        tlstm.lstm_scan_bwd(*args)
+
+
+@pytest.mark.parametrize("dtype,rank,k,match", [
+    (torch.bfloat16, 8, 2, "float32 only"), (torch.float32, 129, 2, "rank 129 outside 1..128"),
+    (torch.float32, 8, 0, "K >= 1"),
+])
+def test_tt_contract_bwd_wrapper_limits(dtype, rank, k, match):
+    from repro_torch.kernels import tt_contract as ttt
+
+    args = [_meta(4, rank, dtype=dtype), _meta(4, k, rank, rank, dtype=dtype),
+            _meta(4, rank, dtype=dtype), _meta(4, dtype=dtype)]
+    with pytest.raises(ValueError, match=match):
+        ttt.tt_contract_bwd(*args)
+
+
+@pytest.mark.parametrize("hid,tile", [(5, 100), (12, 40), (18, 28), (68, 4), (128, 4),
+                                      (256, 4)])
+def test_lstm_bwd_tile(hid, tile):
+    """Sequences a backward block owns: 4 an item, about one item a thread
+    of 128; its shared memory (6 H rows of tile + 4 floats) fits a block."""
+    from repro_torch.kernels import lstm as tlstm
+    from repro_torch.kernels._common import MAX_SMEM_BYTES
+
+    assert tlstm.bwd_tile(hid) == tile
+    assert 4 * 6 * hid * (tile + 4) <= MAX_SMEM_BYTES

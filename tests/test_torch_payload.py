@@ -142,7 +142,7 @@ def test_other_codecs_not_registered():
     with pytest.raises(ValueError, match="unknown codec id 'ttd'"):
         tcodecs.load_bytes(_read(os.path.join(GOLDEN, "v3_mono.tcdc")), device="cpu")
     with pytest.raises(NotImplementedError):
-        tcodecs.get_codec("nttd").fit(np.zeros((2, 2, 2)))
+        tcodecs.get_codec("nttd").stream_fitter((2, 2, 2))
 
 
 def test_corrupt_containers_raise(fitted):
