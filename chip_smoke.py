@@ -60,8 +60,9 @@ Phases, each printing JSON lines:
    evaluation than 4x the plain version's (a weight's gradient sums B T
    rows, which near 0 no two f32 summation orders hold to 1e-5); then once
    through autograd, where the Functions' backward passes must be the
-   kernels.  The device phase prints their ptxas rows
-   (``device.bwd``).
+   kernels.  The device phase prints their ptxas rows and the
+   ``lstm_scan`` backward's plan at each case (``device.bwd``); that kernel
+   must not spill.
 3. golden: ``tests/golden/v2_nttd.bin`` decoded on the card against
    ``tests/golden/expected.npz`` (rtol 1e-5, atol 1e-6), and the chunked
    NTTD payload ``benchmarks/results/fig5_stream_payload.tcdc`` decoded
@@ -134,9 +135,12 @@ Phases, each printing JSON lines:
    one profiler session also requires that a call at H 68 runs the simt
    kernel alone.  The two backward kernels are timed at the MEDIUM fit
    shape (B 8192, T 10, H 18, R 10, K 8): the whole backward call a step
-   makes (for ``lstm_scan`` also the kernel alone), the plain version and,
-   for ``lstm_scan``, cuDNN ``nn.LSTM``'s backward; a ``timing.fit_step``
-   line sets the four kernels of a step beside the fit's seconds a step.
+   makes (for ``lstm_scan`` also the kernel alone, dx and G, with its own
+   bound, its plan, and the device operations of one call from the same
+   profiler session as the forward rows', which must hold the backward
+   kernel once), the plain version and, for ``lstm_scan``, cuDNN
+   ``nn.LSTM``'s backward; a ``timing.fit_step`` line sets the four kernels
+   of a step beside the fit's seconds a step.
    Every forward row also carries its launches on the fit path
    (``launches_fit``).
 
@@ -307,15 +311,19 @@ def flash_bf16p_control(torch, q, k, v):
     return (out / p.sum(-1).permute(0, 2, 1)[..., None]).to(q.dtype)
 
 
-def device_kernels(torch, fns) -> list[str]:
-    """Names of the device kernels and copies that the calls ``fns`` run,
-    in the order the device ran them, from one ``torch.profiler`` session.
+def device_kernels(torch, fns, times: bool = False) -> list[list]:
+    """Names of the device kernels and copies that each of the calls
+    ``fns`` runs, in the order the device ran them, from one
+    ``torch.profiler`` session: one list a call (with ``times``, (name,
+    device microseconds) pairs).
 
     One session serves every call: a second session in one process has
     been seen to return no device events.  Each call is synchronised and
     framed by ``PROFILE_PAD_S`` of idle host time, so that a kernel whose
     device timestamp maps a little off the host clock stays inside the
-    capture window."""
+    capture window, and the calls' events are told apart by those gaps
+    (a call's own operations follow each other within microseconds).
+    Fails unless there are as many groups as calls."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -325,8 +333,17 @@ def device_kernels(torch, fns) -> list[str]:
             fn()
             torch.cuda.synchronize()
         time.sleep(PROFILE_PAD_S)
-    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    return [e.name for e in sorted(events, key=lambda e: e.time_range.start)]
+    events = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    groups, last = [], None
+    for e in events:
+        if last is None or e.time_range.start - last > PROFILE_PAD_S * 1e6 / 2:
+            groups.append([])
+        groups[-1].append((e.name, e.time_range.elapsed_us()) if times else e.name)
+        last = e.time_range.end
+    require(len(groups) == len(fns),
+            f"{len(fns)} profiled calls ran {len(groups)} groups of device operations: {groups}")
+    return groups
 
 
 def bound(n_ops: int, n_bytes: int, peak_ops: float) -> dict:
@@ -620,14 +637,21 @@ def phase_device(torch):
     require(len(simt) == 2 and all(r["spill_store_bytes"] == r["spill_load_bytes"] == 0
                                    for r in simt),
             f"the simt lstm_scan body spills: {simt}")
-    # the backward kernels: their resources, and the lstm backward's tile of
-    # sequences at the widths it is held at
+    # the backward kernels: their resources, and the lstm backward's plan
+    # (where the weights are read from, tile of sequences, threads, shared
+    # memory) at the shapes it is held at; the lstm backward must not spill
     from repro_torch.kernels import lstm as _lstm
 
     bwd = [r for r in resources if "_bwd_kernel" in r["kernel"]]
     emit({"phase": "device.bwd", "ptxas": bwd,
-          "lstm_bwd_tiles": {h: _lstm.bwd_tile(h) for _, _, h in BWD_LSTM_CASES}})
-    require(len(bwd) == 2, f"ptxas reports {len(bwd)} backward kernels, expected 2: {bwd}")
+          "lstm_bwd_plans": [dataclasses.asdict(_lstm.bwd_plan(h, b))
+                             for b, _, h in BWD_LSTM_CASES]})
+    require(len(bwd) == 4,
+            f"ptxas reports {len(bwd)} backward kernels, expected 4 (the lstm_scan backward's "
+            f"three plans, tt_contract's): {bwd}")
+    require(all(r["spill_store_bytes"] == r["spill_load_bytes"] == 0 for r in bwd
+                if "lstm_scan_bwd_kernel" in r["kernel"]),
+            f"the lstm_scan backward kernel spills: {bwd}")
     sass = sass_hgmma(path)
     if sass["tool"]:
         wgmma = {k: n for k, n in sass["hgmma"].items() if "flash_attention_wgmma" in k}
@@ -1106,11 +1130,13 @@ def flash_timing_row(torch, device, launches, errs):
     }
 
 
-def phase_timing(torch, device, enc, idx_np, launches, errs, simt_lstm):
+def phase_timing(torch, device, enc, idx_np, launches, errs, simt_lstm, bwd_call):
     """Kernel, plain and library times at the main path's shapes.
     ``simt_lstm`` is (the ``lstm_scan_simt`` row, a call of that kernel at
     the wide shape): the call is profiled with the main path's, and the row
-    gains the device kernels it ran."""
+    gains the device kernels it ran.  ``bwd_call`` is one ``lstm_scan_bwd``
+    call at the fit shape, profiled in the same session.  Returns the rows
+    and the device operations of the backward call."""
     from repro_torch.core import nttd
     from repro_torch.kernels import decode_tile as _decode_tile
     from repro_torch.kernels import lstm as _lstm
@@ -1187,23 +1213,26 @@ def phase_timing(torch, device, enc, idx_np, launches, errs, simt_lstm):
     # alone; and lstm_scan's body, bucket and load route
     lstm_call, tt_call = rows[1][3], rows[2][3]
     simt_row, simt_call = simt_lstm
-    seen = device_kernels(torch, (lstm_call, tt_call, simt_call))
-    require(len(seen) == 3 and "lstm_scan_register_kernel" in seen[0]
-            and "tt_contract_kernel" in seen[1] and "lstm_scan_simt_kernel" in seen[2],
-            f"an lstm_scan call, a tt_contract call and a wide lstm_scan call ran {seen}, "
+    seen = device_kernels(torch, (lstm_call, tt_call, simt_call, bwd_call))
+    require(all(len(call) == 1 for call in seen[:3])
+            and "lstm_scan_register_kernel" in seen[0][0] and "tt_contract_kernel" in seen[1][0]
+            and "lstm_scan_simt_kernel" in seen[2][0],
+            f"an lstm_scan call, a tt_contract call and a wide lstm_scan call ran {seen[:3]}, "
             "not the register kernel, the tt_contract kernel and the simt kernel alone")
-    simt_row["device_ops_per_call"] = seen[2:]
+    require(sum("lstm_scan_bwd_kernel" in name for name in seen[3]) == 1,
+            f"an lstm_scan_bwd call ran {seen[3]}, not the backward kernel once")
+    simt_row["device_ops_per_call"] = seen[2]
     kernels[1].update(body=_lstm.lstm_body(h), bucket=_lstm.bucket_for(h),
                       loads="vector" if _lstm.vector_rows(x, lstm_call()) else "scalar",
-                      device_ops_per_call=seen[:1])
+                      device_ops_per_call=seen[0])
     # tt_contract: its body and the same shape in bf16 against its own
     # byte bound
     bf = [a.to(torch.bfloat16) for a in (first, mids, last)]
     kernels[2].update(body="lane_group", lanes_per_entry=_tt.lanes_per_entry(r),
-                      device_ops_per_call=seen[1:2],
+                      device_ops_per_call=seen[1],
                       ms_bf16=time_ms(torch, lambda: ops.tt_contract(*bf, impl="cuda"), 20),
                       bound_ms_bf16=bound(ops_t, tt_bytes(b, t - 2, r, 2), PEAK_FP32)["bound_ms"])
-    return kernels
+    return kernels, seen[3]
 
 
 def decode_simt_timing(torch, device, launches, errs):
@@ -1397,16 +1426,22 @@ def lstm_f64_bwd(torch, x, wi, wh, b, dhs):
 
 def lstm_bwd_cost(b: int, t: int, h: int) -> tuple[int, int]:
     """(FLOP, bytes) of the whole ``lstm_scan`` backward: per entry and step
-    16 H^2 to recompute the gates, 8 H^2 for dG wh^T and 24 H^2 for dx, dwi
-    and dwh; x, hs, dhs and the weights read once, dx and the weights'
-    gradients written once."""
+    16 H^2 to recompute the gates, 16 H^2 for [dx | dh] = dG [wi; wh]^T and
+    16 H^2 for dwi and dwh; x, hs, dhs and the weights read once, dx and
+    the weights' gradients written once."""
     return b * t * 48 * h * h, (4 * b * t * h + 16 * h * h + 8 * h) * 4
 
 
 def lstm_bwd_kernel_cost(b: int, t: int, h: int) -> tuple[int, int]:
-    """(FLOP, bytes) of the backward kernel alone: the gates recomputed and
-    dG wh^T; x, hs, dhs and the weights read, dG [B, T, 4H] written."""
-    return b * t * 24 * h * h, (7 * b * t * h + 8 * h * h + 4 * h) * 4
+    """(FLOP, bytes) of the backward kernel alone: per entry and step the
+    gates once (16 H^2) and [dx | dh] = dG [wi; wh]^T (16 H^2), the least
+    work (the narrow plan recomputes the gates in its reverse sweep,
+    which this does not count); x, hs, dhs and the weights read, dx [B, T,
+    H] and G [B T, 4H] written.  The kernel also writes A [B T, 2H + 1],
+    a copy of x and hs for the weight gradients' one product: the design's
+    overhead, which the function does not need and the bound does not
+    count."""
+    return b * t * 32 * h * h, (b * t * 8 * h + 8 * h * h + 4 * h) * 4
 
 
 def tt_bwd_cost(b: int, k: int, r: int) -> tuple[int, int]:
@@ -1470,7 +1505,8 @@ def phase_kernels_bwd(torch, device):
         require(all(k <= 4 * p + BWD_ATOL for k, p in vs_f64),
                 f"lstm_scan_bwd at H {h}: (kernel, plain) errors against f64 {vs_f64}")
         names = ("dx", "dwi", "dwh", "db")
-        lstm_cases.append({"B": b, "T": t, "H": h, "tile": _lstm.bwd_tile(h),
+        plan = _lstm.bwd_plan(h, b)
+        lstm_cases.append({"B": b, "T": t, "H": h, "tile": plan.tile, "kind": plan.kind,
                            "max_abs_err": dict(zip(names, err)),
                            "largest": dict(zip(names, (float(p.abs().max()) for p in plain))),
                            "kernel_plain_vs_f64": dict(zip(names, vs_f64)),
@@ -1679,29 +1715,47 @@ def phase_fit_parity(torch, device):
           "seconds_auto": kern_s, "seconds_ref": plain_s, "launches_auto": launches})
 
 
-def bwd_timing(torch, device, fit_launches, errs, step_s):
+FIT_STEP_SHAPE = (8192, 10, 18, 10)  # B, T (PEMS-SF's d'), H, R of the MEDIUM fit
+
+
+def fit_step_operands(torch, device):
+    """The backward kernels' operands at the MEDIUM fit shape: the
+    lstm_scan backward's (x, (wi, wh, b), hs, dhs), hs from the forward
+    kernel as training saves it, and the tt_contract backward's (first,
+    mid, last, dout) at K = T - 2."""
+    from repro_torch.kernels import ops
+
+    b, t, h, r = FIT_STEP_SHAPE
+    gen = torch.Generator().manual_seed(SEED)
+    x, lw, dhs = lstm_bwd_inputs(torch, gen, b, t, h, device)
+    hs = ops.lstm_scan(x, *lw, impl="cuda")
+    return (x, lw, hs, dhs), tt_bwd_inputs(torch, gen, b, t - 2, r, device)
+
+
+def bwd_timing(torch, device, fit_launches, errs, step_s, operands, bwd_ops):
     """The two backward kernels at the MEDIUM fit shape (B 8192, T 10 (PEMS-
-    SF's d'), H 18, R 10, K 8): the whole backward call a training step
-    makes, the kernel alone where the call adds products, the plain
-    version and, for ``lstm_scan``, cuDNN's backward, with CUDA events like
-    every row.  A ``timing.fit_step`` line sets the four kernels of a step
-    beside the fit phase's seconds a step.  Returns the two rows."""
+    SF's d'), H 18, R 10, K 8; ``operands`` from ``fit_step_operands``): the
+    whole backward call a training step makes, the kernel alone where the
+    call adds products, the plain version and, for ``lstm_scan``, cuDNN's
+    backward, with CUDA events like every row; the ``lstm_scan`` row also
+    names its plan and the device operations of one call (``bwd_ops``, from
+    ``phase_timing``'s profiler session).  A ``timing.fit_step`` line sets
+    the four kernels of a step beside the fit phase's seconds a step.
+    Returns the two rows."""
     from repro_torch.kernels import lstm as _lstm
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import tt_contract as _tt
 
-    b, t, h, r = 8192, 10, 18, 10
+    b, t, h, r = FIT_STEP_SHAPE
     k = t - 2
-    gen = torch.Generator().manual_seed(SEED)
-    x, lw, dhs = lstm_bwd_inputs(torch, gen, b, t, h, device)
-    hs = ops.lstm_scan(x, *lw, impl="cuda")
-    first, mid, last, dout = tt_bwd_inputs(torch, gen, b, k, r, device)
+    (x, lw, hs, dhs), (first, mid, last, dout) = operands
     lib_run, lib_grads = cudnn_lstm_backward(torch, x, *lw, dhs)
     plain_grads = ref.lstm_scan_bwd(x, *lw, dhs)
     lib_err = max(float((g - w).abs().max()) for g, w in zip(lib_grads(), plain_grads))
     rows = []
     n_ops, n_bytes = lstm_bwd_cost(b, t, h)
     k_ops, k_bytes = lstm_bwd_kernel_cost(b, t, h)
+    kernel_bound = bound(k_ops, k_bytes, PEAK_FP32)
     rows.append({
         "name": "lstm_scan_bwd", "route": "cuda", "source": SOURCES["lstm_scan_bwd"][0],
         "replaces": SOURCES["lstm_scan_bwd"][1], "launches": fit_launches["lstm_scan_bwd"],
@@ -1713,11 +1767,13 @@ def bwd_timing(torch, device, fit_launches, errs, step_s):
         "library": "cuDNN torch.nn.LSTM backward: autograd.grad of a kept forward graph, "
                    "dx and every weight", "library_max_abs_err": lib_err,
         "kernel_ms": time_ms(torch, lambda: _lstm.bwd_gates(x, *lw, hs, dhs), 20),
-        "kernel_bound_ms": bound(k_ops, k_bytes, PEAK_FP32)["bound_ms"],
-        "tile": _lstm.bwd_tile(h), "shape": {"B": b, "T": t, "H": h},
-        "ops": n_ops, "bytes": n_bytes,
-        "note": "ms: the wrapper (kernel, then dx, dwi, dwh, db as matmuls); kernel_ms: the "
-                "kernel alone (dG); plain_ms: autograd of the plain forward, forward included",
+        "kernel_bound_ms": kernel_bound["bound_ms"], "kernel_bound_by": kernel_bound["bound_by"],
+        "kernel_ops": k_ops, "kernel_bytes": k_bytes,
+        "plan": dataclasses.asdict(_lstm.bwd_plan(h, b)), "device_ops_per_call": bwd_ops,
+        "shape": {"B": b, "T": t, "H": h}, "ops": n_ops, "bytes": n_bytes,
+        "note": "ms: the wrapper (the kernel: dx, G and A; then [dwi; dwh; db] = A^T G, one "
+                "matmul); kernel_ms: the kernel alone; plain_ms: autograd of the plain forward, "
+                "forward included",
     })
     n_ops, n_bytes = tt_bwd_cost(b, k, r)
     rows.append({
@@ -1775,13 +1831,18 @@ def main() -> int:
         phase_fit_parity(torch, device)
         serve_launches = phase_serve(torch, device)
         simt_lstm = lstm_simt_timing(torch, device, lstm_simt_launches, errs)
-        kernels = phase_timing(torch, device, enc, idx, launches, errs, simt_lstm)
+        from repro_torch.kernels import lstm as _lstm
+
+        fit_ops = fit_step_operands(torch, device)
+        (x, lw, hs, dhs), _ = fit_ops
+        kernels, bwd_ops = phase_timing(torch, device, enc, idx, launches, errs, simt_lstm,
+                                        lambda: _lstm.lstm_scan_bwd(x, *lw, hs, dhs))
         for row in kernels:  # the forward kernels' launches on the fit path too
             row["launches_fit"] = fit_launches[row["name"]]
         kernels.append(decode_simt_timing(torch, device, simt_launches, errs))
         kernels.append(simt_lstm[0])
         kernels.append(flash_timing_row(torch, device, serve_launches, errs))
-        kernels.extend(bwd_timing(torch, device, fit_launches, errs, step_s))
+        kernels.extend(bwd_timing(torch, device, fit_launches, errs, step_s, fit_ops, bwd_ops))
         torch.cuda.synchronize()
         emit({"kernels": kernels})
     except Exception:  # any failed phase fails the run, with its traceback

@@ -52,8 +52,9 @@ _SIGNATURES = {
     "repro_lstm_scan": [_P] * 5 + [_L, _I, _I, _I, _I, _P],
     # x, wi, wh, b, out, B, T, H, bucket, vec, dtype, stream
     "repro_lstm_scan_register": [_P] * 5 + [_L, _I, _I, _I, _I, _I, _P],
-    # x, wi, wh, b, hs, dhs, wh^T, dG, c scratch, B, T, H, tile, stream (f32)
-    "repro_lstm_scan_bwd": [_P] * 9 + [_L, _I, _I, _I, _P],
+    # x, wi, wh, unit-major weights, b, hs, dhs, dx, G, A, scratch, B, T, H,
+    # tile, threads, kind, stream (f32)
+    "repro_lstm_scan_bwd": [_P] * 11 + [_L, _I, _I, _I, _I, _I, _P],
     # first, mid, last, out, B, K, R, lanes per entry, dtype, stream
     "repro_tt_contract": [_P] * 4 + [_L, _I, _I, _I, _I, _P],
     # first, mid, last, dout, dfirst, dmid, dlast, B, K, R, lanes per entry, stream (f32)

@@ -15,14 +15,18 @@ wider LSTMs: a block owns a tile of sequences (``simt_tile``) for all T
 steps, keeps their state in shared memory and runs each step as one FP32
 product over the tile, the weights streamed through shared memory once a
 block, as the fused decode's simt body does.  The backward takes f32 and
-H <= ``MAX_BWD_HIDDEN`` in one body: a block owns ``bwd_tile(H)``
-sequences, recomputes the gates from the saved hidden states and sweeps
-the steps backwards, writing the gates' gradient dG; dx, dwi, dwh and db
-are plain matrix products of dG over B T.  ``launches`` counts forward
+H <= ``MAX_BWD_HIDDEN`` in one kernel with three plans by shape
+(``bwd_plan``): a block owns ``bwd_tile(H, B)`` sequences, runs the gates
+forward from the saved hidden states as register-tiled products over the
+tile, then sweeps the steps backwards and writes dx, the gates' gradient
+G and the operand rows A = [x_t | h_{t-1} | 1]; dwi, dwh and db are one
+batched matrix product A^T G over B T (``weight_grads``).  ``launches`` counts forward
 launches of either body, ``simt_launches`` those of the simt body,
 ``bwd_launches`` backward launches; nothing else counts.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -45,10 +49,25 @@ launches = 0
 simt_launches = 0
 bwd_launches = 0
 # the backward kernel (csrc/lstm_bwd.cu): its widest LSTM (the budget
-# rule's hidden = 2 rank reaches 256), threads a block and sequences an item
+# rule's hidden = 2 rank reaches 256); its plans, by where the weights are
+# read from (``LstmBwdKind``), with the sequences of a thread's tile, the
+# threads of a block at most and the floats a thread keeps of every step
+# (c; c and the four gates)
 MAX_BWD_HIDDEN = 256
-BWD_THREADS = 128
-BWD_SEQS = 4
+BWD_KINDS = ("narrow", "mid", "wide")
+BWD_SEQS = {"narrow": 4, "mid": 8, "wide": 8}
+BWD_THREADS = {"narrow": 128, "mid": 384, "wide": 256}
+BWD_KEPT = {"narrow": 4, "mid": 40, "wide": 40}
+# [wi; wh] in shared memory for the whole kernel: the narrow plan up to 64
+# KB (H <= 45), the mid plan up to 160 KB (H <= 71), one block a SM
+BWD_NARROW_BYTES = 65_536
+BWD_MID_BYTES = 163_840
+# the H100's SMs, which the mid plan's tile fills in whole waves
+H100_SMS = 132
+# rows of a chunk of the weight gradients' product: A and G are padded to a
+# whole number of chunks (``bwd_rows``), each chunk's A^T G is one batched
+# product and the chunks are summed
+BWD_CHUNK = 256
 
 
 def bucket_for(hid: int) -> int:
@@ -159,10 +178,81 @@ def lstm_scan(
     return _LstmScan.apply(x, wi, wh, b)
 
 
-def bwd_tile(hid: int) -> int:
-    """Sequences a backward block owns: ``BWD_SEQS`` per work item and
-    about one item (a hidden unit of ``BWD_SEQS`` sequences) a thread."""
-    return BWD_SEQS * max(1, BWD_THREADS // hid)
+def bwd_row_stride(hid: int) -> int:
+    """Floats of a row of the backward's unit-major weights: 4 a unit, an
+    odd number of units (``lstm_bwd_row_stride``)."""
+    return 4 * (hid | 1)
+
+
+def bwd_kind(hid: int) -> str:
+    """The backward's plan at hidden ``hid``, by the bytes of [wi; wh]
+    unit-major (2H rows of ``bwd_row_stride(H)`` floats): "narrow" up to
+    ``BWD_NARROW_BYTES`` (H <= 45), "mid" up to ``BWD_MID_BYTES`` (H <=
+    71), else "wide"."""
+    size = 2 * hid * bwd_row_stride(hid) * 4
+    return "narrow" if size <= BWD_NARROW_BYTES else "mid" if size <= BWD_MID_BYTES else "wide"
+
+
+def bwd_tile(hid: int, bsz: int = 8192, sms: int = H100_SMS) -> int:
+    """Sequences a backward block owns: S G, a thread owning one unit of S
+    sequences.  Narrow: S 4 and G = max(1, 64 // H), blocks of about two
+    warps; at B 8192 and H 18, 683 blocks of 12 sequences and 64 threads,
+    5.2 a SM, each with 17.4 KB of shared memory and at most 128 registers
+    a thread, so eight fit a SM and every block runs at once.
+    Mid: S 8 and one block a SM (its weights take most of the SM's shared
+    memory), so G is sized to the batch: the fewest waves of ``sms``
+    blocks that G up to its most (384 threads and the shared memory left
+    beside the weights) allows, then the smallest G filling them: at B
+    4096 and H 68, G 4, 128 blocks.  Wide: S 8, G 1 (each block reads the
+    weights through the L1 cache once a product)."""
+    kind = bwd_kind(hid)
+    if kind == "narrow":
+        return 4 * max(1, 64 // hid)
+    if kind == "wide":
+        return 8
+    room = MAX_SMEM_BYTES // 4 - 2 * hid * bwd_row_stride(hid)
+    most = max(1, min(BWD_THREADS["mid"] // hid, room // (8 * hid) // 8))
+    waves = max(1, -(-bsz // (8 * most * sms)))
+    return 8 * max(1, min(most, -(-bsz // (8 * sms * waves))))
+
+
+def bwd_rows(bsz: int, t_steps: int) -> int:
+    """Rows of the kernel's A and G: B T rounded up to whole ``BWD_CHUNK``s
+    (the pad rows are zero)."""
+    return -(-bsz * t_steps // BWD_CHUNK) * BWD_CHUNK
+
+
+@dataclasses.dataclass(frozen=True)
+class BwdPlan:
+    """A backward block (``LstmBwdPlan`` in ``csrc/lstm_bwd.cu``): its plan
+    (``bwd_kind``), tile of sequences and threads, and its shared memory in
+    bytes."""
+    hid: int
+    kind: str
+    tile: int
+    threads: int
+    smem_bytes: int
+
+    def blocks(self, bsz: int) -> int:
+        return -(-bsz // self.tile)
+
+    def scratch_floats(self, bsz: int, t_steps: int) -> int:
+        """Floats of the scratch: what a thread keeps of every step
+        (``BWD_KEPT``), for every thread of every block."""
+        return self.blocks(bsz) * t_steps * self.threads * BWD_KEPT[self.kind]
+
+
+def bwd_plan(hid: int, bsz: int = 8192, sms: int = H100_SMS) -> BwdPlan:
+    """The backward's block at (H, B).  Shared memory holds x_t | h_{t-1}
+    (two buffers) and dG_t, 8 H TB floats, and the narrow and mid plans'
+    weights; it does not depend on T.  What a thread keeps of every step
+    goes to the scratch (``scratch_floats``): c, 4 floats a thread and step
+    (narrow), or c and the gates, 40 (mid, wide)."""
+    kind = bwd_kind(hid)
+    tile = bwd_tile(hid, bsz, sms)
+    threads = -(-(tile // BWD_SEQS[kind]) * hid // 32) * 32
+    floats = 8 * hid * tile + (2 * hid * bwd_row_stride(hid) if kind != "wide" else 0)
+    return BwdPlan(hid, kind, tile, threads, 4 * floats)
 
 
 def check_bwd(dtype: torch.dtype, hid: int) -> None:
@@ -180,25 +270,49 @@ def lstm_scan_bwd(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dx, dwi, dwh, db) of ``lstm_scan`` against ``dhs`` [B, T, H], given
     the forward's hidden states ``hs``.  On CUDA tensors the backward
-    kernel writes the gates' gradient dG [B, T, 4H] (``bwd_gates``: the
-    recurrence), then dx = dG wi^T, dwi = x^T dG, dwh = h_prev^T dG and db =
-    sum dG are matrix products over B T; on CPU tensors the plain version
+    kernel writes dx, the gates' gradient G and the operand rows A
+    (``bwd_gates``: the recurrence), then dwi, dwh and db are one matrix
+    product over B T (``weight_grads``); on CPU tensors the plain version
     (``hs`` unused)."""
     if x.device.type == "cpu":
         return ref.lstm_scan_bwd(x, wi, wh, b, dhs)
-    bsz, t_steps, hid = x.shape
-    dg = bwd_gates(x, wi, wh, b, hs, dhs).view(bsz * t_steps, 4 * hid)
-    h_prev = torch.cat([hs.new_zeros((bsz, 1, hid)), hs[:, :-1]], dim=1)
-    return ((dg @ wi.t()).view(bsz, t_steps, hid), x.reshape(-1, hid).t() @ dg,
-            h_prev.reshape(-1, hid).t() @ dg, dg.sum(0))
+    dx, g, a = bwd_gates(x, wi, wh, b, hs, dhs)
+    return (dx, *weight_grads(a, g))
+
+
+def weight_grads(
+    a: torch.Tensor, g: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dwi, dwh, db) from the kernel's A [R, 2H + 1], row b T + t = [x[b, t]
+    | h_{t-1} | 1] (h_{-1} = 0), and G [R, 4H], row b T + t = dG[b, t], R =
+    ``bwd_rows`` (the pad rows zero): A^T G stacks x^T dG, h_prev^T dG and
+    sum dG.  It is summed in chunks of ``BWD_CHUNK`` rows, one batched
+    product, then over the chunks, so that no sum runs sequentially over all
+    B T rows (db, the ones column's sum, would lose accuracy)."""
+    hid = g.shape[1] // 4
+    n = a.shape[0] // BWD_CHUNK
+    w = torch.bmm(a.view(n, BWD_CHUNK, 2 * hid + 1).transpose(1, 2),
+                  g.view(n, BWD_CHUNK, 4 * hid)).sum(0)
+    return w[:hid], w[hid:2 * hid], w[2 * hid]
+
+
+def bwd_weights(wi: torch.Tensor, wh: torch.Tensor) -> torch.Tensor:
+    """[wi; wh] unit-major for a wide plan: [2H, 4 (H | 1)], gate g of unit u
+    of row k at [k, 4 u + g] (the pad unit is never read)."""
+    hid = wi.shape[0]
+    out = torch.empty((2, hid, bwd_row_stride(hid) // 4, 4), dtype=wi.dtype, device=wi.device)
+    out[:, :, :hid] = torch.stack((wi, wh)).view(2, hid, 4, hid).transpose(2, 3)
+    return out.view(2 * hid, bwd_row_stride(hid))
 
 
 def bwd_gates(
     x: torch.Tensor, wi: torch.Tensor, wh: torch.Tensor, b: torch.Tensor, hs: torch.Tensor,
     dhs: torch.Tensor,
-) -> torch.Tensor:
-    """One launch of the backward kernel on CUDA tensors: dG [B, T, 4H], the
-    gradient of every step's gate pre-activations (i, f, g, o)."""
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One launch of the backward kernel on CUDA tensors: dx [B, T, H], G [R,
+    4H], the gradient of every step's gate pre-activations (i, f, g, o), and
+    A [R, 2H + 1], every step's [x_t | h_{t-1} | 1], their rows past B T
+    zero (R = ``bwd_rows``)."""
     global bwd_launches
     bsz, t_steps, hid = x.shape
     check_bwd(x.dtype, hid)
@@ -214,17 +328,26 @@ def bwd_gates(
     check_shape("lstm_scan_bwd", "dhs", dhs, (bsz, t_steps, hid))
     if bsz >= 2**31:
         raise ValueError(f"lstm_scan_bwd: {bsz} sequences exceed the kernel's 2**31 - 1")
-    dg = torch.empty((bsz, t_steps, 4 * hid), dtype=torch.float32, device=device)
-    if bsz == 0 or t_steps == 0:
-        return dg
-    cbuf = torch.empty_like(x)  # c of every step, the kernel's scratch
-    wht = wh.t().contiguous()   # read coalesced along the units by dh_rec = dG wh^T
+    dx = torch.empty_like(x)
+    rows, bt = bwd_rows(bsz, t_steps), bsz * t_steps
+    g = torch.empty((rows, 4 * hid), dtype=torch.float32, device=device)
+    a = torch.empty((rows, 2 * hid + 1), dtype=torch.float32, device=device)
+    if rows > bt:
+        g[bt:].zero_()
+        a[bt:].zero_()
+    if bt == 0:
+        return dx, g, a
+    plan = bwd_plan(hid, bsz, torch.cuda.get_device_properties(device).multi_processor_count)
+    scratch = torch.empty((plan.scratch_floats(bsz, t_steps),), dtype=torch.float32,
+                          device=device)
+    wt = bwd_weights(wi, wh) if plan.kind == "wide" else None
     with torch.cuda.device(device):
         err = lib.repro_lstm_scan_bwd(
-            x.data_ptr(), wi.data_ptr(), wh.data_ptr(), b.data_ptr(), hs.data_ptr(),
-            dhs.data_ptr(), wht.data_ptr(), dg.data_ptr(), cbuf.data_ptr(), bsz, t_steps, hid,
-            bwd_tile(hid), torch.cuda.current_stream(device).cuda_stream,
+            x.data_ptr(), wi.data_ptr(), wh.data_ptr(), None if wt is None else wt.data_ptr(),
+            b.data_ptr(), hs.data_ptr(), dhs.data_ptr(), dx.data_ptr(), g.data_ptr(),
+            a.data_ptr(), scratch.data_ptr(), bsz, t_steps, hid, plan.tile, plan.threads,
+            BWD_KINDS.index(plan.kind), torch.cuda.current_stream(device).cuda_stream,
         )
     _build.check(lib, "lstm_scan_bwd", err)
     bwd_launches += 1
-    return dg
+    return dx, g, a

@@ -613,35 +613,43 @@ def test_lstm_scan_bwd_matches_jax_grad(b, t, h, scaled):
 
 def _lstm_bwd_as_kernel(x, wi, wh, b, hs, dhs):
     """The lstm_scan backward as csrc/lstm_bwd.cu computes it, in plain
-    torch: phase 1 recomputes every step's gates from x_t and the saved
-    h_{t-1} and runs c forward; phase 2 sweeps t backwards (dh = dhs_t +
-    dh_rec, dc carried through f, dG_t, dh_rec = dG_t wh^T); then the
-    wrapper's products over B T."""
+    torch: the forward sweep runs every step's gates from x_t and the saved
+    h_{t-1}, keeps c (and the gates) of every step and writes the operand
+    rows A = [x_t | h_{t-1} | 1]; the reverse sweep forms dG_t (dh = dhs_t +
+    dh_rec, dc carried through f) into G and runs [dx_t | dh_rec] = dG_t
+    [wi; wh]^T as one product; the weight gradients are the wrapper's own
+    product A^T G over B T (``lstm.weight_grads``)."""
+    from repro_torch.kernels import lstm as tlstm
+
     bsz, t_steps, hid = x.shape
-    h_prev = torch.cat([torch.zeros((bsz, 1, hid)), hs[:, :-1]], dim=1)
-    acts, cs, c = [], [], torch.zeros((bsz, hid))
+    w = torch.cat([wi, wh])
+    zeros = torch.zeros((bsz, hid))
+    a_rows = torch.empty((bsz, t_steps, 2 * hid + 1))
+    gates, cs, c = [], [], zeros
     for t in range(t_steps):
-        gates = torch.cat([x[:, t], h_prev[:, t]], dim=1) @ torch.cat([wi, wh]) + b
-        i, f, g, o = gates.split(hid, dim=1)
-        i, f, g, o = torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g), torch.sigmoid(o)
-        c = f * c + i * g
-        acts.append((i, f, g, o))
+        a_rows[:, t] = torch.cat([x[:, t], hs[:, t - 1] if t else zeros,
+                                  torch.ones((bsz, 1))], dim=1)
+        i, f, g, o = (a_rows[:, t, :-1] @ w + b).split(hid, dim=1)
+        gates.append((torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g), torch.sigmoid(o)))
+        c = gates[-1][1] * c + gates[-1][0] * gates[-1][2]
         cs.append(c)
+    dx = torch.empty_like(x)
     dg = torch.empty((bsz, t_steps, 4 * hid))
-    dh_rec, dc_carry = torch.zeros((bsz, hid)), torch.zeros((bsz, hid))
+    dh_rec, dc_carry = zeros, zeros
     for t in reversed(range(t_steps)):
-        i, f, g, o = acts[t]
-        c_prev = cs[t - 1] if t else torch.zeros((bsz, hid))
+        i, f, g, o = gates[t]
+        c_prev = cs[t - 1] if t else zeros
         dh = dhs[:, t] + dh_rec
         tc = torch.tanh(cs[t])
         dc = dc_carry + dh * o * (1 - tc * tc)
         dc_carry = dc * f
         dg[:, t] = torch.cat([dc * g * i * (1 - i), dc * c_prev * f * (1 - f),
                               dc * i * (1 - g * g), dh * tc * o * (1 - o)], dim=1)
-        dh_rec = dg[:, t] @ wh.t().contiguous()  # dG_t . wh^T, as the kernel reads wh^T
-    dg2 = dg.reshape(-1, 4 * hid)
-    return ((dg2 @ wi.t()).view(bsz, t_steps, hid), x.reshape(-1, hid).t() @ dg2,
-            h_prev.reshape(-1, hid).t() @ dg2, dg2.sum(0))
+        dx[:, t], dh_rec = (dg[:, t] @ w.t()).split(hid, dim=1)
+    rows, bt = tlstm.bwd_rows(bsz, t_steps), bsz * t_steps
+    a_pad, g_pad = torch.zeros((rows, 2 * hid + 1)), torch.zeros((rows, 4 * hid))
+    a_pad[:bt], g_pad[:bt] = a_rows.reshape(bt, -1), dg.reshape(bt, -1)
+    return (dx, *tlstm.weight_grads(a_pad, g_pad))
 
 
 @pytest.mark.parametrize("h", [5, 18, 68, 256])
@@ -652,6 +660,18 @@ def test_lstm_bwd_kernel_sums_match_jax_grad(h):
     tx, twi, twh, tb, tdhs = (torch.from_numpy(a) for a in arrs)
     _close_all(_lstm_bwd_as_kernel(tx, twi, twh, tb, tref.lstm_scan(tx, twi, twh, tb), tdhs),
                _jax_lstm_grads(*arrs))
+
+
+@pytest.mark.parametrize("b,t", [(1, 1), (3, 1), (4, 2)])
+def test_lstm_bwd_kernel_sums_short_sequences(b, t):
+    """The operand rows at their edges: T 1 (every h_{t-1} is 0, so dwh is
+    exactly 0) and T 2, and a single sequence."""
+    arrs = _lstm_bwd_case(b, t, 5, seed=7 * t + b)
+    tx, twi, twh, tb, tdhs = (torch.from_numpy(a) for a in arrs)
+    got = _lstm_bwd_as_kernel(tx, twi, twh, tb, tref.lstm_scan(tx, twi, twh, tb), tdhs)
+    _close_all(got, _jax_lstm_grads(*arrs))
+    if t == 1:
+        assert not got[2].any()
 
 
 def _tt_bwd_case(b, k, r, seed):
@@ -747,13 +767,110 @@ def test_tt_contract_bwd_wrapper_limits(dtype, rank, k, match):
         ttt.tt_contract_bwd(*args)
 
 
-@pytest.mark.parametrize("hid,tile", [(5, 100), (12, 40), (18, 28), (68, 4), (128, 4),
-                                      (256, 4)])
-def test_lstm_bwd_tile(hid, tile):
-    """Sequences a backward block owns: 4 an item, about one item a thread
-    of 128; its shared memory (6 H rows of tile + 4 floats) fits a block."""
+@pytest.mark.parametrize("hid,kind,tile", [(5, "narrow", 48), (12, "narrow", 20),
+                                           (18, "narrow", 12), (45, "narrow", 4),
+                                           (46, "mid", 64), (68, "mid", 32), (71, "mid", 24),
+                                           (72, "wide", 8), (256, "wide", 8)])
+def test_lstm_bwd_tile(hid, kind, tile):
+    """Sequences a backward block owns at B 8192: narrow (H <= 45), groups
+    of 4 sequences, about 64 thread tiles a block; mid (H <= 71), groups of
+    8 sized to the batch; wide, one group of 8.  The block fits its shared
+    memory and its plan's thread limit."""
     from repro_torch.kernels import lstm as tlstm
     from repro_torch.kernels._common import MAX_SMEM_BYTES
 
-    assert tlstm.bwd_tile(hid) == tile
-    assert 4 * 6 * hid * (tile + 4) <= MAX_SMEM_BYTES
+    assert tlstm.bwd_kind(hid) == kind and tlstm.bwd_tile(hid) == tile
+    plan = tlstm.bwd_plan(hid)
+    assert plan.tile == tile and plan.smem_bytes <= MAX_SMEM_BYTES
+    seqs, most = tlstm.BWD_SEQS[kind], tlstm.BWD_THREADS[kind]
+    assert plan.threads % 32 == 0 and tile // seqs * hid <= plan.threads <= most
+
+
+@pytest.mark.parametrize("hid,bsz,blocks", [(68, 4096, 128), (68, 8192, 256), (68, 1000, 125),
+                                            (46, 8192, 128), (46, 100_000, 1563)])
+def test_lstm_bwd_mid_tile_fills_waves(hid, bsz, blocks):
+    """The mid plan runs one block a SM, so its tile makes the blocks fill
+    whole waves of the H100's 132 SMs as closely as the largest tile
+    allows."""
+    from repro_torch.kernels import lstm as tlstm
+
+    plan = tlstm.bwd_plan(hid, bsz)
+    assert plan.kind == "mid" and plan.blocks(bsz) == blocks
+
+
+def _bwd_weight_bytes(hid):
+    """Bytes of [wi; wh] unit-major."""
+    from repro_torch.kernels import lstm as tlstm
+
+    return 2 * hid * tlstm.bwd_row_stride(hid) * 4
+
+
+@pytest.mark.parametrize("t_steps", [1, 10, 96, 1000])
+def test_lstm_bwd_plan_fits_shared_memory(t_steps):
+    """Every H from 1 to 256, at batches from 1 to 2^20: the block fits
+    232,448 bytes as ``lstm_bwd_smem_floats`` counts it, whatever T, within
+    its plan's thread limit; what a thread keeps of every step goes to the
+    scratch."""
+    from repro_torch.kernels import lstm as tlstm
+    from repro_torch.kernels._common import MAX_SMEM_BYTES
+
+    for hid in range(1, tlstm.MAX_BWD_HIDDEN + 1):
+        for bsz in (1, 1000, 8192, 1 << 20):
+            p = tlstm.bwd_plan(hid, bsz)
+            floats = 8 * hid * p.tile + (p.kind != "wide") * _bwd_weight_bytes(hid) // 4
+            assert p.smem_bytes == 4 * floats <= MAX_SMEM_BYTES, (hid, bsz, p)
+            assert p.kind == ("narrow" if hid <= 45 else "mid" if hid <= 71 else "wide")
+            assert p.tile % tlstm.BWD_SEQS[p.kind] == 0
+            assert p.threads <= tlstm.BWD_THREADS[p.kind]
+            assert p.scratch_floats(bsz, t_steps) == (
+                p.blocks(bsz) * t_steps * p.threads * tlstm.BWD_KEPT[p.kind])
+
+
+@pytest.mark.parametrize("bsz,t_steps,rows", [(8192, 10, 81920), (1024, 5, 5120), (1, 1, 256),
+                                              (33, 8, 512), (0, 10, 0)])
+def test_lstm_bwd_rows(bsz, t_steps, rows):
+    """A and G hold B T rows rounded up to whole chunks of 256."""
+    from repro_torch.kernels import lstm as tlstm
+
+    assert tlstm.bwd_rows(bsz, t_steps) == rows
+
+
+@pytest.mark.parametrize("hid", [5, 46, 72])
+def test_lstm_bwd_weights_unit_major(hid):
+    """The unit-major copy a wide plan reads: gate g of unit u of row k
+    (k < H: wi, else wh) at [k, 4 u + g], rows of 4 (H | 1) floats."""
+    from repro_torch.kernels import lstm as tlstm
+
+    gen = torch.Generator().manual_seed(hid)
+    wi, wh = torch.randn((hid, 4 * hid), generator=gen), torch.randn((hid, 4 * hid), generator=gen)
+    got = tlstm.bwd_weights(wi, wh)
+    assert got.shape == (2 * hid, tlstm.bwd_row_stride(hid))
+    want = torch.cat([wi, wh]).view(2 * hid, 4, hid).transpose(1, 2).reshape(2 * hid, 4 * hid)
+    assert torch.equal(got[:, :4 * hid], want)
+
+
+def test_lstm_bwd_plan_occupancy_at_fit_shape():
+    """The paper's MEDIUM fit (B 8192, T 10, H 18): at least two blocks on
+    each of the H100's 132 SMs, by the grid and by a SM's shared memory
+    (228 KB, 1 KB reserved a block) and threads (2048); c of every step
+    goes to a scratch of 7 MB, which stays in the 50 MB L2."""
+    from repro_torch.kernels import lstm as tlstm
+
+    p = tlstm.bwd_plan(18)
+    assert p.kind == "narrow"
+    assert p.blocks(8192) >= 2 * 132
+    assert 233_472 // (p.smem_bytes + 1024) >= 2 and 2048 // p.threads >= 2
+    assert 4 * p.scratch_floats(8192, 10) < 8 << 20
+
+
+@pytest.mark.parametrize("hid,t_steps", [(18, 95), (18, 96), (12, 100), (12, 101), (68, 1),
+                                          (256, 5)])
+def test_lstm_bwd_plan_c_scratch(hid, t_steps):
+    """c of every step sits in the scratch at every T: it holds c of 4
+    sequences a thread and step of every block (c and the four gates of 8
+    sequences in the mid and wide plans)."""
+    from repro_torch.kernels import lstm as tlstm
+
+    p = tlstm.bwd_plan(hid, 1000)
+    kept = 4 if p.kind == "narrow" else 40
+    assert p.scratch_floats(1000, t_steps) == p.blocks(1000) * t_steps * kept * p.threads
