@@ -522,9 +522,12 @@ BWD_RTOL, BWD_ATOL = 1e-4, 1e-5
 # at their fit batches, the budget rule's 1 MB width and its widest
 BWD_LSTM_CASES = ((8192, 10, 12), (8192, 10, 18), (4096, 10, 68), (1024, 5, 256))
 # tt_contract backward cases (B, K, R): SMALL's and MEDIUM's ranks at K 8
-# (PEMS-SF's d' 10), the 1 MB rank, the widest, and a B off the block of
-# entries (16 a block at R 10)
-BWD_TT_CASES = ((8192, 8, 6), (8192, 8, 10), (4096, 8, 34), (256, 4, 128), (1001, 8, 10))
+# (PEMS-SF's d' 10), the 1 MB rank, the widest (the wide plan; the others
+# take the slab plan), a B off the slab of entries (16 a slab at R 10), and
+# a K R^2 that is not a multiple of 4 (the slab plan's ragged heads and
+# tails)
+BWD_TT_CASES = ((8192, 8, 6), (8192, 8, 10), (4096, 8, 34), (256, 4, 128), (1001, 8, 10),
+                (1001, 3, 5))
 # the fit phase: the paper's MEDIUM on the PEMS-SF replica at its Table II
 # shape, 6 epochs so that one Alg. 3 sweep runs after the fifth, 2^21
 # entries (256 steps of 8192) an epoch
@@ -637,21 +640,27 @@ def phase_device(torch):
     require(len(simt) == 2 and all(r["spill_store_bytes"] == r["spill_load_bytes"] == 0
                                    for r in simt),
             f"the simt lstm_scan body spills: {simt}")
-    # the backward kernels: their resources, and the lstm backward's plan
-    # (where the weights are read from, tile of sequences, threads, shared
-    # memory) at the shapes it is held at; the lstm backward must not spill
+    # the backward kernels: their resources, one kernel a plan, and each
+    # backward's plan at the shapes it is held at (lstm: where the weights
+    # are read from, tile of sequences, threads, shared memory; tt: slab or
+    # wide, entries a slab or block, threads, blocks, shared memory); the
+    # lstm backward and the tt slab plan must not spill
     from repro_torch.kernels import lstm as _lstm
+    from repro_torch.kernels import tt_contract as _tt
 
-    bwd = [r for r in resources if "_bwd_kernel" in r["kernel"]]
+    bwd = [r for r in resources if "_bwd_" in r["kernel"] and "_kernel" in r["kernel"]]
     emit({"phase": "device.bwd", "ptxas": bwd,
           "lstm_bwd_plans": [dataclasses.asdict(_lstm.bwd_plan(h, b))
-                             for b, _, h in BWD_LSTM_CASES]})
-    require(len(bwd) == 4,
-            f"ptxas reports {len(bwd)} backward kernels, expected 4 (the lstm_scan backward's "
-            f"three plans, tt_contract's): {bwd}")
+                             for b, _, h in BWD_LSTM_CASES],
+          "tt_bwd_plans": [{"B": b, "K": k, "R": r, **dataclasses.asdict(_tt.bwd_plan(r, k, b))}
+                           for b, k, r in BWD_TT_CASES]})
+    require(len(bwd) == 5,
+            f"ptxas reports {len(bwd)} backward kernels, expected 5 (the lstm_scan backward's "
+            f"three plans, tt_contract's slab and wide plans): {bwd}")
     require(all(r["spill_store_bytes"] == r["spill_load_bytes"] == 0 for r in bwd
-                if "lstm_scan_bwd_kernel" in r["kernel"]),
-            f"the lstm_scan backward kernel spills: {bwd}")
+                if "lstm_scan_bwd_kernel" in r["kernel"]
+                or "tt_contract_bwd_slab_kernel" in r["kernel"]),
+            f"a backward kernel spills: {bwd}")
     sass = sass_hgmma(path)
     if sass["tool"]:
         wgmma = {k: n for k, n in sass["hgmma"].items() if "flash_attention_wgmma" in k}
@@ -1130,13 +1139,15 @@ def flash_timing_row(torch, device, launches, errs):
     }
 
 
-def phase_timing(torch, device, enc, idx_np, launches, errs, simt_lstm, bwd_call):
+def phase_timing(torch, device, enc, idx_np, launches, errs, simt_lstm, bwd_calls):
     """Kernel, plain and library times at the main path's shapes.
     ``simt_lstm`` is (the ``lstm_scan_simt`` row, a call of that kernel at
     the wide shape): the call is profiled with the main path's, and the row
-    gains the device kernels it ran.  ``bwd_call`` is one ``lstm_scan_bwd``
-    call at the fit shape, profiled in the same session.  Returns the rows
-    and the device operations of the backward call."""
+    gains the device kernels it ran.  ``bwd_calls`` are one
+    ``lstm_scan_bwd`` and one ``tt_contract_bwd`` call at the fit shape,
+    profiled in the same session.  Returns the rows and the device
+    operations of the two backward calls, (name, device microseconds)
+    pairs."""
     from repro_torch.core import nttd
     from repro_torch.kernels import decode_tile as _decode_tile
     from repro_torch.kernels import lstm as _lstm
@@ -1213,7 +1224,8 @@ def phase_timing(torch, device, enc, idx_np, launches, errs, simt_lstm, bwd_call
     # alone; and lstm_scan's body, bucket and load route
     lstm_call, tt_call = rows[1][3], rows[2][3]
     simt_row, simt_call = simt_lstm
-    seen = device_kernels(torch, (lstm_call, tt_call, simt_call, bwd_call))
+    timed = device_kernels(torch, (lstm_call, tt_call, simt_call, *bwd_calls), times=True)
+    seen = [[name for name, _ in call] for call in timed]
     require(all(len(call) == 1 for call in seen[:3])
             and "lstm_scan_register_kernel" in seen[0][0] and "tt_contract_kernel" in seen[1][0]
             and "lstm_scan_simt_kernel" in seen[2][0],
@@ -1221,6 +1233,8 @@ def phase_timing(torch, device, enc, idx_np, launches, errs, simt_lstm, bwd_call
             "not the register kernel, the tt_contract kernel and the simt kernel alone")
     require(sum("lstm_scan_bwd_kernel" in name for name in seen[3]) == 1,
             f"an lstm_scan_bwd call ran {seen[3]}, not the backward kernel once")
+    require(len(seen[4]) == 1 and "tt_contract_bwd_" in seen[4][0],
+            f"a tt_contract_bwd call ran {seen[4]}, not the backward kernel alone")
     simt_row["device_ops_per_call"] = seen[2]
     kernels[1].update(body=_lstm.lstm_body(h), bucket=_lstm.bucket_for(h),
                       loads="vector" if _lstm.vector_rows(x, lstm_call()) else "scalar",
@@ -1232,7 +1246,7 @@ def phase_timing(torch, device, enc, idx_np, launches, errs, simt_lstm, bwd_call
                       device_ops_per_call=seen[1],
                       ms_bf16=time_ms(torch, lambda: ops.tt_contract(*bf, impl="cuda"), 20),
                       bound_ms_bf16=bound(ops_t, tt_bytes(b, t - 2, r, 2), PEAK_FP32)["bound_ms"])
-    return kernels, seen[3]
+    return kernels, timed[3:]
 
 
 def decode_simt_timing(torch, device, launches, errs):
@@ -1512,6 +1526,7 @@ def phase_kernels_bwd(torch, device):
                            "kernel_plain_vs_f64": dict(zip(names, vs_f64)),
                            "beyond_elementwise": dict(zip(names, beyond_elementwise(
                                torch, got, plain)))})
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
     for b, k, r in BWD_TT_CASES:
         first, mid, last, dout = tt_bwd_inputs(torch, gen, b, k, r, device)
         before = _tt.bwd_launches
@@ -1521,12 +1536,26 @@ def phase_kernels_bwd(torch, device):
         err = compare_grads(torch, got, plain)
         errs["tt_contract_bwd"] = max(errs["tt_contract_bwd"], *err)
         names = ("dfirst", "dmid", "dlast")
-        tt_cases.append({"B": b, "K": k, "R": r, "lanes_per_entry": _tt.lanes_per_entry(r),
-                         "entries_per_block": _tt.THREADS // _tt.lanes_per_entry(r),
+        plan = _tt.bwd_plan(r, k, b, sms)
+        tt_cases.append({"B": b, "K": k, "R": r, "plan": plan.kind, "entries": plan.entries,
+                         "blocks": plan.blocks, "threads": plan.threads,
                          "max_abs_err": dict(zip(names, err)),
                          "largest": dict(zip(names, (float(p.abs().max()) for p in plain))),
                          "beyond_elementwise": dict(zip(names, beyond_elementwise(
                              torch, got, plain)))})
+    # mid one float off the 16-byte grid (a view one float into a larger
+    # buffer): the slab plan copies each entry's ragged head and tail by
+    # plain loads and allocates dmid at the same offset from the grid
+    b, k, r = 1001, 8, 10
+    first, mid, last, dout = tt_bwd_inputs(torch, gen, b, k, r, device)
+    mid_off = torch.empty(mid.numel() + 1, device=device)[1:].view(mid.shape).copy_(mid)
+    got = _tt.tt_contract_bwd(first, mid_off, last, dout)
+    require(mid_off.data_ptr() % 16 == got[1].data_ptr() % 16 == 4,
+            "the off-grid case's mid or dmid lies on the 16-byte grid")
+    off_grid_err = compare_grads(torch, got, ref.tt_contract_bwd(first, mid, last, dout))
+    errs["tt_contract_bwd"] = max(errs["tt_contract_bwd"], *off_grid_err)
+    off_grid = {"B": b, "K": k, "R": r,
+                "max_abs_err": dict(zip(("dfirst", "dmid", "dlast"), off_grid_err))}
     # a reading at unit scale (x, dhs ~ N(0, 1), weights 0.3): there the
     # weight gradients' f32 sums over B T = 81,920 rows differ between any two
     # summation orders by more than the atol near 0, so both versions are
@@ -1557,7 +1586,8 @@ def phase_kernels_bwd(torch, device):
     torch.cuda.synchronize()
     emit({"phase": "kernels.bwd", "rtol": BWD_RTOL, "atol": BWD_ATOL,
           "inputs": "training_inputs: an NTTD at its init scales on PEMS-SF's index space",
-          "lstm_scan_bwd": lstm_cases, "tt_contract_bwd": tt_cases, "max_abs_err": errs,
+          "lstm_scan_bwd": lstm_cases, "tt_contract_bwd": tt_cases,
+          "tt_contract_bwd_off_grid": off_grid, "max_abs_err": errs,
           "lstm_scan_bwd_unit_scale": unit})
     return errs
 
@@ -1737,11 +1767,12 @@ def bwd_timing(torch, device, fit_launches, errs, step_s, operands, bwd_ops):
     SF's d'), H 18, R 10, K 8; ``operands`` from ``fit_step_operands``): the
     whole backward call a training step makes, the kernel alone where the
     call adds products, the plain version and, for ``lstm_scan``, cuDNN's
-    backward, with CUDA events like every row; the ``lstm_scan`` row also
-    names its plan and the device operations of one call (``bwd_ops``, from
-    ``phase_timing``'s profiler session).  A ``timing.fit_step`` line sets
-    the four kernels of a step beside the fit phase's seconds a step.
-    Returns the two rows."""
+    backward, with CUDA events like every row; each row also names its plan
+    and the device operations of one call with their device microseconds
+    (``bwd_ops``, from ``phase_timing``'s profiler session), and the
+    ``tt_contract`` row its share of the bound by both times.  A
+    ``timing.fit_step`` line sets the four kernels of a step beside the fit
+    phase's seconds a step.  Returns the two rows."""
     from repro_torch.kernels import lstm as _lstm
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import tt_contract as _tt
@@ -1769,13 +1800,14 @@ def bwd_timing(torch, device, fit_launches, errs, step_s, operands, bwd_ops):
         "kernel_ms": time_ms(torch, lambda: _lstm.bwd_gates(x, *lw, hs, dhs), 20),
         "kernel_bound_ms": kernel_bound["bound_ms"], "kernel_bound_by": kernel_bound["bound_by"],
         "kernel_ops": k_ops, "kernel_bytes": k_bytes,
-        "plan": dataclasses.asdict(_lstm.bwd_plan(h, b)), "device_ops_per_call": bwd_ops,
+        "plan": dataclasses.asdict(_lstm.bwd_plan(h, b)), "device_ops_per_call": bwd_ops[0],
         "shape": {"B": b, "T": t, "H": h}, "ops": n_ops, "bytes": n_bytes,
         "note": "ms: the wrapper (the kernel: dx, G and A; then [dwi; dwh; db] = A^T G, one "
                 "matmul); kernel_ms: the kernel alone; plain_ms: autograd of the plain forward, "
                 "forward included",
     })
     n_ops, n_bytes = tt_bwd_cost(b, k, r)
+    plan = _tt.bwd_plan(r, k, b, torch.cuda.get_device_properties(device).multi_processor_count)
     rows.append({
         "name": "tt_contract_bwd", "route": "cuda", "source": SOURCES["tt_contract_bwd"][0],
         "replaces": SOURCES["tt_contract_bwd"][1], "launches": fit_launches["tt_contract_bwd"],
@@ -1784,17 +1816,31 @@ def bwd_timing(torch, device, fit_launches, errs, step_s, operands, bwd_ops):
         "plain_ms": time_ms(torch, lambda: ref.tt_contract_bwd(first, mid, last, dout), 5),
         **bound(n_ops, n_bytes, PEAK_FP32), "library_ms": None,
         "library": None, "library_max_abs_err": None,
-        "lanes_per_entry": _tt.lanes_per_entry(r), "shape": {"B": b, "K": k, "R": r},
+        "plan": plan.kind, "entries": plan.entries, "blocks": plan.blocks,
+        "threads": plan.threads, "device_ops_per_call": bwd_ops[1],
+        "kernel_ms": bwd_ops[1][0][1] / 1e3, "shape": {"B": b, "K": k, "R": r},
         "ops": n_ops, "bytes": n_bytes,
+        "note": "ms: back-to-back calls (CUDA events), host work included where it outlasts "
+                "the kernel; kernel_ms: the kernel's device time in one profiled call",
     })
+    rows[1].update(bound_share=rows[1]["bound_ms"] / rows[1]["ms"],
+                   kernel_bound_share=rows[1]["bound_ms"] / rows[1]["kernel_ms"])
     step = {"lstm_scan": time_ms(torch, lambda: ops.lstm_scan(x, *lw, impl="cuda"), 20),
             "lstm_scan_bwd": rows[0]["ms"],
             "tt_contract": time_ms(torch, lambda: ops.tt_contract(first, mid, last,
                                                                   impl="cuda"), 20),
             "tt_contract_bwd": rows[1]["ms"]}
+    # each kernel's bound at this shape (the forward rows of the kernel
+    # table are at a decode request's shape)
+    bounds = {"lstm_scan": bound(*lstm_cost(b, t, h), PEAK_FP32),
+              "lstm_scan_bwd": {"bound_ms": rows[0]["bound_ms"],
+                                "bound_by": rows[0]["bound_by"]},
+              "tt_contract": bound(b * (k * 2 * r * r + 2 * r), tt_bytes(b, k, r, 4), PEAK_FP32),
+              "tt_contract_bwd": {"bound_ms": rows[1]["bound_ms"],
+                                  "bound_by": rows[1]["bound_by"]}}
     kernel_ms = sum(step.values())
     emit({"phase": "timing.fit_step", "shape": {"B": b, "T": t, "H": h, "R": r},
-          "ms": step, "kernels_ms": kernel_ms, "step_ms": step_s * 1e3,
+          "ms": step, "bounds": bounds, "kernels_ms": kernel_ms, "step_ms": step_s * 1e3,
           "kernels_share_of_step": kernel_ms / (step_s * 1e3)})
     return rows
 
@@ -1832,11 +1878,13 @@ def main() -> int:
         serve_launches = phase_serve(torch, device)
         simt_lstm = lstm_simt_timing(torch, device, lstm_simt_launches, errs)
         from repro_torch.kernels import lstm as _lstm
+        from repro_torch.kernels import tt_contract as _tt
 
         fit_ops = fit_step_operands(torch, device)
-        (x, lw, hs, dhs), _ = fit_ops
+        (x, lw, hs, dhs), tt_ops = fit_ops
         kernels, bwd_ops = phase_timing(torch, device, enc, idx, launches, errs, simt_lstm,
-                                        lambda: _lstm.lstm_scan_bwd(x, *lw, hs, dhs))
+                                        (lambda: _lstm.lstm_scan_bwd(x, *lw, hs, dhs),
+                                         lambda: _tt.tt_contract_bwd(*tt_ops)))
         for row in kernels:  # the forward kernels' launches on the fit path too
             row["launches_fit"] = fit_launches[row["name"]]
         kernels.append(decode_simt_timing(torch, device, simt_launches, errs))

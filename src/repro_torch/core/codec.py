@@ -30,6 +30,7 @@ from repro_torch.codecs.indexing import flat_to_multi
 from repro_torch.core import nttd, reorder
 from repro_torch.core.folding import FoldingSpec, make_folding_spec
 from repro_torch.devices import resolve_device
+from repro_torch.kernels import lstm, tt_contract
 from repro_torch.optim import optimizers
 
 
@@ -173,6 +174,20 @@ def training_impl(kernel_impl: str) -> str:
     return "ref" if kernel_impl == "ref" else "cuda"
 
 
+def check_training_widths(config: CodecConfig, spec: FoldingSpec, device: torch.device) -> None:
+    """Refuse, before any work, a fit that the card's backward kernels do
+    not take: on a CUDA device through the kernels' training route, the
+    ``lstm_scan`` backward's hidden width and, where there are mid cores
+    (d' > 2), the ``tt_contract`` backward's rank; raises their
+    ``ValueError``.  The CPU route's plain versions take any width, as the
+    reference does."""
+    if device.type != "cuda" or training_impl(config.kernel_impl) != "cuda":
+        return
+    lstm.check_bwd(torch.float32, config.hidden)
+    if spec.d_prime > 2:
+        tt_contract.check_bwd(torch.float32, config.rank, spec.d_prime - 2)
+
+
 def _make_value_and_grad(spec: FoldingSpec, cfg: nttd.NTTDConfig):
     """(params, positions [B, d], values [B]) -> (loss, grads): the summed
     squared error, a device scalar, and its gradient as a params tree."""
@@ -272,6 +287,7 @@ def _compress(x: np.ndarray, config: CodecConfig, device: torch.device):
         rank=config.rank, hidden=config.hidden, kernel_impl=config.kernel_impl
     )
     train_cfg = dataclasses.replace(cfg, kernel_impl=training_impl(config.kernel_impl))
+    check_training_widths(config, spec, device)
 
     mean, std = 0.0, 1.0
     if config.normalize:

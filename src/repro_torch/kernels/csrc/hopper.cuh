@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks written out in PTX: mbarriers, TMA tile
-// loads, wgmma shared-memory descriptors and the three wgmma shapes the
-// flash-attention body issues.
+// and 1-D bulk loads, the async-proxy fence, wgmma shared-memory
+// descriptors and the three wgmma shapes the flash-attention body issues.
 //
 // Shared-memory tiles are the 128-byte-swizzled layout that TMA writes with
 // CU_TENSOR_MAP_SWIZZLE_128B: rows of 64 bf16 (128 bytes), 16-byte chunk c of
@@ -56,6 +56,42 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
 }
 
 // --------------------------------------------------------------------- TMA
+// Copy `bytes` contiguous bytes of global memory into shared memory (TMA
+// 1-D); both addresses 16-byte aligned, `bytes` a multiple of 16.
+// Completion is counted in bytes on `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// Copy `bytes` contiguous bytes of shared memory to global memory (TMA
+// 1-D), tracked in this thread's bulk async-group; both addresses 16-byte
+// aligned, `bytes` a multiple of 16.
+__device__ __forceinline__ void bulk_store(void* dst, uint32_t src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
+               "r"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Wait until this thread's committed bulk stores have read their shared
+// memory.
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// Order this thread's generic-proxy accesses to shared memory before later
+// async-proxy (TMA) accesses, once a barrier has joined the threads.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // Copy the box at coordinates (c0, c1, c2) of a 3-D tensor map into shared
 // memory; completion is counted in bytes on `bar`.
 __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,

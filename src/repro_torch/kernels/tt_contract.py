@@ -9,12 +9,19 @@ it runs that kernel.  On a CPU tensor both run their plain versions
 (``ref.tt_contract``, which autograd differentiates, and
 ``ref.tt_contract_bwd``).  The forward takes K >= 1 and any R >= 1 in one
 body, a lane group per entry (``lanes_per_entry`` lanes, reading each row
-of ``mid`` coalesced); the backward, the same lane groups, takes f32 and
-R <= ``MAX_BWD_RANK``.  ``ops.tt_contract`` turns K == 0 into a row dot.
-``launches`` counts forward kernel launches, ``bwd_launches`` backward
-ones, nothing else.
+of ``mid`` coalesced).  The backward takes f32 and R <= ``MAX_BWD_RANK`` in
+two plans (``bwd_plan``): "slab", where two buffers of an entry fit half an
+SM's shared memory, persistent blocks copying slabs of entries into shared
+memory once and sweeping them there; "wide" above, the forward's lane
+groups.  ``ops.tt_contract`` turns K == 0 into a row dot.  ``launches``
+counts forward kernel launches, ``bwd_launches`` backward ones, nothing
+else.
 """
 from __future__ import annotations
+
+import collections
+import dataclasses
+import functools
 
 import torch
 
@@ -26,10 +33,18 @@ from repro_torch.kernels._common import (
     check_smem,
 )
 
-THREADS = 256  # kTTThreads in csrc/tt_contract.cu, kTTBwdThreads in tt_contract_bwd.cu
+# kTTThreads in csrc/tt_contract.cu, kTTBwdWideThreads in tt_contract_bwd.cu
+THREADS = 256
 # the widest chain the backward takes: the budget rule's largest rank
 # (NTTDCodec._rank_for_budget tries ranks up to 128)
 MAX_BWD_RANK = 128
+# the backward's slab plan: at most kTTBwdSlabThreads threads a block, and
+# two blocks a SM, each within half an H100 SM's shared memory less what
+# the hardware reserves a block
+BWD_SLAB_THREADS = 256
+SM_SMEM_BYTES = 233_472
+BLOCK_RESERVED_SMEM = 1024
+H100_SMS = 132
 launches = 0
 bwd_launches = 0
 
@@ -91,6 +106,95 @@ def tt_contract(first: torch.Tensor, mid: torch.Tensor, last: torch.Tensor) -> t
     return _TTContract.apply(first, mid, last)
 
 
+@dataclasses.dataclass(frozen=True)
+class TTBwdPlan:
+    """A launch of the backward kernel: its plan ("slab" or "wide"), the
+    entries of a slab (slab) or of a block (wide), the floats of an entry's
+    slot in a slab buffer (slab; 0 for wide), threads and blocks, and the
+    shared memory of a block in bytes."""
+    kind: str
+    entries: int
+    stride: int
+    threads: int
+    blocks: int
+    smem_bytes: int
+
+
+def slab_smem_bytes(rank: int, k_steps: int, entries: int, stride: int) -> int:
+    """A slab block's shared memory: two mbarriers (16 bytes), two buffers
+    of ``entries`` slots of ``stride`` floats, and each entry's v_0 .. v_K
+    and two u rows, (K + 3) R floats."""
+    return 16 + 4 * entries * (2 * stride + (k_steps + 3) * rank)
+
+
+def bank_ways(stride: int, rank: int, entries: int) -> int:
+    """The worst bank conflict of the slab sweeps' buffer reads, summed over
+    the two sweeps: in a warp, thread t = e R + j reads float e stride + r R
+    + j (prefix, column j) and e stride + j R + c (suffix, row j), all
+    threads at the same r or c; the most threads of a warp on one of the 32
+    banks, for each sweep."""
+    worst = [0, 0]
+    for w0 in range(0, entries * rank, 32):
+        lanes = [divmod(t, rank) for t in range(w0, min(w0 + 32, entries * rank))]
+        for n, col in enumerate((1, rank)):
+            banks = collections.Counter((e * stride + j * col) % 32 for e, j in lanes)
+            worst[n] = max(worst[n], max(banks.values()))
+    return sum(worst)
+
+
+def slab_stride(rank: int, k_steps: int, entries: int) -> int:
+    """Floats of an entry's slot in a slab buffer: K R^2 and room for the
+    entry's offset from the 16-byte grid (up to 3 floats), a multiple of 4,
+    and of the 8 such strides from the least, the one with the fewest bank
+    conflicts (``bank_ways``; the least on a tie).  At K 8, R 10 K R^2 = 800
+    is a multiple of 32, which would put the entries of a warp on the same
+    banks."""
+    least = (k_steps * rank * rank + 6) // 4 * 4
+    return min(range(least, least + 32, 4), key=lambda s: (bank_ways(s, rank, entries), s))
+
+
+def slab_plan(rank: int, k_steps: int, bsz: int, entries: int, sms: int = H100_SMS) -> TTBwdPlan:
+    """The slab plan with ``entries`` entries a slab: E R threads rounded up
+    to whole warps, as many persistent blocks as fit the SMs (by shared
+    memory and threads), at most one a slab."""
+    stride = slab_stride(rank, k_steps, entries)
+    smem = slab_smem_bytes(rank, k_steps, entries, stride)
+    threads = -(-entries * rank // 32) * 32
+    per_sm = min(SM_SMEM_BYTES // (smem + BLOCK_RESERVED_SMEM), 2048 // threads, 32)
+    blocks = max(1, min(-(-bsz // entries), per_sm * sms))
+    return TTBwdPlan("slab", entries, stride, threads, blocks, smem)
+
+
+def slab_entries(rank: int, k_steps: int) -> int:
+    """Entries of a slab: the most whose block has at most
+    ``BWD_SLAB_THREADS`` threads and leaves room for a second block on the
+    SM; 0 where not even one entry does (the wide plan)."""
+    half = SM_SMEM_BYTES // 2 - BLOCK_RESERVED_SMEM
+    least = (k_steps * rank * rank + 6) // 4 * 4  # slab_stride's least
+    fixed = slab_smem_bytes(rank, k_steps, 0, 0)
+    entries = min(BWD_SLAB_THREADS // rank,
+                  (half - fixed) // (slab_smem_bytes(rank, k_steps, 1, least) - fixed))
+    while entries and slab_smem_bytes(rank, k_steps, entries,
+                                      slab_stride(rank, k_steps, entries)) > half:
+        entries -= 1
+    return entries
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_plan(rank: int, k_steps: int, bsz: int, sms: int = H100_SMS) -> TTBwdPlan:
+    """The backward's launch at (R, K, B): the slab plan wherever
+    ``slab_entries`` finds room, with at most B / (2 ``sms``) entries a slab,
+    so that a small batch still makes two blocks a SM; else the wide plan
+    (the lane groups of ``lanes_per_entry``, ``THREADS //
+    lanes_per_entry(R)`` entries a block, (K + 3) R floats an entry)."""
+    entries = slab_entries(rank, k_steps)
+    if entries:
+        return slab_plan(rank, k_steps, bsz, min(entries, -(-bsz // (2 * sms))), sms)
+    entries = THREADS // lanes_per_entry(rank)
+    return TTBwdPlan("wide", entries, 0, THREADS, max(1, -(-bsz // entries)),
+                     4 * entries * (k_steps + 3) * rank)
+
+
 def check_bwd(dtype: torch.dtype, rank: int, k_steps: int) -> None:
     """What the backward kernel takes, checked before any launch: f32, K >=
     1 and R <= ``MAX_BWD_RANK``; raises ``ValueError`` otherwise."""
@@ -102,12 +206,23 @@ def check_bwd(dtype: torch.dtype, rank: int, k_steps: int) -> None:
         raise ValueError("tt_contract backward needs K >= 1 mid cores (ops handles K == 0)")
 
 
+def _like_on_grid(t: torch.Tensor) -> torch.Tensor:
+    """An uninitialised tensor like ``t`` whose data lies at the same offset
+    from the 16-byte grid as ``t``'s (the slab plan stores dmid's 16-byte
+    chunks from where it copied mid's)."""
+    pad = t.data_ptr() % 16 // t.element_size()
+    if not pad:
+        return torch.empty_like(t)
+    return torch.empty(t.numel() + pad, dtype=t.dtype, device=t.device)[pad:].view(t.shape)
+
+
 def tt_contract_bwd(
     first: torch.Tensor, mid: torch.Tensor, last: torch.Tensor, dout: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dfirst [B, R], dmid [B, K, R, R], dlast [B, R]) of ``tt_contract``
-    against ``dout`` [B]: one launch of the backward kernel on CUDA
-    tensors, the plain version on CPU tensors."""
+    against ``dout`` [B]: one launch of the backward kernel in
+    ``bwd_plan``'s launch on CUDA tensors, the plain version on CPU
+    tensors."""
     global bwd_launches
     if first.device.type == "cpu":
         return ref.tt_contract_bwd(first, mid, last, dout)
@@ -122,17 +237,18 @@ def tt_contract_bwd(
     check_shape("tt_contract_bwd", "mid", mid, (bsz, k_steps, rank, rank))
     check_shape("tt_contract_bwd", "last", last, (bsz, rank))
     check_shape("tt_contract_bwd", "dout", dout, (bsz,))
-    group = lanes_per_entry(rank)
-    # v_0 .. v_K and two u rows of each of the block's THREADS / group entries
-    check_smem("tt_contract_bwd", THREADS // group, (k_steps + 3) * rank)
-    dfirst, dmid, dlast = torch.empty_like(first), torch.empty_like(mid), torch.empty_like(last)
+    plan = bwd_plan(rank, k_steps, bsz,
+                    torch.cuda.get_device_properties(device).multi_processor_count)
+    check_smem("tt_contract_bwd", 1, -(-plan.smem_bytes // 4))
+    dfirst, dmid, dlast = torch.empty_like(first), _like_on_grid(mid), torch.empty_like(last)
     if bsz == 0:
         return dfirst, dmid, dlast
     with torch.cuda.device(device):
         err = lib.repro_tt_contract_bwd(
             first.data_ptr(), mid.data_ptr(), last.data_ptr(), dout.data_ptr(),
-            dfirst.data_ptr(), dmid.data_ptr(), dlast.data_ptr(), bsz, k_steps, rank, group,
-            torch.cuda.current_stream(device).cuda_stream,
+            dfirst.data_ptr(), dmid.data_ptr(), dlast.data_ptr(), bsz, k_steps, rank,
+            ("slab", "wide").index(plan.kind), plan.entries, plan.stride, plan.threads,
+            plan.blocks, torch.cuda.current_stream(device).cuda_stream,
         )
     _build.check(lib, "tt_contract_bwd", err)
     bwd_launches += 1

@@ -167,6 +167,30 @@ def test_training_impl_is_the_unfused_route():
     assert tcodec.CodecConfig().kernel_impl == "auto"
 
 
+@pytest.mark.parametrize("width,match", [
+    (dict(hidden=300), "lstm_scan backward: hidden 300 outside 1..256"),
+    (dict(rank=129), "tt_contract backward: rank 129 outside 1..128"),
+])
+def test_compress_refuses_widths_beyond_the_backward_kernels(monkeypatch, width, match):
+    """On a CUDA device through the kernels' training route, a fit wider
+    than the backward kernels take is refused before the TSP init and the
+    params' init, with the kernels' own messages (``device="cuda"`` is
+    taken unchecked, so no card is needed); on the CPU the same config fits,
+    through the plain versions, as the reference does."""
+    def reached(*args, **kwargs):
+        raise AssertionError("compress did work before refusing the widths")
+
+    cfg = tcodec.CodecConfig(**{**FIT, **width}, epochs=1)
+    with monkeypatch.context() as patch:
+        patch.setattr(treorder, "tsp_init", reached)
+        patch.setattr(tnttd, "init_params", reached)
+        with pytest.raises(ValueError, match=match):
+            tcodec.compress(_tensor(), cfg, device="cuda")
+    ct, log = tcodec.compress(_tensor(), cfg, device="cpu")
+    assert log.epochs_run == 1 and np.isfinite(log.fitness_history[0])
+    assert ct.device.type == "cpu"
+
+
 def test_fused_decode_refuses_a_gradient():
     """The fused decode has no backward: asking it for a gradient raises
     rather than leaving the operands' gradients unset."""

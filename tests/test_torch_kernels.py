@@ -705,27 +705,135 @@ def test_tt_contract_bwd_matches_jax_grad(r, k):
 
 
 def _tt_bwd_as_kernel(first, mid, last, dout):
-    """The tt_contract backward as csrc/tt_contract_bwd.cu computes it:
-    every prefix v_0 .. v_K kept, then the suffix u swept from ``last``,
-    dmid_k = g v_{k-1} (x) u_{k+1} and u_k = mid_k u_{k+1} row by row."""
+    """The tt_contract backward in the slab plan's order of work
+    (csrc/tt_contract_bwd.cu): mid copied into a buffer once; the prefix
+    sweep keeps every v_0 .. v_K, v_{k+1}[j] = v_k . column j of mid_k; the
+    suffix sweep, k = K down to 1, computes u_k[j] = row j of mid_k .
+    u_{k+1}, then writes dmid_k = g v_k (x) u_{k+1} in mid_k's place; the
+    buffer is dmid."""
     k_steps = mid.shape[1]
+    buf = mid.clone()
     vs = [first]
     for k in range(k_steps):
-        vs.append(torch.einsum("br,brs->bs", vs[-1], mid[:, k]))
+        vs.append((vs[-1][:, :, None] * buf[:, k]).sum(1))
     g = dout[:, None]
-    dmid = torch.empty_like(mid)
     u = last
     for k in reversed(range(k_steps)):
-        dmid[:, k] = g[:, :, None] * vs[k][:, :, None] * u[:, None, :]
-        u = (mid[:, k] * u[:, None, :]).sum(-1)
-    return g * u, dmid, g * vs[k_steps]
+        u_k = (buf[:, k] * u[:, None, :]).sum(-1)
+        buf[:, k] = (g * vs[k])[:, :, None] * u[:, None, :]
+        u = u_k
+    return g * u, buf, g * vs[k_steps]
 
 
-@pytest.mark.parametrize("b,k,r", [(13, 1, 6), (13, 8, 10), (5, 4, 128)])
+@pytest.mark.parametrize("b,k,r", [(13, 1, 6), (13, 8, 10), (5, 4, 128), (7, 3, 5)])
 def test_tt_bwd_kernel_sums_match_jax_grad(b, k, r):
+    """(7, 3, 5): K R^2 = 75, not a multiple of 4 (ragged heads and tails)."""
     arrs = _tt_bwd_case(b, k, r, seed=r)
     tf, tm, tl, td = (torch.from_numpy(a) for a in arrs)
     _close_all(_tt_bwd_as_kernel(tf, tm, tl, td), _jax_tt_grads(*arrs))
+
+
+def _entry_span(first_float: int, per: int) -> tuple[int, int, int]:
+    """The slab plan's split of an entry (csrc/tt_contract_bwd.cu:
+    entry_span): its first float's offset from the 16-byte grid, the floats
+    before the 16-byte-aligned interior, and the interior's floats (a
+    multiple of 4; none when the entry holds no aligned 16 bytes)."""
+    shift = first_float % 4
+    head = min((4 - shift) % 4, per)
+    chunks = (per - head) // 4
+    return shift, head if chunks else per, 4 * chunks
+
+
+@pytest.mark.parametrize("k,r", [(8, 10), (8, 6), (3, 5), (1, 1), (1, 3), (2, 1), (4, 7)])
+@pytest.mark.parametrize("base", [0, 1, 2, 3])
+def test_tt_bwd_slab_reads_each_float_once(k, r, base):
+    """The slab plan's copies of mid, and its stores of dmid, at every
+    entry of a slab walk over B 1001 with mid ``base`` floats off the
+    16-byte grid: every float of every entry once, the bulk interior (the
+    loads' TMA copy, the stores' 16-byte chunks) 16-byte aligned both in
+    device memory and in its slot of the buffer, a whole number of 16
+    bytes, the rest (the ragged head and tail) at most 3 + 3 plain floats;
+    the persistent blocks' slabs, block b taking b, b + blocks, ..., cover
+    every entry once."""
+    from repro_torch.kernels import tt_contract as ttt
+
+    bsz, per = 1001, k * r * r
+    plan = ttt.bwd_plan(r, k, bsz)
+    assert plan.kind == "slab"
+    slabs = -(-bsz // plan.entries)
+    walked = sorted(s for blk in range(plan.blocks) for s in range(blk, slabs, plan.blocks))
+    assert walked == list(range(slabs))
+    for e in range(bsz):
+        start = base + e * per
+        shift, head, bulk = _entry_span(start, per)
+        tail = per - head - bulk
+        assert 0 <= tail and (bulk == 0 or (head <= 3 and tail <= 3))
+        if bulk:
+            slot = e % plan.entries * plan.stride + shift
+            assert (start + head) % 4 == 0 and (slot + head) % 4 == 0 and bulk % 4 == 0
+        assert shift + per <= plan.stride
+
+
+def test_tt_bwd_plans_fit_shared_memory():
+    """Both plans at every R 1..128 and K 1..16 (B 8192): the block fits a
+    Hopper block's shared memory; a slab block also leaves room for a second
+    on the SM, its threads are whole warps of which only the last's tail
+    idles, and its slots hold an entry and its offset from the 16-byte grid
+    in a multiple of 4 floats; the wide plan is the lane groups, taken only
+    where not one entry's slab block fits twice a SM."""
+    from repro_torch.kernels import tt_contract as ttt
+    from repro_torch.kernels._common import MAX_SMEM_BYTES
+
+    for r in range(1, 129):
+        for k in range(1, 17):
+            plan = ttt.bwd_plan(r, k, 8192)
+            assert plan.smem_bytes <= MAX_SMEM_BYTES, (r, k, plan)
+            if plan.kind == "slab":
+                assert 2 * (plan.smem_bytes + ttt.BLOCK_RESERVED_SMEM) <= ttt.SM_SMEM_BYTES
+                assert plan.threads % 32 == 0 and 0 <= plan.threads - plan.entries * r < 32
+                assert plan.threads <= ttt.BWD_SLAB_THREADS
+                assert plan.stride % 4 == 0 and plan.stride >= k * r * r + 3
+                assert plan.blocks <= -(-8192 // plan.entries)
+            else:
+                assert plan.kind == "wide" and ttt.slab_entries(r, k) == 0
+                assert plan.entries == ttt.THREADS // ttt.lanes_per_entry(r)
+                assert plan.threads == ttt.THREADS
+
+
+@pytest.mark.parametrize("b,k,r,kind,entries,threads,blocks", [
+    (8192, 8, 10, "slab", 16, 160, 264), (8192, 8, 6, "slab", 32, 192, 256),
+    (1001, 3, 5, "slab", 4, 32, 251), (1001, 8, 10, "slab", 4, 64, 251),
+    (4096, 8, 34, "slab", 1, 64, 396), (517, 5, 57, "wide", 8, 256, 65),
+    (256, 4, 128, "wide", 8, 256, 32),
+])
+def test_tt_bwd_plan_by_shape(b, k, r, kind, entries, threads, blocks):
+    """The plan at chip_smoke's backward shapes.  The MEDIUM fit shape (B
+    8192, K 8, R 10) takes the slab plan with 16 entries a slab in 160
+    threads, five whole warps (no thread idles), and two persistent blocks
+    on each of the H100's 132 SMs; a small B takes smaller slabs, at most B
+    / 264 entries, so that its blocks still number two a SM (R 6 at B 8192,
+    B 1001); R 57 and 128 take the wide plan."""
+    from repro_torch.kernels import tt_contract as ttt
+
+    plan = ttt.bwd_plan(r, k, b)
+    assert (plan.kind, plan.entries, plan.threads, plan.blocks) == (
+        kind, entries, threads, blocks)
+    if kind == "slab":
+        per_sm = ttt.SM_SMEM_BYTES // (plan.smem_bytes + ttt.BLOCK_RESERVED_SMEM)
+        assert per_sm >= 2 and plan.blocks == min(-(-b // entries), per_sm * ttt.H100_SMS)
+
+
+def test_tt_bwd_slab_stride_spreads_banks():
+    """At the fit shape K R^2 = 800 floats, a multiple of 32: slots of 804
+    floats would already spread the entries; the chosen stride's conflicts
+    (``bank_ways``) are the fewest of the eight candidates, and fewer than
+    an unpadded 800-float stride's."""
+    from repro_torch.kernels import tt_contract as ttt
+
+    stride = ttt.slab_stride(10, 8, 16)
+    ways = {s: ttt.bank_ways(s, 10, 16) for s in range(804, 836, 4)}
+    assert ttt.bank_ways(stride, 10, 16) == min(ways.values())
+    assert ttt.bank_ways(stride, 10, 16) < ttt.bank_ways(800, 10, 16)
 
 
 def test_tt_contract_bwd_wide_matches_jax_grad():
