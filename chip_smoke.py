@@ -23,6 +23,7 @@ Phases, each printing JSON lines:
    and bf16, B = 33 and B = 0), at the main path's shapes, at H = 64,
    R = 32, at every instantiated (H, R) bucket of ``decode_tile`` and at
    shapes padded to one (H 12, R 5; the paper's 12/6 and 18/10), and
+   at a step of the stream phase (B 8192, T 14, M 8, H 12, R 6: K 12),
    through its simt body above the largest bucket at the reference budget
    rule's (68, 34) and (114, 57) (B 4096, T 10) and (256, 128) (B 1000,
    T 5), on inputs scaled to the width; every decode case names its body
@@ -52,9 +53,10 @@ Phases, each printing JSON lines:
    kernels.bwd: the two backward kernels (``lstm_scan``'s, ``csrc/lstm_bwd.cu``,
    and ``tt_contract``'s, ``csrc/tt_contract_bwd.cu``) against their plain
    versions, autograd of the plain forwards: ``lstm_scan`` at (B 8192, T 10,
-   H 12), (8192, 10, 18), (4096, 10, 68) and (1024, 5, 256), ``tt_contract``
-   at (B 8192, K 8, R 6), (8192, 8, 10), (4096, 8, 34), (256, 4, 128) and
-   (1001, 8, 10), B off the block, on the operands a training step makes
+   H 12), (8192, 10, 18), (4096, 10, 68), (1024, 5, 256) and the stream's
+   (8192, 14, 12), ``tt_contract`` at (B 8192, K 8, R 6), (8192, 8, 10),
+   (4096, 8, 34), (256, 4, 128), (1001, 8, 10), B off the block, (1001, 3,
+   5) and the stream's (8192, 12, 6), on the operands a training step makes
    (``training_inputs``); each gradient within atol 1e-5 + rtol 1e-4 of its
    largest value, and every ``lstm_scan`` gradient no further from an f64
    evaluation than 4x the plain version's (a weight's gradient sums B T
@@ -63,8 +65,11 @@ Phases, each printing JSON lines:
    kernels.  The device phase prints their ptxas rows and the
    ``lstm_scan`` backward's plan at each case (``device.bwd``); that kernel
    must not spill.
-3. golden: ``tests/golden/v2_nttd.bin`` decoded on the card against
-   ``tests/golden/expected.npz`` (rtol 1e-5, atol 1e-6), and the chunked
+3. golden: the four golden files (``tests/golden/v2_nttd.bin``,
+   ``v3_mono.tcdc``, ``v3_chunked.tcdc`` and ``v4_delta.tcdc`` at its
+   latest version) loaded with ``load_bytes(..., device="cuda")`` and
+   decoded against ``tests/golden/expected.npz`` (rtol 1e-5, atol 1e-6),
+   and the chunked
    NTTD payload ``benchmarks/results/fig5_stream_payload.tcdc`` decoded
    whole through the kernel against the plain version.
 4. main path: a PEMS-SF-shaped (963 x 144 x 440) NTTD payload at the
@@ -101,6 +106,32 @@ Phases, each printing JSON lines:
    fit.parity: ``compress`` twice on the mini replica from the same seed,
    the plain versions ("ref") against the kernels ("auto"): fitness within
    1e-3 at every epoch; a mode whose accepted swaps differ is printed.
+   stream: out-of-core compression at the reference's fig5 FULL shape,
+   ``fit_stream("nttd", SyntheticTensorSource((16384, 64, 64),
+   slab_entries=2^18, seed=1), rank=6, hidden=12, steps_per_slab=2,
+   batch_size=8192, lr=2e-2, seed=0)`` on its default device: 2^26
+   entries in 256 slabs, 512 steps, the tensor never materialised (lr is
+   the reference's end-to-end stream test's; ``STREAM_CHANGED``).  Every
+   step launches the forward and backward ``lstm_scan`` and
+   ``tt_contract`` kernels once and no plain version runs (counted).  The
+   payload goes through ``write_chunked(..., chunk_bytes=2048)`` with a
+   ``sample_heldout`` sample of five slabs into a temporary directory,
+   ``load_file(..., device="cuda")`` reads it back and answers 65,536
+   entries through the fused kernel, equal to the fitted payload's
+   answers; its decode must correlate with ``values_at`` over 2^20
+   entries above 0.5; a second fitter resumed at slab 128 must give the
+   same ``save_bytes``.  It prints the seconds by part (source values,
+   host sampling, training dispatch, the device's drain, reservoir, write,
+   read), slabs/s, steps/s, entries/s, the correlation, the payload's
+   bytes, the launches and the card's name and power limit.
+   stream.parity: the first 16 slabs through "ref" and "auto" from the
+   same seed: every param within rtol 1e-4 / atol 1e-6, the sampled
+   fitness within 1e-3.  stream.delta: a (256, 64, 64) keyframe from
+   ``fit_stream`` and two residuals (0.05 x the seed-2 and seed-3
+   sources) from one ``DeltaFitter``, written by the delta-mode
+   ``ChunkedWriter`` with a ``sync()`` after each version; read back on
+   the card it is a ``ChainEncoded`` whose answers are the f64 sum of its
+   components', one fused launch each.
 7. serve: the LM serving path, ``repro_torch.launch.serve.main`` on
    qwen1.5-4b at full width (40 layers, d_model 2560, 20 heads of 128,
    vocab 151,936) in bf16 with random weights from seed 0: 8 requests of
@@ -140,9 +171,12 @@ Phases, each printing JSON lines:
    profiler session as the forward rows', which must hold the backward
    kernel once), the plain version and, for ``lstm_scan``, cuDNN
    ``nn.LSTM``'s backward; a ``timing.fit_step`` line sets the four kernels
-   of a step beside the fit's seconds a step.
+   of a step beside the fit's seconds a step, and a ``timing.stream_step``
+   line the same four at a step of the stream (B 8192, T 14, H 12, R 6)
+   beside the stream's seconds a step.
    Every forward row also carries its launches on the fit path
-   (``launches_fit``).
+   (``launches_fit``), and every row on the stream path its launches in
+   phase ``stream`` (``launches_stream``).
 
 The line before the last is the card's ``name, power.limit`` as
 ``nvidia-smi`` reports them; the last line is the result object.  Any
@@ -519,15 +553,17 @@ LSTM_H16_REGISTERS = 168
 # the backward kernels against their plain versions, per gradient
 BWD_RTOL, BWD_ATOL = 1e-4, 1e-5
 # lstm_scan backward cases (B, T, H): the paper's SMALL and MEDIUM widths
-# at their fit batches, the budget rule's 1 MB width and its widest
-BWD_LSTM_CASES = ((8192, 10, 12), (8192, 10, 18), (4096, 10, 68), (1024, 5, 256))
+# at their fit batches, the budget rule's 1 MB width and its widest, and a
+# step of the stream phase (d' 14)
+BWD_LSTM_CASES = ((8192, 10, 12), (8192, 10, 18), (4096, 10, 68), (1024, 5, 256),
+                  (8192, 14, 12))
 # tt_contract backward cases (B, K, R): SMALL's and MEDIUM's ranks at K 8
 # (PEMS-SF's d' 10), the 1 MB rank, the widest (the wide plan; the others
 # take the slab plan), a B off the slab of entries (16 a slab at R 10), and
 # a K R^2 that is not a multiple of 4 (the slab plan's ragged heads and
-# tails)
+# tails), and a step of the stream phase (K 12)
 BWD_TT_CASES = ((8192, 8, 6), (8192, 8, 10), (4096, 8, 34), (256, 4, 128), (1001, 8, 10),
-                (1001, 3, 5))
+                (1001, 3, 5), (8192, 12, 6))
 # the fit phase: the paper's MEDIUM on the PEMS-SF replica at its Table II
 # shape, 6 epochs so that one Alg. 3 sweep runs after the fifth, 2^21
 # entries (256 steps of 8192) an epoch
@@ -541,6 +577,31 @@ FIT_REDUCED = [
 ]
 # the fit.parity phase: fitness histories of the "ref" and "auto" routes
 FIT_PARITY_TOL = 1e-3
+# the stream phase: the reference's fig5 FULL streaming run
+# (benchmarks/fig5_compress_scaling.py:104-113), 2^26 entries in 256 slabs
+# of 2^18, two steps of 8192 a slab; d' 14, so the kernels run at T 14, K
+# 12.  The learning rate is the reference's end-to-end stream test's
+# (tests/test_stream.py:400-420): at fig5's default 5e-3 the fit learns no
+# signal at this shape (scripts/torch_stream_signal.py)
+STREAM_SHAPE = (16384, 64, 64)
+STREAM_SLAB = 1 << 18
+STREAM_OPTS = dict(rank=6, hidden=12, steps_per_slab=2, batch_size=8192, lr=2e-2, seed=0)
+STREAM_CHANGED = ["lr 2e-2, the reference's end-to-end stream test's, where fig5 keeps the "
+                  "default 5e-3, at which the fit learns no signal at this shape "
+                  "(scripts/torch_stream_signal.py)"]
+STREAM_SOURCE_SEED = 1
+STREAM_CHUNK_BYTES = 2048
+STREAM_HELDOUT = ((0, 64, 128, 192, 255), 64)  # slabs sampled, entries a slab
+STREAM_CORR_ENTRIES = 1 << 20
+STREAM_CORR_MIN = 0.5  # the reference's bar, tests/test_stream.py:400-420
+STREAM_PARITY_SLABS = 16
+STREAM_PARITY_RTOL, STREAM_PARITY_ATOL = 1e-4, 1e-6  # tests/test_torch_fit.py:9-10
+STREAM_PARITY_ENTRIES = 1 << 18
+STREAM_DELTA_SHAPE = (256, 64, 64)
+STREAM_DELTA_OPTS = dict(rank=3, hidden=6, steps_per_slab=2, batch_size=8192, seed=0)
+STREAM_DELTA_SCALE, STREAM_DELTA_SEEDS = 0.05, (2, 3)
+# a training step of the stream (B, T, H, R): the kernel cases at its shapes
+STREAM_STEP = (8192, 14, 12, 6)
 
 
 # ---------------------------------------------------------------------------
@@ -727,8 +788,11 @@ def phase_kernels(torch, device):
             tt_cases.append({"B": b, "K": k, "R": r, "dtype": dn, "body": "lane_group",
                              "lanes_per_entry": _tt.lanes_per_entry(r),
                              "max_abs_err": err, "ulps": ulps})
-        # main-path shapes (T = 10, M = 8, H = 16, R = 8) and H = 64, R = 32
-        for b, t, m, h, r in ((REQUEST, 10, 8, HIDDEN, RANK), (4096, 10, 8, 64, 32)):
+        # main-path shapes (T = 10, M = 8, H = 16, R = 8), H = 64, R = 32, and
+        # a step of the stream phase (B 8192, T 14, M 8, H 12, R 6: K 12)
+        sb, st, sh, sr = STREAM_STEP
+        for b, t, m, h, r in ((REQUEST, 10, 8, HIDDEN, RANK), (4096, 10, 8, 64, 32),
+                              (sb, st, 8, sh, sr)):
             idx, ws = decode_inputs(torch, gen, b, t, m, h, r, dtype, device)
             record("decode_tile", dn, ops.nttd_decode_tile(idx, *ws, impl="cuda"),
                    ops.nttd_decode_tile(idx, *ws, impl="ref"))
@@ -813,6 +877,12 @@ def phase_kernels(torch, device):
     return errs
 
 
+# the golden files and their keys in expected.npz (the v4 file at its
+# latest version)
+GOLDEN_FILES = (("v2_nttd.bin", "v2_nttd"), ("v3_mono.tcdc", "v3"), ("v3_chunked.tcdc", "v3"),
+                ("v4_delta.tcdc", "v4_version2"))
+
+
 def phase_golden(torch, device):
     import numpy as np
 
@@ -820,11 +890,14 @@ def phase_golden(torch, device):
     from repro_torch.codecs.adapters import NTTDEncoded
 
     npz = np.load(os.path.join(ROOT, "tests", "golden", "expected.npz"))
-    with open(os.path.join(ROOT, "tests", "golden", "v2_nttd.bin"), "rb") as f:
-        enc = load_bytes(f.read(), device=device)
-    got = np.asarray(enc.decode_at(npz["indices"]), np.float64)
-    np.testing.assert_allclose(got, npz["v2_nttd"], rtol=1e-5, atol=1e-6)
-    golden_err = float(np.abs(got - npz["v2_nttd"]).max())
+    golden = {}
+    for name, key in GOLDEN_FILES:
+        with open(os.path.join(ROOT, "tests", "golden", name), "rb") as f:
+            enc = load_bytes(f.read(), device=device)
+        got = np.asarray(enc.decode_at(npz["indices"]), np.float64)
+        np.testing.assert_allclose(got, npz[key], rtol=1e-5, atol=1e-6)
+        golden[name] = {"key": key, "payload": type(enc).__name__,
+                        "max_abs_err": float(np.abs(got - npz[key]).max())}
 
     with open(os.path.join(ROOT, "benchmarks", "results", "fig5_stream_payload.tcdc"),
               "rb") as f:
@@ -834,7 +907,7 @@ def phase_golden(torch, device):
     require(dense.shape == (64, 32, 32) and bool(np.isfinite(dense).all()),
             "fig5 payload decode shape or values")
     np.testing.assert_allclose(dense, plain, rtol=1e-5, atol=1e-5)
-    emit({"phase": "golden", "v2_nttd_max_abs_err": golden_err,
+    emit({"phase": "golden", "tolerance": {"rtol": 1e-5, "atol": 1e-6}, "files": golden,
           "fig5_entries": int(dense.size),
           "fig5_max_abs_err_vs_plain": float(np.abs(dense - plain).max())})
 
@@ -1745,6 +1818,320 @@ def phase_fit_parity(torch, device):
           "seconds_auto": kern_s, "seconds_ref": plain_s, "launches_auto": launches})
 
 
+class TimedSource:
+    """A slab source whose ``slab_at`` adds its host seconds to ``seconds``
+    (the source values' share of a streaming run)."""
+
+    def __init__(self, source):
+        self.source, self.seconds = source, 0.0
+        self.shape, self.n_slabs = source.shape, source.n_slabs
+
+    def slab_at(self, cursor):
+        t = time.perf_counter()
+        slab = self.source.slab_at(cursor)
+        self.seconds += time.perf_counter() - t
+        return slab
+
+
+def stream_heldout(source):
+    """``sample_heldout`` of a few whole slabs (the tensor is never
+    materialised): flat indices into the tensor and their exact values."""
+    import numpy as np
+
+    from repro_torch.stream import sample_heldout
+
+    cursors, n = STREAM_HELDOUT
+    parts = [sample_heldout(source.slab_at(c).values, n=n, seed=c) for c in cursors]
+    return (np.concatenate([idx + c * source.slab_entries for c, (idx, _) in zip(cursors, parts)]),
+            np.concatenate([vals for _, vals in parts]))
+
+
+def sampled_fitness(source, enc, n, seed) -> float:
+    """1 - ||x - x_hat|| / ||x|| over ``n`` entries drawn from ``seed``,
+    the truth from the source's ``values_at``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    idx = np.stack([rng.integers(0, s, n) for s in source.shape], axis=1)
+    truth = source.values_at(idx).astype(np.float64)
+    err = np.asarray(enc.decode_at(idx), np.float64) - truth
+    return 1.0 - float(np.linalg.norm(err)) / max(float(np.linalg.norm(truth)), 1e-30)
+
+
+def phase_stream(torch, device, smi):
+    """The reference's fig5 FULL streaming run at full size on the card:
+    ``fit_stream("nttd", ...)`` over 2^26 synthetic entries in 256 slabs,
+    the tensor never materialised.  Every step must launch the forward and
+    backward ``lstm_scan`` and ``tt_contract`` kernels once and no plain
+    version may run.  The payload is written by ``write_chunked`` with a
+    held-out sample, read back onto the card, and must answer as fitted
+    through the fused decode; its decode must correlate with the truth
+    above ``STREAM_CORR_MIN``.  A second fitter, resumed at slab 128, must
+    give the same bytes.  Returns the phase's launches (fit, write and
+    read)."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.codecs import get_codec, load_file, save_bytes
+    from repro_torch.codecs.container import open_container
+    from repro_torch.kernels import ops, ref
+    from repro_torch.stream import SyntheticTensorSource, fit_stream, write_chunked
+
+    source = SyntheticTensorSource(STREAM_SHAPE, slab_entries=STREAM_SLAB,
+                                   seed=STREAM_SOURCE_SEED)
+    timed = TimedSource(source)
+    fitter = get_codec("nttd").stream_fitter(source.shape, **STREAM_OPTS)
+    require(fitter.device.type == "cuda" and fitter.cfg.kernel_impl == "auto",
+            f"the stream fitter runs {fitter.cfg.kernel_impl!r} on {fitter.device}")
+    steps = source.n_slabs * STREAM_OPTS["steps_per_slab"]
+    rng = np.random.default_rng(SEED)
+    idx = np.stack([rng.integers(0, n, REQUEST) for n in STREAM_SHAPE], axis=1)
+    corr_idx = np.stack([rng.integers(0, n, STREAM_CORR_ENTRIES) for n in STREAM_SHAPE], axis=1)
+    with plain_calls_counted(ref) as plain, tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        enc = fit_stream("nttd", timed, fitter=fitter)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        drain_s = time.perf_counter() - t1
+        fit_launches = ops.launch_counts()
+        # write and read back: a chunked v3 file with held-out truth, in a
+        # temporary directory
+        t = time.perf_counter()
+        heldout = stream_heldout(source)
+        heldout_s = time.perf_counter() - t
+        path = os.path.join(tmp, "stream.tcdc")
+        t = time.perf_counter()
+        file_bytes = write_chunked(path, enc, chunk_bytes=STREAM_CHUNK_BYTES, heldout=heldout)
+        write_s = time.perf_counter() - t
+        oc = open_container(path)
+        try:
+            n_chunks, got_heldout = len(oc.chunks), oc.heldout
+        finally:
+            oc.close()
+        t = time.perf_counter()
+        back = load_file(path, device=device)
+        served = back.decode_at(idx)
+        read_s = time.perf_counter() - t
+        direct = enc.decode_at(idx)
+        heldout_pos = np.stack(np.unravel_index(heldout[0], STREAM_SHAPE), axis=1)
+        heldout_corr = float(np.corrcoef(back.decode_at(heldout_pos), heldout[1])[0, 1])
+        t = time.perf_counter()
+        truth = source.values_at(corr_idx)
+        corr = float(np.corrcoef(truth, back.decode_at(corr_idx))[0, 1])
+        corr_s = time.perf_counter() - t
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+    require(sum(plain.values()) == 0, f"plain versions ran on the stream path: {plain}")
+    train = {k: fit_launches[k] for k in ("lstm_scan", "lstm_scan_bwd", "tt_contract",
+                                          "tt_contract_bwd")}
+    require(set(train.values()) == {steps} and fit_launches["decode_tile"] == 0,
+            f"{steps} stream steps launched {fit_launches}; expected one of each a step")
+    # four fused requests: the read-back, the fitted payload, the held-out
+    # entries and the correlation sample; no training kernel after the fit
+    require(launches["decode_tile"] == 4 and {k: launches[k] for k in train} == train,
+            f"the write and read-back launched {launches} after the fit's {fit_launches}")
+    require(bool(torch.isfinite(fitter.loss)), "non-finite loss in the last slab")
+    require(back.ct.device.type == "cuda", "the stream payload did not load onto the card")
+    np.testing.assert_array_equal(got_heldout.indices, heldout[0])
+    np.testing.assert_array_equal(got_heldout.values, heldout[1])
+    np.testing.assert_array_equal(source.values_at(heldout_pos), heldout[1])  # the truth
+    require(bool(np.isfinite(served).all()), "non-finite decode of the stream payload")
+    np.testing.assert_array_equal(served, direct)
+    require(corr > STREAM_CORR_MIN, f"stream payload correlation {corr} <= {STREAM_CORR_MIN}")
+
+    # resume: slabs [0, 128) and then [128, 256) on a second fitter
+    half = source.n_slabs // 2
+    t = time.perf_counter()
+    resumed_fitter = get_codec("nttd").stream_fitter(source.shape, **STREAM_OPTS)
+    fit_stream("nttd", source, stop=half, fitter=resumed_fitter)
+    resumed = fit_stream("nttd", source, start=half, fitter=resumed_fitter)
+    torch.cuda.synchronize()
+    resume_s = time.perf_counter() - t
+    blob = save_bytes(enc)
+    require(save_bytes(resumed) == blob, "the resumed stream fit's bytes differ from the "
+            "uninterrupted run's")
+    n = source.n_entries
+    emit({"phase": "stream", "shape": list(STREAM_SHAPE), "entries": n,
+          "slab_entries": STREAM_SLAB, "slabs": source.n_slabs, "steps": steps,
+          "folded_shape": list(enc.ct.spec.folded_shape), "config": STREAM_OPTS,
+          "source": f"SyntheticTensorSource seed {STREAM_SOURCE_SEED}",
+          "reduced": [], "changed": STREAM_CHANGED, "seconds": fit_s,
+          "seconds_by_part": {"source_values": timed.seconds,
+                              "host_sampling": fitter.seconds["sampling"],
+                              "training_dispatch": fitter.seconds["training"],
+                              "device_drain": drain_s,
+                              "reservoir": fitter.seconds["reservoir"],
+                              "heldout_sample": heldout_s, "write": write_s,
+                              "read_and_request": read_s, "correlation": corr_s},
+          "slabs_per_s": source.n_slabs / fit_s, "steps_per_s": steps / fit_s,
+          "entries_per_s": n / fit_s, "correlation": corr,
+          "correlation_entries": STREAM_CORR_ENTRIES, "heldout_entries": len(heldout[0]),
+          "heldout_correlation": heldout_corr, "payload_bytes": len(blob),
+          "payload_bytes_v_a": enc.payload_bytes(), "file_bytes": file_bytes,
+          "chunks": n_chunks, "request_entries": REQUEST,
+          "resumed_at_slab": half, "resume_identical": True, "resume_seconds": resume_s,
+          "launches_fit": fit_launches, "launches": launches, "plain_calls": plain,
+          "name_power_limit": smi})
+    return launches, fit_s / steps
+
+
+def stream_step_timing(torch, device, step_s):
+    """The four training kernels at a step of the stream (``STREAM_STEP``:
+    B 8192, T 14, H 12, R 6, K 12) on ``training_inputs``' operands, with
+    CUDA events like every row, each beside its bound, and the stream
+    phase's seconds a step (its whole fit over its steps)."""
+    from repro_torch.kernels import lstm as _lstm
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import tt_contract as _tt
+
+    b, t, h, r = STREAM_STEP
+    k = t - 2
+    gen = torch.Generator().manual_seed(SEED)
+    (x, lw, dhs), (first, mid, last, dout) = training_inputs(torch, gen, b, t, h, r, device)
+    hs = ops.lstm_scan(x, *lw, impl="cuda")
+    ms = {"lstm_scan": time_ms(torch, lambda: ops.lstm_scan(x, *lw, impl="cuda"), 20),
+          "lstm_scan_bwd": time_ms(torch, lambda: _lstm.lstm_scan_bwd(x, *lw, hs, dhs), 20),
+          "tt_contract": time_ms(torch, lambda: ops.tt_contract(first, mid, last, impl="cuda"),
+                                 20),
+          "tt_contract_bwd": time_ms(torch, lambda: _tt.tt_contract_bwd(first, mid, last, dout),
+                                     20)}
+    bounds = {"lstm_scan": bound(*lstm_cost(b, t, h), PEAK_FP32),
+              "lstm_scan_bwd": bound(*lstm_bwd_cost(b, t, h), PEAK_FP32),
+              "tt_contract": bound(b * (k * 2 * r * r + 2 * r), tt_bytes(b, k, r, 4), PEAK_FP32),
+              "tt_contract_bwd": bound(*tt_bwd_cost(b, k, r), PEAK_FP32)}
+    kernel_ms = sum(ms.values())
+    emit({"phase": "timing.stream_step", "shape": {"B": b, "T": t, "H": h, "R": r, "K": k},
+          "ms": ms, "bounds": bounds, "kernels_ms": kernel_ms, "step_ms": step_s * 1e3,
+          "kernels_share_of_step": kernel_ms / (step_s * 1e3)})
+
+
+def phase_stream_parity(torch, device):
+    """Both routes, "ref" (the plain versions) and "auto" (the kernels),
+    from the same seed over the first ``STREAM_PARITY_SLABS`` slabs of the
+    stream's source: every param within ``STREAM_PARITY_RTOL`` /
+    ``STREAM_PARITY_ATOL``, and their sampled fitness within
+    ``FIT_PARITY_TOL``."""
+    from repro_torch.codecs import get_codec
+    from repro_torch.kernels import ops
+    from repro_torch.stream import SyntheticTensorSource, fit_stream
+
+    source = SyntheticTensorSource(STREAM_SHAPE, slab_entries=STREAM_SLAB,
+                                   seed=STREAM_SOURCE_SEED)
+    runs = {}
+    for impl in ("ref", "auto"):
+        fitter = get_codec("nttd").stream_fitter(source.shape, **STREAM_OPTS, kernel_impl=impl)
+        ops.reset_launch_counts()
+        t = time.perf_counter()
+        enc = fit_stream("nttd", source, stop=STREAM_PARITY_SLABS, fitter=fitter)
+        torch.cuda.synchronize()
+        runs[impl] = (fitter, enc, time.perf_counter() - t, ops.launch_counts())
+    (plain, plain_enc, plain_s, plain_launches) = runs["ref"]
+    (kern, kern_enc, kern_s, launches) = runs["auto"]
+    require(not any(plain_launches.values()), f"the ref route launched {plain_launches}")
+    steps = STREAM_PARITY_SLABS * STREAM_OPTS["steps_per_slab"]
+    require(launches["lstm_scan_bwd"] == launches["tt_contract_bwd"] == steps,
+            f"the auto route launched {launches} in {steps} steps")
+    diffs = {}
+    worst = 0.0
+    for (key, got), (_, want) in zip(_param_leaves(kern.params), _param_leaves(plain.params)):
+        excess = ((got - want).abs() - STREAM_PARITY_ATOL
+                  - STREAM_PARITY_RTOL * want.abs()).max().item()
+        diffs[key] = float((got - want).abs().max())
+        worst = max(worst, excess)
+    fit_auto = sampled_fitness(source, kern_enc, STREAM_PARITY_ENTRIES, SEED)
+    fit_ref = sampled_fitness(source, plain_enc, STREAM_PARITY_ENTRIES, SEED)
+    emit({"phase": "stream.parity", "slabs": STREAM_PARITY_SLABS, "steps": steps,
+          "rtol": STREAM_PARITY_RTOL, "atol": STREAM_PARITY_ATOL,
+          "max_abs_param_diff": diffs, "worst_excess_over_tolerance": worst,
+          "fitness_auto": fit_auto, "fitness_ref": fit_ref,
+          "fitness_entries": STREAM_PARITY_ENTRIES, "fitness_tolerance": FIT_PARITY_TOL,
+          "seconds_auto": kern_s, "seconds_ref": plain_s, "launches_auto": launches})
+    require(worst <= 0, f"stream params differ beyond rtol {STREAM_PARITY_RTOL} / atol "
+            f"{STREAM_PARITY_ATOL}: {diffs}")
+    require(abs(fit_auto - fit_ref) <= FIT_PARITY_TOL,
+            f"sampled fitness {fit_auto} (auto) against {fit_ref} (ref)")
+
+
+def _param_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _param_leaves(tree[k], f"{prefix}{k}/")
+    else:
+        yield prefix.rstrip("/"), tree
+
+
+def phase_stream_delta(torch, device):
+    """A delta chain on the card: a keyframe from ``fit_stream`` at
+    ``STREAM_DELTA_SHAPE``, two residuals (``STREAM_DELTA_SCALE`` times the
+    sources of ``STREAM_DELTA_SEEDS``) fitted by one ``DeltaFitter``, written
+    by the delta-mode ``ChunkedWriter`` with a ``sync`` after each version.
+    Read back on the card the file is a ``ChainEncoded`` whose answers are
+    the f64 sum of its components', each decoded by one fused launch."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.codecs import load_file
+    from repro_torch.kernels import ops, ref
+    from repro_torch.stream import ChunkedWriter, SyntheticTensorSource, fit_stream
+    from repro_torch.temporal import ChainEncoded, DeltaFitter
+
+    t0 = time.perf_counter()
+    key_source = SyntheticTensorSource(STREAM_DELTA_SHAPE, slab_entries=STREAM_SLAB,
+                                       seed=STREAM_SOURCE_SEED)
+    keyframe = fit_stream("nttd", key_source, **STREAM_OPTS)
+    fitter = DeltaFitter(STREAM_DELTA_SHAPE, "nttd", slab_entries=1 << 16,
+                         opts=STREAM_DELTA_OPTS)
+    parts = [keyframe]
+    for seed in STREAM_DELTA_SEEDS:
+        src = SyntheticTensorSource(STREAM_DELTA_SHAPE, slab_entries=STREAM_SLAB, seed=seed)
+        dense = np.concatenate([s.values for s in src.iter_slabs()]).reshape(STREAM_DELTA_SHAPE)
+        parts.append(fitter.fit_residual(STREAM_DELTA_SCALE * dense))
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED)
+    idx = np.stack([rng.integers(0, n, REQUEST) for n in STREAM_DELTA_SHAPE], axis=1)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "delta.tcdc")
+        synced = []
+        with ChunkedWriter(path, "nttd", delta=True) as w:
+            for v, enc in enumerate(parts):
+                w.begin_version(v - 1)
+                body = enc.to_bytes()
+                for at in range(0, len(body), STREAM_CHUNK_BYTES):
+                    w.append(body[at:at + STREAM_CHUNK_BYTES])
+                synced.append(w.sync())
+        chain = load_file(path, device=device)
+    require(isinstance(chain, ChainEncoded) and len(chain.components) == len(parts),
+            f"the delta file read back as {type(chain).__name__}")
+    require(all(c.ct.device.type == "cuda" and c.ct.cfg.kernel_impl == "auto"
+                for c in chain.components), "a chain component is not on the card's decode")
+    with plain_calls_counted(ref) as plain:
+        ops.reset_launch_counts()
+        got = chain.decode_at(idx)
+        launches = ops.launch_counts()
+    require(sum(plain.values()) == 0 and launches["decode_tile"] == len(parts),
+            f"the chain's request launched {launches}, plain {plain}")
+    want = np.zeros(REQUEST)
+    for c in chain.components:
+        want += np.asarray(c.decode_at(idx), np.float64)
+    np.testing.assert_array_equal(got, want)
+    fitted = sum(np.asarray(p.decode_at(idx), np.float64) for p in parts)
+    np.testing.assert_allclose(got, fitted, rtol=1e-6, atol=1e-7)
+    emit({"phase": "stream.delta", "shape": list(STREAM_DELTA_SHAPE),
+          "keyframe": STREAM_OPTS, "delta": STREAM_DELTA_OPTS,
+          "residuals": [f"{STREAM_DELTA_SCALE} x SyntheticTensorSource seed {s}"
+                        for s in STREAM_DELTA_SEEDS],
+          "versions": len(parts), "bytes_after_each_sync": synced,
+          "component_bytes": [len(p.to_bytes()) for p in parts], "fit_seconds": fit_s,
+          "max_abs_vs_fitted": float(np.abs(got - fitted).max()),
+          "request_entries": REQUEST, "launches": launches})
+
+
 FIT_STEP_SHAPE = (8192, 10, 18, 10)  # B, T (PEMS-SF's d'), H, R of the MEDIUM fit
 
 
@@ -1875,6 +2262,9 @@ def main() -> int:
         simt_launches, lstm_simt_launches = phase_wide(torch, device)
         fit_launches, step_s = phase_fit(torch, device)
         phase_fit_parity(torch, device)
+        stream_launches, stream_step_s = phase_stream(torch, device, smi)
+        phase_stream_parity(torch, device)
+        phase_stream_delta(torch, device)
         serve_launches = phase_serve(torch, device)
         simt_lstm = lstm_simt_timing(torch, device, lstm_simt_launches, errs)
         from repro_torch.kernels import lstm as _lstm
@@ -1891,6 +2281,10 @@ def main() -> int:
         kernels.append(simt_lstm[0])
         kernels.append(flash_timing_row(torch, device, serve_launches, errs))
         kernels.extend(bwd_timing(torch, device, fit_launches, errs, step_s, fit_ops, bwd_ops))
+        stream_step_timing(torch, device, stream_step_s)
+        for row in kernels:  # and on the stream path (phase stream)
+            if row["name"] in stream_launches:
+                row["launches_stream"] = stream_launches[row["name"]]
         torch.cuda.synchronize()
         emit({"kernels": kernels})
     except Exception:  # any failed phase fails the run, with its traceback

@@ -7,8 +7,10 @@ numpy only.  Its entry points (``codecs.load_bytes``, ``decode_at``,
 CUDA device unless the caller passes ``device="cpu"``; without CUDA and
 without an explicit device they raise.
 
-Two slices are ported: NTTD payload decode and dense LM serving.  On a
-CUDA tensor the four kernels (``kernels/csrc/*.cu``: the fused decode, the
+Ported so far: the six codecs and their container (NTTD decode and
+fitting on the card), out-of-core streaming compression (``stream``),
+delta chains (``temporal``) and dense LM serving.  On a CUDA tensor the
+four kernels (``kernels/csrc/*.cu``: the fused decode, the
 LSTM scan, the TT chain and flash attention) are hand-written CUDA C++ for
 Hopper, built with ``nvcc`` at first use; on a CPU tensor each wrapper
 runs its plain PyTorch version (``kernels/ref.py``).

@@ -19,6 +19,7 @@ half.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import time
@@ -271,10 +272,18 @@ def compress(
     weight-gradient products run in full f32) and restored after."""
     config = config or CodecConfig()
     device = resolve_device(device)
+    with full_f32():
+        return _compress(np.asarray(x, dtype=np.float32), config, device)
+
+
+@contextlib.contextmanager
+def full_f32():
+    """TF32 off for the block (the head matmuls and the weight-gradient
+    products in full f32), the caller's setting restored after."""
     tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        return _compress(np.asarray(x, dtype=np.float32), config, device)
+        yield
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
 

@@ -171,20 +171,53 @@ def decode_operands(
     return bucket_operands(ws) if ws[0].device.type == "cuda" else ws
 
 
+# floats of one-hot rows a gradient product of ``_TableRows`` takes at once
+_ONEHOT_FLOATS = 1 << 24
+
+
+class _TableRows(torch.autograd.Function):
+    """``F.embedding(idx, table)`` with a deterministic gradient.
+
+    PyTorch's CUDA embedding backward sums a row's duplicate indices in an
+    order that changes from call to call, so two fits from one seed drift
+    apart.  Here the table's gradient is one-hot(idx)ᵀ · dx, matrix
+    products over chunks of at most ``_ONEHOT_FLOATS`` one-hot floats,
+    added in a fixed order: the same bits every call, on any device."""
+
+    @staticmethod
+    def forward(ctx, table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(idx)
+        ctx.rows = table.shape[0]
+        return torch.nn.functional.embedding(idx, table)
+
+    @staticmethod
+    def backward(ctx, dx: torch.Tensor):
+        (idx,) = ctx.saved_tensors
+        flat = idx.reshape(-1)
+        g = dx.reshape(-1, dx.shape[-1])
+        rows = torch.arange(ctx.rows, device=flat.device)
+        grad = torch.zeros((ctx.rows, g.shape[1]), dtype=dx.dtype, device=dx.device)
+        chunk = max(1, _ONEHOT_FLOATS // ctx.rows)
+        for s in range(0, flat.shape[0], chunk):
+            onehot = (flat[s:s + chunk, None] == rows).to(dx.dtype)
+            grad.addmm_(onehot.t(), g[s:s + chunk])
+        return grad, None
+
+
 def _embed(params: Params, folded_idx: torch.Tensor, spec: FoldingSpec) -> torch.Tensor:
-    """x [B, d', h]: row ``folded_idx[:, j]`` of mode j's table, one
-    ``F.embedding`` per distinct table over all the modes that share it.
+    """x [B, d', h]: row ``folded_idx[:, j]`` of mode j's table, one lookup
+    per distinct table over all the modes that share it (``_TableRows``).
     The same values as one gather per mode; its gradient sums a table's
-    rows over those modes with PyTorch's embedding backward, which sums a
-    row's duplicate indices in parallel segments (the backward of a gather
-    sums them one after another, and a table of 8 rows gets ~B d' / 8 of
-    them)."""
+    rows over those modes in one product of one-hot rows, in a fixed
+    order (the backward of a gather sums a row's duplicates one after
+    another with atomics, and a table of 8 rows gets ~B d' / 8 of them;
+    PyTorch's embedding backward sums them in a varying order)."""
     modes: dict[int, list[int]] = {}
     for j, m in enumerate(spec.folded_shape):
         modes.setdefault(m, []).append(j)
     parts, order = [], []
     for m, js in modes.items():
-        parts.append(torch.nn.functional.embedding(folded_idx[:, js], params[f"embed_{m}"]))
+        parts.append(_TableRows.apply(params[f"embed_{m}"], folded_idx[:, js]))
         order += js
     x = torch.cat(parts, dim=1)
     if order != sorted(order):

@@ -161,6 +161,24 @@ def test_embed_matches_per_mode_gathers(factors):
         torch.testing.assert_close(g, w, rtol=1e-6, atol=1e-6)
 
 
+@pytest.mark.parametrize("onehot_floats", [1 << 24, 64])
+def test_embed_gradient_is_repeatable(monkeypatch, onehot_floats):
+    """The tables' gradient (one-hot products, in chunks of
+    ``_ONEHOT_FLOATS`` floats; 64 makes several) is the embedding
+    backward's up to summation order, and the same bits on every call."""
+    monkeypatch.setattr(tnttd, "_ONEHOT_FLOATS", onehot_floats)
+    rng = np.random.default_rng(6)
+    table = torch.tensor(rng.normal(size=(8, 5)), dtype=torch.float32, requires_grad=True)
+    idx = torch.as_tensor(rng.integers(0, 8, (300, 3)))
+    dout = torch.randn((300, 3, 5))
+    got = [torch.autograd.grad(tnttd._TableRows.apply(table, idx), table, dout)[0]
+           for _ in range(2)]
+    want = torch.autograd.grad(torch.nn.functional.embedding(idx, table), table, dout)[0]
+    assert torch.equal(got[0], got[1])
+    torch.testing.assert_close(got[0], want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(tnttd._TableRows.apply(table, idx), table[idx])
+
+
 def test_training_impl_is_the_unfused_route():
     assert [tcodec.training_impl(i) for i in ("ref", "auto", "fused", "cuda")] == [
         "ref", "cuda", "cuda", "cuda"]
@@ -365,8 +383,16 @@ def test_port_fitted_payload_decodes_in_reference():
 
 
 def test_stream_fitter_is_not_ported():
-    with pytest.raises(NotImplementedError, match="streaming"):
-        get_codec("nttd").stream_fitter((4, 4, 4))
+    """Now ported (the name is kept): ``stream_fitter`` builds the port's
+    NTTD stream fitter, on the kernels' route by default, with the
+    reference's budget rule."""
+    from repro_torch.stream import NTTDStreamFitter
+
+    fitter = get_codec("nttd").stream_fitter((4, 4, 4), device="cpu")
+    assert isinstance(fitter, NTTDStreamFitter) and fitter.cfg.kernel_impl == "auto"
+    assert (fitter.cfg.rank, fitter.cfg.hidden) == (8, 16)
+    budget = get_codec("nttd").stream_fitter(SHAPE, 20000, device="cpu")
+    assert budget.cfg.rank == TNTTDCodec()._rank_for_budget(SHAPE, 20000, {})
 
 
 def test_paper_configs_match_reference():

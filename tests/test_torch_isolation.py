@@ -52,6 +52,8 @@ def test_importing_every_module_loads_no_jax():
         "for m in mods: importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
         "assert len(mods) >= 20, mods\n"
+        "assert {'repro_torch.stream.fit', 'repro_torch.stream.writer',\n"
+        "        'repro_torch.temporal.delta'} <= set(mods), mods\n"
         "assert not bad, bad\n"
         "print('ok', len(mods))\n"
     )
@@ -78,6 +80,21 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         codecs.get_codec("nttd").fit(np.zeros((4, 4, 4), np.float32), epochs=1)
     assert codecs.load_bytes(blob, device="cpu").ct.device.type == "cpu"
+    # streaming and the v4 delta read
+    from repro_torch import stream
+
+    source = stream.SyntheticTensorSource((4, 4, 4), slab_entries=16)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        stream.NTTDStreamFitter((4, 4, 4), rank=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        codecs.get_codec("nttd").stream_fitter((4, 4, 4), budget=4000)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        stream.fit_stream("nttd", source, rank=2)
+    with open(os.path.join(ROOT, "tests", "golden", "v4_delta.tcdc"), "rb") as f:
+        v4 = f.read()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        codecs.load_bytes(v4)
+    assert stream.fit_stream("nttd", source, rank=2, device="cpu").ct.device.type == "cpu"
 
 
 def test_wrappers_raise_when_the_library_cannot_be_built(monkeypatch):

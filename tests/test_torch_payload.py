@@ -1,7 +1,7 @@
 """Payloads across the two packages, on the CPU.
 
 The port must decode the checked-in payloads as the JAX package does
-(golden v2 at rtol 1e-5 / atol 1e-6, as ``tests/test_golden.py``; the
+(the four golden files at rtol 1e-5 / atol 1e-6, as ``tests/test_golden.py``; the
 chunked stream payload and a JAX-fitted NTTD at 1e-5), write bytes
 identical to the JAX package's for the same params, and read what the JAX
 package writes (and the reverse).
@@ -116,11 +116,21 @@ def test_fp16_and_fp64_bodies_load(fitted):
 
 
 def test_v4_delta_container_not_supported():
-    with pytest.raises(NotImplementedError, match="v4 delta"):
-        tcodecs.load_bytes(_read(os.path.join(GOLDEN, "v4_delta.tcdc")), device="cpu")
+    """Now supported (the name is kept): the golden v4 file decodes as the
+    chain of its latest version to ``v4_version2``, and as the reference's
+    ``load_bytes`` does."""
+    data = _read(os.path.join(GOLDEN, "v4_delta.tcdc"))
+    enc = tcodecs.load_bytes(data, device="cpu")
+    ref = jcodecs.load_bytes(data)
+    assert type(enc).__name__ == "ChainEncoded" and len(enc.components) == len(ref.components)
+    got = np.asarray(enc.decode_at(NPZ["indices"]), np.float64)
+    np.testing.assert_allclose(got, NPZ["v4_version2"], rtol=1e-5, atol=1e-6)
+    np.testing.assert_array_equal(got, ref.decode_at(NPZ["indices"]))
 
 
 def test_patched_container_not_supported(fitted):
+    """Now supported (the name is kept): a v3 file whose TCDP overlay
+    replaces every entry decodes to the overlay, the reference's answers."""
     _, ref = fitted
     body = ref.to_bytes()
     n = int(np.prod(ref.shape))
@@ -132,17 +142,29 @@ def test_patched_container_not_supported(fitted):
     ]
     patch = jcontainer.PatchEntry(0, n, 1, 2, "nttd")
     data = head + body + body + jcontainer.pack_footer(chunks, patches=[patch])
-    jcodecs.load_bytes(data)  # the reference reads it
-    with pytest.raises(NotImplementedError, match="TCDP"):
-        tcodecs.load_bytes(data, device="cpu")
+    assert tcontainer.pack_footer(
+        [tcontainer.ChunkEntry(c.offset, c.length, c.crc) for c in chunks],
+        patches=[tcontainer.PatchEntry(0, n, 1, 2, "nttd")]) == data[len(head) + 2 * len(body):]
+    want = jcodecs.load_bytes(data)  # the reference reads it
+    got = tcodecs.load_bytes(data, device="cpu")
+    assert type(got).__name__ == "PatchedEncoded" and got.codec_name == "nttd"
+    assert got.shape == want.shape and got.payload_bytes() == want.payload_bytes()
+    idx = NPZ["indices"] % np.array(ref.shape)
+    np.testing.assert_allclose(got.decode_at(idx), want.decode_at(idx), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got.to_dense(), want.to_dense(), rtol=1e-5, atol=1e-5)
 
 
 def test_other_codecs_not_registered():
-    assert tcodecs.available() == ["nttd"]
-    with pytest.raises(ValueError, match="unknown codec id 'ttd'"):
-        tcodecs.load_bytes(_read(os.path.join(GOLDEN, "v3_mono.tcdc")), device="cpu")
-    with pytest.raises(NotImplementedError):
-        tcodecs.get_codec("nttd").stream_fitter((2, 2, 2))
+    """Now registered (the name is kept): ``available()`` is the
+    reference's, and the TT payloads of ``v3_mono.tcdc`` and
+    ``v3_chunked.tcdc`` decode to ``v3``."""
+    assert tcodecs.available() == jcodecs.available()
+    for name in ("v3_mono.tcdc", "v3_chunked.tcdc"):
+        enc = tcodecs.load_bytes(_read(os.path.join(GOLDEN, name)), device="cpu")
+        assert enc.codec_name == "ttd"
+        np.testing.assert_allclose(np.asarray(enc.decode_at(NPZ["indices"]), np.float64),
+                                   NPZ["v3"], rtol=1e-5, atol=1e-6)
+    assert tcodecs.get_codec("nttd").stream_fitter((2, 2, 2), device="cpu").slabs_seen == 0
 
 
 def test_corrupt_containers_raise(fitted):
