@@ -132,6 +132,32 @@ Phases, each printing JSON lines:
    ``ChunkedWriter`` with a ``sync()`` after each version; read back on
    the card it is a ``ChainEncoded`` whose answers are the f64 sum of its
    components', one fused launch each.
+   service (``phase_service``): the codec service on the card.  Phase
+   main's PEMS-SF payload is written as a chunked v3 file of 8 chunks
+   with a held-out block of 4,096 entries (the plain route's decode), and
+   a ``VersionedStore`` is written on the card at fig10's NTTD settings
+   ((24, 16, 16), 8 versions, keyframe interval 8; its fits launch the
+   four training kernels and the fused decode, no plain version;
+   ``service.store``).  ``CodecService(cache_bytes=64 MiB,
+   canary_fraction=0.25, canary_min_fitness=0.999)`` serves the PEMS-SF
+   file lazily, direct and through tiles of 65,536 entries (932 tiles of
+   256 KiB), phase stream's fig5 file and phase stream.delta's and the
+   store's v4 files: 32 direct requests of 65,536 entries, 64 tiled
+   requests inside a window of 64 tiles, one request swept over 512 tiles
+   (which must evict), 64 submits of 1,024 entries and one flush, every
+   version of both v4 files and 8 requests of the fig5 file (canaries).
+   The traffic runs with prefetch off, on, with tracing on, and through
+   the plain route (``REPRO_DECODE_IMPL=ref``): answers and stats of the
+   first three bitwise equal, every answer within 1e-5 of the plain
+   pass's, versioned answers equal to ``VersionedReader.decode_at``.  The
+   first pass runs no plain version and launches ``decode_tile`` exactly
+   once per counted decode call and canary check; resident bytes stay
+   within the budget; device memory is what the materialized payloads hold
+   (within 1 MiB) at every check and back to the baseline after the
+   unloads; the trace holds the service's spans and ``kernel_decode`` and
+   exports to JSON that loads.  It prints request ms (direct, tiled miss
+   and hit, sweep, flush, versioned), the traced materialize ms, the hit
+   ratio, resident bytes, launches, the canary stats and breach events.
 7. serve: the LM serving path, ``repro_torch.launch.serve.main`` on
    qwen1.5-4b at full width (40 layers, d_model 2560, 20 heads of 128,
    vocab 151,936) in bf16 with random weights from seed 0: 8 requests of
@@ -195,6 +221,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 
@@ -602,6 +629,29 @@ STREAM_DELTA_OPTS = dict(rank=3, hidden=6, steps_per_slab=2, batch_size=8192, se
 STREAM_DELTA_SCALE, STREAM_DELTA_SEEDS = 0.05, (2, 3)
 # a training step of the stream (B, T, H, R): the kernel cases at its shapes
 STREAM_STEP = (8192, 14, 12, 6)
+# phase service: CodecService on the card over phase main's PEMS-SF payload
+# (a chunked v3 file with a held-out block of the plain route's decode),
+# phase stream's fig5 file, phase stream.delta's v4 file and a
+# VersionedStore at fig10's NTTD settings (benchmarks/fig10_temporal.py:120-131)
+SERVICE_CACHE_BYTES = 64 << 20
+SERVICE_TILE = 65_536               # entries a decode tile: 932 tiles of 256 KiB
+SERVICE_CANARY = dict(canary_fraction=0.25, canary_seed=0, canary_min_fitness=0.999)
+SERVICE_HELDOUT = 4096              # held-out entries in the PEMS-SF file
+SERVICE_CHUNKS = 8                  # the PEMS-SF body in this many chunks
+SERVICE_DIRECT = 32                 # direct requests of REQUEST entries
+SERVICE_WINDOW = (100, 64, 64)      # first tile, tiles, requests of REQUEST entries
+SERVICE_SWEEP_TILES = 512           # one request over this many tiles: must evict
+SERVICE_SUBMITS = (64, 1024)        # submits of this many entries, one flush
+SERVICE_FIG5_REQUESTS = 8           # requests of the fig5 file (canaries at calls 0, 4)
+SERVICE_MEM_SLACK = 1 << 20         # device bytes beyond the payloads' own tensors
+SERVICE_TOL = 1e-5                  # rtol = atol against the plain route
+STORE_SHAPE, STORE_VERSIONS, STORE_KEYFRAME_INTERVAL = (24, 16, 16), 8, 8
+STORE_DRIFT = dict(drift=0.04, noise=0.03, seed=11)
+STORE_KEYFRAME_OPTS = dict(rank=8, hidden=16, epochs=30, batch_size=2048, eval_batch=2048,
+                           init_reorder=False, update_reorder=False, seed=0)
+STORE_DELTA_OPTS = dict(rank=2, hidden=8, d_prime=2, lr=1e-2, batch_size=1024,
+                        steps_per_slab=150, seed=0)
+STORE_CHUNK_BYTES = 4096
 
 
 # ---------------------------------------------------------------------------
@@ -1858,7 +1908,7 @@ def sampled_fitness(source, enc, n, seed) -> float:
     return 1.0 - float(np.linalg.norm(err)) / max(float(np.linalg.norm(truth)), 1e-30)
 
 
-def phase_stream(torch, device, smi):
+def phase_stream(torch, device, smi, workdir):
     """The reference's fig5 FULL streaming run at full size on the card:
     ``fit_stream("nttd", ...)`` over 2^26 synthetic entries in 256 slabs,
     the tensor never materialised.  Every step must launch the forward and
@@ -1868,9 +1918,8 @@ def phase_stream(torch, device, smi):
     through the fused decode; its decode must correlate with the truth
     above ``STREAM_CORR_MIN``.  A second fitter, resumed at slab 128, must
     give the same bytes.  Returns the phase's launches (fit, write and
-    read)."""
-    import tempfile
-
+    read), its seconds a step and the written file's path (in ``workdir``,
+    which phase ``service`` serves)."""
     import numpy as np
 
     from repro_torch.codecs import get_codec, load_file, save_bytes
@@ -1888,7 +1937,7 @@ def phase_stream(torch, device, smi):
     rng = np.random.default_rng(SEED)
     idx = np.stack([rng.integers(0, n, REQUEST) for n in STREAM_SHAPE], axis=1)
     corr_idx = np.stack([rng.integers(0, n, STREAM_CORR_ENTRIES) for n in STREAM_SHAPE], axis=1)
-    with plain_calls_counted(ref) as plain, tempfile.TemporaryDirectory() as tmp:
+    with plain_calls_counted(ref) as plain:
         torch.cuda.synchronize()
         ops.reset_launch_counts()
         t0 = time.perf_counter()
@@ -1898,12 +1947,11 @@ def phase_stream(torch, device, smi):
         fit_s = time.perf_counter() - t0
         drain_s = time.perf_counter() - t1
         fit_launches = ops.launch_counts()
-        # write and read back: a chunked v3 file with held-out truth, in a
-        # temporary directory
+        # write and read back: a chunked v3 file with held-out truth
         t = time.perf_counter()
         heldout = stream_heldout(source)
         heldout_s = time.perf_counter() - t
-        path = os.path.join(tmp, "stream.tcdc")
+        path = os.path.join(workdir, "stream.tcdc")
         t = time.perf_counter()
         file_bytes = write_chunked(path, enc, chunk_bytes=STREAM_CHUNK_BYTES, heldout=heldout)
         write_s = time.perf_counter() - t
@@ -1976,7 +2024,7 @@ def phase_stream(torch, device, smi):
           "resumed_at_slab": half, "resume_identical": True, "resume_seconds": resume_s,
           "launches_fit": fit_launches, "launches": launches, "plain_calls": plain,
           "name_power_limit": smi})
-    return launches, fit_s / steps
+    return launches, fit_s / steps, path
 
 
 def stream_step_timing(torch, device, step_s):
@@ -2064,15 +2112,14 @@ def _param_leaves(tree, prefix=""):
         yield prefix.rstrip("/"), tree
 
 
-def phase_stream_delta(torch, device):
+def phase_stream_delta(torch, device, workdir):
     """A delta chain on the card: a keyframe from ``fit_stream`` at
     ``STREAM_DELTA_SHAPE``, two residuals (``STREAM_DELTA_SCALE`` times the
     sources of ``STREAM_DELTA_SEEDS``) fitted by one ``DeltaFitter``, written
     by the delta-mode ``ChunkedWriter`` with a ``sync`` after each version.
     Read back on the card the file is a ``ChainEncoded`` whose answers are
-    the f64 sum of its components', each decoded by one fused launch."""
-    import tempfile
-
+    the f64 sum of its components', each decoded by one fused launch.
+    Returns the file's path (in ``workdir``)."""
     import numpy as np
 
     from repro_torch.codecs import load_file
@@ -2095,17 +2142,16 @@ def phase_stream_delta(torch, device):
     fit_s = time.perf_counter() - t0
     rng = np.random.default_rng(SEED)
     idx = np.stack([rng.integers(0, n, REQUEST) for n in STREAM_DELTA_SHAPE], axis=1)
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "delta.tcdc")
-        synced = []
-        with ChunkedWriter(path, "nttd", delta=True) as w:
-            for v, enc in enumerate(parts):
-                w.begin_version(v - 1)
-                body = enc.to_bytes()
-                for at in range(0, len(body), STREAM_CHUNK_BYTES):
-                    w.append(body[at:at + STREAM_CHUNK_BYTES])
-                synced.append(w.sync())
-        chain = load_file(path, device=device)
+    path = os.path.join(workdir, "delta.tcdc")
+    synced = []
+    with ChunkedWriter(path, "nttd", delta=True) as w:
+        for v, enc in enumerate(parts):
+            w.begin_version(v - 1)
+            body = enc.to_bytes()
+            for at in range(0, len(body), STREAM_CHUNK_BYTES):
+                w.append(body[at:at + STREAM_CHUNK_BYTES])
+            synced.append(w.sync())
+    chain = load_file(path, device=device)
     require(isinstance(chain, ChainEncoded) and len(chain.components) == len(parts),
             f"the delta file read back as {type(chain).__name__}")
     require(all(c.ct.device.type == "cuda" and c.ct.cfg.kernel_impl == "auto"
@@ -2130,6 +2176,318 @@ def phase_stream_delta(torch, device):
           "component_bytes": [len(p.to_bytes()) for p in parts], "fit_seconds": fit_s,
           "max_abs_vs_fitted": float(np.abs(got - fitted).max()),
           "request_entries": REQUEST, "launches": launches})
+    return path
+
+
+def service_pems_file(enc, workdir):
+    """Phase main's PEMS-SF payload as a chunked v3 file of
+    ``SERVICE_CHUNKS`` chunks, with a held-out block of ``SERVICE_HELDOUT``
+    entries whose values are the plain route's decode."""
+    import numpy as np
+
+    from repro_torch.codecs.adapters import NTTDEncoded
+    from repro_torch.stream import write_chunked
+
+    rng = np.random.default_rng(SEED + 7)
+    flat = np.sort(rng.choice(int(np.prod(PEMS_SHAPE)), SERVICE_HELDOUT, replace=False))
+    pos = np.stack(np.unravel_index(flat, PEMS_SHAPE), axis=1)
+    truth = _with_impl(enc, "ref", NTTDEncoded).decode_at(pos).astype(np.float64)
+    path = os.path.join(workdir, "pems.tcdc")
+    chunk = -(-len(enc.to_bytes()) // SERVICE_CHUNKS)
+    return path, write_chunked(path, enc, chunk_bytes=chunk, heldout=(flat.astype(np.int64),
+                                                                        truth))
+
+
+def service_store(torch, smi, workdir):
+    """A ``VersionedStore`` written on the card at fig10's NTTD settings:
+    the keyframe fitted by ``compress`` and seven residuals by one
+    ``DeltaFitter``, both on the default device through the training
+    kernels, forward and backward; no plain version may run.  Returns the
+    file's path and the launches of the writing."""
+    import numpy as np
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.temporal import VersionedStore, drifting_versions
+
+    data = drifting_versions(STORE_SHAPE, STORE_VERSIONS, **STORE_DRIFT)
+    path = os.path.join(workdir, "store.tcdc")
+    appends = []
+    with plain_calls_counted(ref) as plain:
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with VersionedStore.create(path, "nttd", keyframe_interval=STORE_KEYFRAME_INTERVAL,
+                                   chunk_bytes=STORE_CHUNK_BYTES,
+                                   keyframe_opts=STORE_KEYFRAME_OPTS,
+                                   delta_opts=STORE_DELTA_OPTS, delta_passes=2) as store:
+            for x in data:
+                t = time.perf_counter()
+                stats = store.append(x)  # ends in a host read: the fitness
+                appends.append({**stats, "seconds": time.perf_counter() - t})
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = ops.launch_counts()
+    require(sum(plain.values()) == 0, f"plain versions ran writing the store: {plain}")
+    for name in ("decode_tile", "lstm_scan", "lstm_scan_bwd", "tt_contract", "tt_contract_bwd"):
+        require(launches[name] > 0, f"{name} was not launched writing the store: {launches}")
+    require(all(np.isfinite(a["fitness"]) for a in appends), f"store appends {appends}")
+    emit({"phase": "service.store", "shape": list(STORE_SHAPE), "versions": STORE_VERSIONS,
+          "keyframe_interval": STORE_KEYFRAME_INTERVAL, "drift": STORE_DRIFT,
+          "keyframe": STORE_KEYFRAME_OPTS, "delta": STORE_DELTA_OPTS,
+          "source": "benchmarks/fig10_temporal.py:120-131 (the NTTD cell, default mode)",
+          "appends": appends, "seconds": seconds, "file_bytes": os.path.getsize(path),
+          "launches": launches, "plain_calls": plain, "name_power_limit": smi})
+    return path, launches
+
+
+def service_traffic():
+    """The requests of one pass, drawn once from a seed."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 23)
+
+    def uniform(shape, n):
+        return np.stack([rng.integers(0, s, n) for s in shape], axis=1)
+
+    def flat_range(lo, hi, n):
+        return np.stack(np.unravel_index(rng.integers(lo, hi, n), PEMS_SHAPE), axis=1)
+
+    first, tiles, n_window = SERVICE_WINDOW
+    t = SERVICE_TILE
+    sweep_lo = (first + tiles) * t
+    return {
+        "direct": [uniform(PEMS_SHAPE, REQUEST) for _ in range(SERVICE_DIRECT)],
+        "window": [flat_range(first * t, (first + tiles) * t, REQUEST) for _ in range(n_window)],
+        "sweep": flat_range(sweep_lo, sweep_lo + SERVICE_SWEEP_TILES * t, REQUEST),
+        "submits": [uniform(PEMS_SHAPE, SERVICE_SUBMITS[1]) for _ in range(SERVICE_SUBMITS[0])],
+        "delta": uniform(STREAM_DELTA_SHAPE, REQUEST),
+        "store": uniform(STORE_SHAPE, REQUEST),
+        "fig5": [uniform(STREAM_SHAPE, REQUEST) for _ in range(SERVICE_FIG5_REQUESTS)],
+    }
+
+
+def payload_device_bytes(svc) -> int:
+    """Device bytes the service's materialized NTTD payloads hold: their
+    params and, once built, the fused decode's operands (each storage once:
+    an operand already in its layout is the param itself)."""
+    storages = {}
+    encs = [sp.enc for sp in svc._streams.values() if sp.enc is not None]
+    encs += [e for sp in svc._streams.values() for e in sp.vencs.values()]
+    for enc in encs:
+        tensors = [t for _, t in _param_leaves(enc.ct.params)]
+        tensors += list(enc.ct.__dict__.get("decode_operands", ()))
+        for t in tensors:
+            if t.is_cuda:
+                storages[t.untyped_storage().data_ptr()] = t.untyped_storage().nbytes()
+    return sum(storages.values())
+
+
+def service_pass(torch, paths, traffic, prefetch):
+    """One pass of the traffic through a fresh ``CodecService`` on the
+    card.  Returns the answers, the request ms, the stats, the device memory
+    checks and the predicted ``decode_tile`` launches."""
+    import gc
+
+    import numpy as np
+
+    from repro_torch.serve.codec_service import CodecService
+
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    svc = CodecService(cache_bytes=SERVICE_CACHE_BYTES, prefetch=prefetch, **SERVICE_CANARY)
+    require(svc.device.type == "cuda", f"the service runs on {svc.device}")
+    answers, ms, resident, memory = {}, {}, [], {}
+
+    def ask(label, name, idx, version=None):
+        t = time.perf_counter()
+        answers[label] = svc.decode_at(name, idx, version=version)
+        ms[label] = (time.perf_counter() - t) * 1e3
+        resident.append(svc.cache_stats.resident_bytes)
+
+    def held(label):  # device memory is what the materialized payloads hold
+        gc.collect()
+        memory[label] = (torch.cuda.memory_allocated() - base, payload_device_bytes(svc))
+
+    svc.load_stream("pems", paths["pems"])
+    svc.load_stream("pems_tiled", paths["pems"], tile_entries=SERVICE_TILE)
+    for name in ("delta", "store", "fig5"):
+        svc.load_stream(name, paths[name])
+    for i, idx in enumerate(traffic["direct"]):
+        ask(f"direct{i}", "pems", idx)
+    for i, idx in enumerate(traffic["window"]):
+        ask(f"window{i}", "pems_tiled", idx)
+    held("before_sweep")
+    ask("sweep", "pems_tiled", traffic["sweep"])
+    held("after_sweep")
+    t = time.perf_counter()
+    tickets = [svc.submit("pems", idx) for idx in traffic["submits"]]
+    out = svc.flush()
+    ms["flush"] = (time.perf_counter() - t) * 1e3
+    require(not svc.failed, f"flush failed: {svc.failed}")
+    answers["flush"] = np.concatenate([out[k] for k in tickets])
+    for name in ("delta", "store"):
+        for v in range(svc.info(name).n_versions):
+            ask(f"{name}_v{v}", name, traffic[name], v)
+    for i, idx in enumerate(traffic["fig5"]):
+        ask(f"fig5_{i}", "fig5", idx)
+    held("after_queries")
+    on_card = [sp.enc.ct.device.type for sp in svc._streams.values() if sp.enc is not None]
+    on_card += [e.ct.device.type for sp in svc._streams.values() for e in sp.vencs.values()]
+    stats = {"cache": svc.cache_stats.as_dict(),
+             "info": {n: dataclasses.asdict(svc.info(n)) for n in svc.payloads()},
+             "canary": svc.canary_stats(), "metrics": svc.metrics.as_dict()}
+    checks = sum(c["value"] for c in stats["metrics"]["counters"] if c["name"] == "canary_checks")
+    predicted = sum(i["decode_calls"] for i in stats["info"].values()) + checks
+    for name in svc.payloads():
+        svc.unload(name)
+        held(f"unload_{name}")
+    torch.cuda.synchronize()
+    return {"answers": answers, "ms": ms, "stats": stats, "resident": resident,
+            "memory": memory, "on_card": on_card, "predicted_decode_tile": predicted,
+            "canary_checks": checks}
+
+
+def service_summary(run) -> dict:
+    """The timing and cache numbers of a pass, for the phase's line."""
+    import numpy as np
+
+    ms, cache = run["ms"], run["stats"]["cache"]
+    n_window = SERVICE_WINDOW[2]
+    return {
+        "direct_ms": [ms[f"direct{i}"] for i in range(SERVICE_DIRECT)],
+        "direct_ms_median": float(np.median([ms[f"direct{i}"] for i in range(SERVICE_DIRECT)])),
+        "tiled_miss_ms": ms["window0"],
+        "tiled_hit_ms_median": float(np.median([ms[f"window{i}"] for i in range(1, n_window)])),
+        "sweep_ms": ms["sweep"], "flush_ms": ms["flush"],
+        "versioned_ms": {k: v for k, v in ms.items() if k.startswith(("delta", "store"))},
+        "fig5_ms": [ms[f"fig5_{i}"] for i in range(SERVICE_FIG5_REQUESTS)],
+        "hits": cache["hits"], "misses": cache["misses"], "evictions": cache["evictions"],
+        "hit_ratio": cache["hits"] / max(cache["hits"] + cache["misses"], 1),
+        "resident_bytes_max": max(run["resident"]), "resident_bytes_end": run["resident"][-1],
+        "device_bytes": run["memory"],
+    }
+
+
+def phase_service(torch, device, smi, enc, workdir, stream_path, delta_path):
+    """``CodecService`` on the card (ROADMAP A.5): phase main's PEMS-SF
+    payload as a lazily loaded chunked v3 file, direct and through 256 KiB
+    decode tiles under a 64 MiB budget, coalesced submits, every version of
+    phase stream.delta's v4 file and of a ``VersionedStore`` written here,
+    and canaries on phase stream's fig5 file.  The traffic runs with
+    prefetch off, on, with tracing on, and once through the plain route
+    (``REPRO_DECODE_IMPL=ref``): the first three bitwise equal in answers
+    and stats, the plain pass within ``SERVICE_TOL``.  The first pass must
+    launch ``decode_tile`` exactly once per counted decode call and canary
+    check and run no plain version; every materialized payload is on the
+    card; evictions happen and resident bytes stay within the budget; device
+    memory is at every check what the materialized payloads hold, within
+    ``SERVICE_MEM_SLACK``, and back to the baseline after the last unload.
+    Returns the first pass's launches and the store's."""
+    import json
+
+    import numpy as np
+
+    from repro_torch import obs
+    from repro_torch.kernels import ops, ref
+    from repro_torch.temporal import VersionedReader
+
+    t0 = time.perf_counter()
+    pems_path, pems_bytes = service_pems_file(enc, workdir)
+    store_path, store_launches = service_store(torch, smi, workdir)
+    paths = {"pems": pems_path, "fig5": stream_path, "delta": delta_path, "store": store_path}
+    traffic = service_traffic()
+    setup_s = time.perf_counter() - t0
+
+    obs.clear_events()
+    with plain_calls_counted(ref) as plain:
+        ops.reset_launch_counts()
+        runs = {"prefetch_off": service_pass(torch, paths, traffic, prefetch=False)}
+        launches = ops.launch_counts()
+    breaches = obs.events("quality_breach")
+    require(sum(plain.values()) == 0, f"plain versions ran in the service pass: {plain}")
+    first = runs["prefetch_off"]
+    require(launches["decode_tile"] == first["predicted_decode_tile"],
+            f"decode_tile launched {launches['decode_tile']} times; the rule "
+            f"(decode calls + canary checks) predicts {first['predicted_decode_tile']}")
+    runs["prefetch_on"] = service_pass(torch, paths, traffic, prefetch=True)
+    rec = obs.enable_tracing(capacity=1 << 17)
+    rec.clear()
+    try:
+        runs["tracing_on"] = service_pass(torch, paths, traffic, prefetch=False)
+        spans = rec.snapshot()
+        trace_path = os.path.join(workdir, "service_trace.json")
+        n_spans = obs.export_chrome_trace(trace_path)
+    finally:
+        obs.disable_tracing()
+        rec.clear()
+    os.environ["REPRO_DECODE_IMPL"] = "ref"
+    try:
+        plain_run = service_pass(torch, paths, traffic, prefetch=False)
+    finally:
+        os.environ.pop("REPRO_DECODE_IMPL")
+
+    for key, run in runs.items():
+        require(all(d == "cuda" for d in run["on_card"]) and run["on_card"],
+                f"{key}: materialized payloads on {run['on_card']}")
+        cache = run["stats"]["cache"]
+        require(cache["evictions"] > 0, f"{key}: no eviction under the budget")
+        require(max(run["resident"]) <= SERVICE_CACHE_BYTES, f"{key}: resident bytes "
+                f"{max(run['resident'])} above the budget")
+        for label, (allocated, payloads) in run["memory"].items():
+            require(abs(allocated - payloads) <= SERVICE_MEM_SLACK,
+                    f"{key} {label}: {allocated} device bytes allocated, payloads hold "
+                    f"{payloads}")
+        last = [v for k, v in run["memory"].items() if k.startswith("unload_")][-1]
+        require(last[0] <= SERVICE_MEM_SLACK, f"{key}: {last[0]} bytes left after unloads")
+        if key != "prefetch_off":  # observational: bitwise the first pass
+            require(run["answers"].keys() == first["answers"].keys(), key)
+            for label, got in run["answers"].items():
+                np.testing.assert_array_equal(got, first["answers"][label], err_msg=label)
+            require(run["stats"] == first["stats"], f"{key}: stats differ from prefetch off")
+    for label, got in first["answers"].items():
+        require(got.shape[0] > 0 and bool(np.isfinite(got).all()), f"answer {label}")
+        np.testing.assert_allclose(got, plain_run["answers"][label], rtol=SERVICE_TOL,
+                                   atol=SERVICE_TOL, err_msg=label)
+    err = max(float(np.abs(got - plain_run["answers"][label]).max())
+              for label, got in first["answers"].items())
+    for name in ("delta", "store"):  # the eager reader's chain sums, bitwise
+        with VersionedReader(paths[name]) as reader:
+            for v in range(reader.n_versions):
+                np.testing.assert_array_equal(first["answers"][f"{name}_v{v}"],
+                                              reader.decode_at(traffic[name], v))
+    names = {s.name for s in spans}
+    want = {"decode_at", "materialize", "chunk_read", "tile_decode", "canary", "kernel_decode"}
+    require(want <= names, f"the trace lacks {want - names}")
+    with open(trace_path) as f:
+        doc = json.load(f)
+    require(len([e for e in doc["traceEvents"] if e["ph"] == "X"]) == n_spans == len(spans),
+            "the exported trace does not hold the recorded spans")
+    materialize_ms = {}
+    for s in spans:
+        if s.name == "materialize":
+            materialize_ms.setdefault(s.attrs["payload"], []).append(s.duration * 1e3)
+    emit({"phase": "service", "payloads": {
+              "pems": {"shape": list(PEMS_SHAPE), "file_bytes": pems_bytes,
+                       "chunks": SERVICE_CHUNKS, "heldout": SERVICE_HELDOUT,
+                       "tile_entries": SERVICE_TILE,
+                       "tiles": -(-int(np.prod(PEMS_SHAPE)) // SERVICE_TILE)},
+              "fig5": {"shape": list(STREAM_SHAPE)}, "delta": {"shape": list(STREAM_DELTA_SHAPE)},
+              "store": {"shape": list(STORE_SHAPE), "versions": STORE_VERSIONS}},
+          "cache_bytes": SERVICE_CACHE_BYTES, "canary": SERVICE_CANARY,
+          "request_entries": REQUEST, "setup_s": setup_s,
+          "passes": {k: service_summary(r) for k, r in runs.items()},
+          "plain_pass": service_summary(plain_run),
+          "identical_across_passes": True, "max_abs_err_vs_plain": err,
+          "tol_vs_plain": SERVICE_TOL, "launches": launches,
+          "predicted_decode_tile": first["predicted_decode_tile"],
+          "canary_checks": first["canary_checks"], "canary_stats": first["stats"]["canary"],
+          "quality_breach_events": [{k: v for k, v in e.items() if k != "t"} for e in breaches],
+          "spans": len(spans), "span_names": sorted(names),
+          "materialize_ms_traced": materialize_ms,
+          "mem_slack_bytes": SERVICE_MEM_SLACK, "plain_calls": plain,
+          "seconds": time.perf_counter() - t0, "name_power_limit": smi})
+    return launches, store_launches
 
 
 FIT_STEP_SHAPE = (8192, 10, 18, 10)  # B, T (PEMS-SF's d'), H, R of the MEDIUM fit
@@ -2253,6 +2611,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda")
     t0 = time.perf_counter()
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_")  # files phase service serves
     try:
         smi = phase_device(torch)
         errs = phase_kernels(torch, device)
@@ -2262,9 +2621,11 @@ def main() -> int:
         simt_launches, lstm_simt_launches = phase_wide(torch, device)
         fit_launches, step_s = phase_fit(torch, device)
         phase_fit_parity(torch, device)
-        stream_launches, stream_step_s = phase_stream(torch, device, smi)
+        stream_launches, stream_step_s, stream_path = phase_stream(torch, device, smi, workdir)
         phase_stream_parity(torch, device)
-        phase_stream_delta(torch, device)
+        delta_path = phase_stream_delta(torch, device, workdir)
+        service_launches, store_launches = phase_service(torch, device, smi, enc, workdir,
+                                                         stream_path, delta_path)
         serve_launches = phase_serve(torch, device)
         simt_lstm = lstm_simt_timing(torch, device, lstm_simt_launches, errs)
         from repro_torch.kernels import lstm as _lstm
@@ -2285,11 +2646,17 @@ def main() -> int:
         for row in kernels:  # and on the stream path (phase stream)
             if row["name"] in stream_launches:
                 row["launches_stream"] = stream_launches[row["name"]]
+        for row in kernels:  # and on the service path: its first pass, the store's fits
+            if row["name"] in service_launches:
+                row["launches_service"] = (service_launches[row["name"]]
+                                           + store_launches[row["name"]])
         torch.cuda.synchronize()
         emit({"kernels": kernels})
     except Exception:  # any failed phase fails the run, with its traceback
         traceback.print_exc()
         return 1
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import obs
 from repro_torch.kernels import attention as _attention
 from repro_torch.kernels import decode_tile as _dt
 from repro_torch.kernels import lstm as _lstm
@@ -109,17 +110,23 @@ def nttd_decode_tile(
 
     See ``decode_tile.decode_tile`` for the operand layout.  B == 0
     short-circuits to an empty tensor of ``emb.dtype``; T < 2 raises.
+
+    Every non-empty call runs inside an ``obs.span("kernel_decode", impl=,
+    b=)``, as in the reference.  It is a host span: on the card it times
+    the launch's dispatch, not the kernel, and it never synchronises the
+    device, so answers and timing are the same with tracing on or off.
     """
     _check_impl(impl)
     if idx.shape[0] == 0:
         return torch.zeros((0,), dtype=emb.dtype, device=idx.device)
     heads = (w_first, b_first, w_mid, b_mid, w_last, b_last)
-    if impl == "ref":
-        return _ref.nttd_decode_tile(idx, emb, wi, wh, b, *heads)
-    operands = (idx, emb, wi, wh, b, *heads)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in operands):
-        return _ForwardOnlyDecode.apply(*operands)
-    return _dt.decode_tile(*operands)
+    with obs.span("kernel_decode", impl=impl, b=int(idx.shape[0])):
+        if impl == "ref":
+            return _ref.nttd_decode_tile(idx, emb, wi, wh, b, *heads)
+        operands = (idx, emb, wi, wh, b, *heads)
+        if torch.is_grad_enabled() and any(t.requires_grad for t in operands):
+            return _ForwardOnlyDecode.apply(*operands)
+        return _dt.decode_tile(*operands)
 
 
 class _ForwardOnlyDecode(torch.autograd.Function):

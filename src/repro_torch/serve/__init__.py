@@ -1,1 +1,2 @@
-"""Serving: the LM's slot engine (``engine``)."""
+"""Serving: the LM's slot engine (``engine``) and the compressed-tensor
+``CodecService`` (``codec_service``)."""

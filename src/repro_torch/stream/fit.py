@@ -10,7 +10,8 @@ dispatches to the named codec's ``stream_fitter``:
     reservoir replay buffer, so early slabs are not forgotten once they
     leave memory.  The batches are drawn on the host with the reference's
     seeds, so both packages train on the same entries; they reach the
-    device in one copy a slab, and nothing is read back in a slab.  Mode
+    device in one copy a slab, and nothing is read back in a slab (fit
+    telemetry, when on, reads the loss).  Mode
     orderings start identity (the TSP init needs the full tensor);
     ``refine_orders`` optionally recomputes them mid-stream from the
     reservoir sample (or a caller-provided dense estimate).  Normalization
@@ -24,7 +25,9 @@ dispatches to the named codec's ``stream_fitter``:
 
 Every fitter is deterministic in the slab sequence: per-slab RNG is
 seeded from ``(seed, slab_index)``, so resuming from a source cursor
-reproduces an uninterrupted run bit-for-bit, on the card too.
+reproduces an uninterrupted run bit-for-bit, on the card too.  Both
+fitters emit the reference's ``fit_slab`` events (``obs.fit_event``) while
+fit telemetry is on (``REPRO_FIT_LOG`` or ``obs.set_fit_log``).
 """
 from __future__ import annotations
 
@@ -34,6 +37,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.codecs.base import Encoded, StreamFitter, get_codec
 from repro_torch.core import codec as codec_lib
 from repro_torch.core import nttd, reorder, ttd
@@ -121,7 +125,8 @@ class NTTDStreamFitter(StreamFitter):
         #: the common path pays no gather.
         self.orders = reorder.identity_orders(self.shape)
         self._inv: list[np.ndarray] | None = None
-        #: the last slab's summed loss, a device scalar (never read here)
+        #: the last slab's summed loss, a device scalar (read only by the
+        #: fit_slab event while fit telemetry is on)
         self.loss: torch.Tensor | None = None
         self.seconds = {"sampling": 0.0, "training": 0.0, "reservoir": 0.0}
 
@@ -196,6 +201,20 @@ class NTTDStreamFitter(StreamFitter):
         self.seconds["sampling"] += t1 - t0
         self.seconds["training"] += t2 - t1
         self.seconds["reservoir"] += t3 - t2
+        if obs.fit_telemetry_enabled():
+            # float(loss) synchronises the device: only while logging, so a
+            # fit without telemetry reads nothing back.  entries_per_sec is
+            # over the steps' dispatch, as the reference's is over theirs.
+            obs.fit_event(
+                "fit_slab",
+                codec="nttd",
+                step=self.slabs_seen - 1,
+                loss=float(self.loss),
+                entries=len(vn),
+                entries_per_sec=len(vn) / (t2 - t1) if t2 > t1 else None,
+                reservoir_fill=self._rfill,
+                reservoir_capacity=int(self._rval.shape[0]),
+            )
 
     def _reservoir_orig(self) -> np.ndarray:
         """Reservoir positions mapped back to ORIGINAL indices [fill, d]."""
@@ -319,6 +338,7 @@ class TTICEStreamFitter(StreamFitter):
             r = max(int((s > self.rel_eps * max(vnorm, 1e-30)).sum()), 1)
             self._U = u[:, : min(r, self.max_rank)]
             self._coeffs.append(v @ self._U)
+            self._slab_event(n_rows)
             return
         c = v @ self._U
         res = v - c @ self._U.T
@@ -333,6 +353,19 @@ class TTICEStreamFitter(StreamFitter):
             self._U = np.concatenate([self._U, u_new], axis=1)
             c = np.concatenate([c, v @ u_new], axis=1)
         self._coeffs.append(c)
+        self._slab_event(n_rows)
+
+    def _slab_event(self, n_rows: int) -> None:
+        """The reference's ``fit_slab`` event for a block of whole rows."""
+        if obs.fit_telemetry_enabled():
+            obs.fit_event(
+                "fit_slab",
+                codec="tt_ice",
+                step=len(self._coeffs),
+                entries=n_rows * self.row,
+                rank=int(self._U.shape[1]),
+                rows_seen=self.rows_seen,
+            )
 
     def finalize(self) -> Encoded:
         from repro_torch.codecs.adapters import TTEncoded

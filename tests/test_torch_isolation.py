@@ -53,7 +53,8 @@ def test_importing_every_module_loads_no_jax():
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
         "assert len(mods) >= 20, mods\n"
         "assert {'repro_torch.stream.fit', 'repro_torch.stream.writer',\n"
-        "        'repro_torch.temporal.delta'} <= set(mods), mods\n"
+        "        'repro_torch.temporal.delta', 'repro_torch.serve.codec_service',\n"
+        "        'repro_torch.obs', 'repro_torch.temporal.store'} <= set(mods), mods\n"
         "assert not bad, bad\n"
         "print('ok', len(mods))\n"
     )
