@@ -158,6 +158,33 @@ Phases, each printing JSON lines:
    exports to JSON that loads.  It prints request ms (direct, tiled miss
    and hit, sweep, flush, versioned), the traced materialize ms, the hit
    ratio, resident bytes, launches, the canary stats and breach events.
+   fleet (``phase_fleet``): the serving fleet on the card, over phase
+   service's PEMS-SF file and traffic (direct requests, window requests,
+   the sweep, 64 submits and a flush).  ``fleet.local``: 4 in-process
+   members, replication 2, 64 MiB and canaries 0.25 each; every answer
+   bitwise phase service's first pass, zero failed tickets, each member's
+   resident bytes within its budget, a rebalance removing ``i3`` and one
+   adding ``i4`` (submits queued before each all answered after it; the
+   add warms tiles into ``i4``), the direct requests again after each,
+   ``decode_tile`` launched exactly once per decode call and canary check
+   the members report, no plain version.  ``fleet.procs``: 3
+   ``repro_torch.fleet.worker`` processes on the card, started together,
+   over the same file and traffic, bitwise the same; each worker holds a
+   CUDA context (its pid in ``nvidia-smi``, or, where nvidia-smi reports
+   the container's processes under another pid, the card's device node
+   open in the worker and the card's used memory grown by 100 MiB a
+   worker); one traced request is one trace whose worker spans, down to
+   ``kernel_decode``, hang under the frontend's ``transport.flush``; the
+   frontend launches nothing; ``close()`` leaves no worker behind.  Both
+   print request ms, spawn seconds and a traced request's split between
+   the frontend and its members.  ``fleet.slo`` and ``fleet.repair`` run
+   ``scripts/torch_slo_smoke.py`` and ``scripts/torch_repair_drill.py``
+   on the card (the controller admits and retires ``s0``; a corrupt chunk
+   restored byte-exactly; the quality refit launching ``lstm_scan``,
+   ``tt_contract`` and both backward kernels here, no plain version, the
+   canary clearing), printing ``time_to_repair_s`` and the refit's
+   entries/s.  Every kernel row gets ``launches_fleet``: this process's
+   launches in the phase (workers count theirs in their own processes).
 7. serve: the LM serving path, ``repro_torch.launch.serve.main`` on
    qwen1.5-4b at full width (40 layers, d_model 2560, 20 heads of 128,
    vocab 151,936) in bf16 with random weights from seed 0: 8 requests of
@@ -645,6 +672,10 @@ SERVICE_SUBMITS = (64, 1024)        # submits of this many entries, one flush
 SERVICE_FIG5_REQUESTS = 8           # requests of the fig5 file (canaries at calls 0, 4)
 SERVICE_MEM_SLACK = 1 << 20         # device bytes beyond the payloads' own tensors
 SERVICE_TOL = 1e-5                  # rtol = atol against the plain route
+FLEET_INSTANCES = 4                 # in-process members of fleet.local
+FLEET_WORKERS = 3                   # repro_torch.fleet.worker processes of fleet.procs
+FLEET_REPLICATION = 2
+FLEET_DRAIN_SUBMITS = 8             # submits queued before each rebalance
 STORE_SHAPE, STORE_VERSIONS, STORE_KEYFRAME_INTERVAL = (24, 16, 16), 8, 8
 STORE_DRIFT = dict(drift=0.04, noise=0.03, seed=11)
 STORE_KEYFRAME_OPTS = dict(rank=8, hidden=16, epochs=30, batch_size=2048, eval_batch=2048,
@@ -2487,7 +2518,344 @@ def phase_service(torch, device, smi, enc, workdir, stream_path, delta_path):
           "materialize_ms_traced": materialize_ms,
           "mem_slack_bytes": SERVICE_MEM_SLACK, "plain_calls": plain,
           "seconds": time.perf_counter() - t0, "name_power_limit": smi})
-    return launches, store_launches
+    return launches, store_launches, pems_path, traffic, first["answers"]
+
+
+def fleet_member_decodes(svc) -> int:
+    """The ``decode_tile`` launches a member's service accounts for, by
+    phase service's rule: its NTTD payloads' decode calls plus its canary
+    checks."""
+    calls = sum(svc.info(name).decode_calls for name in svc.payloads())
+    return calls + sum(c["value"] for c in svc.metrics.as_dict()["counters"]
+                       if c["name"] == "canary_checks")
+
+
+def fleet_serve(fleet, traffic, want, after_request=None) -> dict:
+    """Phase service's PEMS-SF traffic through a fleet: the direct requests
+    (untiled), the window requests and the sweep (tiled), the submits and
+    one flush.  Every answer must be bitwise phase service's single
+    ``CodecService``'s.  Returns the request ms by label."""
+    import numpy as np
+
+    ms = {}
+
+    def same(label, got):
+        require(got.dtype == want[label].dtype, f"{label}: {got.dtype} != {want[label].dtype}")
+        np.testing.assert_array_equal(got, want[label], err_msg=label)
+
+    def ask(label, name, idx):
+        t = time.perf_counter()
+        got = fleet.decode_at(name, idx)
+        ms[label] = (time.perf_counter() - t) * 1e3
+        same(label, got)
+        if after_request is not None:
+            after_request()
+
+    for i, idx in enumerate(traffic["direct"]):
+        ask(f"direct{i}", "pems", idx)
+    for i, idx in enumerate(traffic["window"]):
+        ask(f"window{i}", "pems_tiled", idx)
+    ask("sweep", "pems_tiled", traffic["sweep"])
+    t = time.perf_counter()
+    tickets = [fleet.submit("pems", idx) for idx in traffic["submits"]]
+    out = fleet.flush()
+    ms["flush"] = (time.perf_counter() - t) * 1e3
+    require(not fleet.failed, f"the fleet failed tickets: {fleet.failed}")
+    same("flush", np.concatenate([out[k] for k in tickets]))
+    return ms
+
+
+def fleet_rebalance(flt, fleet, traffic, want, after_request=None, **change) -> dict:
+    """A membership change behind the drain barrier: submits queued before
+    it must all be answered after it, bitwise; then the direct requests
+    again."""
+    import numpy as np
+
+    n = FLEET_DRAIN_SUBMITS
+    tickets = [fleet.submit("pems", idx) for idx in traffic["submits"][:n]]
+    t = time.perf_counter()
+    report = flt.rebalance(fleet, **change)
+    seconds = time.perf_counter() - t
+    out = fleet.flush()
+    require(all(k in out for k in tickets) and not fleet.failed,
+            f"rebalance {change}: queued tickets lost ({sorted(set(tickets) - set(out))}, "
+            f"failed {fleet.failed})")
+    np.testing.assert_array_equal(np.concatenate([out[k] for k in tickets]),
+                                  want["flush"][:n * SERVICE_SUBMITS[1]])
+    ms = []
+    for i, idx in enumerate(traffic["direct"]):
+        t = time.perf_counter()
+        got = fleet.decode_at("pems", idx)
+        ms.append((time.perf_counter() - t) * 1e3)
+        np.testing.assert_array_equal(got, want[f"direct{i}"], err_msg=f"direct{i} {change}")
+        if after_request is not None:
+            after_request()
+    return {"change": change, "seconds": seconds, "chunks_moved": report.chunks_moved,
+            "tiles_moved": report.tiles_moved, "tiles_warmed": report.tiles_warmed,
+            "bytes_dropped": report.bytes_dropped, "drained_tickets": len(tickets),
+            "direct_ms_median": float(np.median(ms))}
+
+
+def gpu_pids() -> dict:
+    """pid -> used memory of every process holding a context on the card,
+    as ``nvidia-smi`` sees them (in a container, pids of its namespace)."""
+    res = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    rows = [line.split(",") for line in res.stdout.splitlines() if line.strip()]
+    return {int(r[0]): r[1].strip() for r in rows if r[0].strip().isdigit()}
+
+
+def gpu_memory_used_mib() -> int:
+    res = subprocess.run(["nvidia-smi", "--query-gpu=memory.used", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    return int(res.stdout.split()[0])
+
+
+def device_files(pid: int) -> list[str]:
+    """The card's device nodes a process holds open (``/dev/nvidia<N>`` is
+    opened by a process with a context on card N)."""
+    out = set()
+    for fd in os.listdir(f"/proc/{pid}/fd"):
+        try:
+            target = os.readlink(f"/proc/{pid}/fd/{fd}")
+        except OSError:
+            continue
+        if target.startswith("/dev/nvidia"):
+            out.add(target)
+    return sorted(out)
+
+
+def worker_contexts(procs, used_before_mib: int) -> dict:
+    """Each worker must hold a CUDA context on the card.  Where
+    ``nvidia-smi`` lists the workers' pids, that is the evidence; where it
+    does not (a container whose processes it reports under another pid
+    namespace), each worker must hold the card's device node open and the
+    card's used memory must have grown by at least 100 MiB a worker since
+    before they started."""
+    listed = gpu_pids()
+    used = gpu_memory_used_mib()
+    rows = {iid: {"pid": p.pid, "in_nvidia_smi": p.pid in listed,
+                  "device_files": device_files(p.pid)} for iid, p in procs.items()}
+    by_smi = all(r["in_nvidia_smi"] for r in rows.values())
+    by_node = all(any(re.fullmatch(r"/dev/nvidia\d+", f) for f in r["device_files"])
+                  for r in rows.values())
+    grown = used - used_before_mib
+    require(by_smi or (by_node and grown >= 100 * len(procs)),
+            f"workers without a CUDA context: {rows}; nvidia-smi lists {listed}, the card's "
+            f"used memory grew {grown} MiB")
+    return {"workers": rows, "nvidia_smi_pids": listed, "evidence":
+            "nvidia-smi pids" if by_smi else "device node open + used memory",
+            "used_mib_before": used_before_mib, "used_mib_after": used}
+
+
+def traced_split(obs, fleet, idx) -> tuple:
+    """One traced direct request -> (answer, spans, the frontend's ms
+    outside its members' ``transport.flush`` spans, the members' ms)."""
+    rec = obs.enable_tracing(capacity=1 << 16)
+    rec.clear()
+    try:
+        got = fleet.decode_at("pems", idx)
+        spans = rec.snapshot()
+    finally:
+        obs.disable_tracing()
+        rec.clear()
+    total = sum(s.duration for s in spans if s.name == "fleet.decode_at")
+    members = {s.attrs["instance"]: s.duration * 1e3 for s in spans
+               if s.name == "transport.flush"}
+    return got, spans, {"request_ms": total * 1e3,
+                        "frontend_ms": total * 1e3 - sum(members.values()),
+                        "member_flush_ms": members}
+
+
+def fleet_local(torch, device, flt, traffic, want):
+    """fleet.local: ``FLEET_INSTANCES`` in-process members on the card."""
+    import numpy as np
+
+    from repro_torch import obs
+    from repro_torch.kernels import ops
+
+    class Fleet(flt.FleetFrontend):
+        """Keeps the decode count of a member as it retires (its service's
+        payload stats go with it)."""
+        retired_decodes = 0
+
+        def retire_instance(self, iid):
+            self.retired_decodes += fleet_member_decodes(self.transports[iid].service)
+            return super().retire_instance(iid)
+
+    resident = []
+
+    def within_budget():
+        resident.append(max(s.cache_stats.resident_bytes for s in fleet.services.values()))
+        require(resident[-1] <= SERVICE_CACHE_BYTES,
+                f"a member holds {resident[-1]} resident bytes, above {SERVICE_CACHE_BYTES}")
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    fleet = Fleet(FLEET_INSTANCES, replication=FLEET_REPLICATION,
+                  cache_bytes=SERVICE_CACHE_BYTES, device=device, **SERVICE_CANARY)
+    try:
+        require(all(s.device.type == device.type for s in fleet.services.values()),
+                f"fleet members off {device}")
+        fleet.load_stream("pems", want["path"])
+        fleet.load_stream("pems_tiled", want["path"], tile_entries=SERVICE_TILE)
+        ms = fleet_serve(fleet, traffic, want, within_budget)
+        removed = fleet_rebalance(flt, fleet, traffic, want, within_budget,
+                                  remove=[f"i{FLEET_INSTANCES - 1}"])
+        added = fleet_rebalance(flt, fleet, traffic, want, within_budget,
+                                add=[f"i{FLEET_INSTANCES}"])
+        require(added["tiles_warmed"]["pems_tiled"] > 0,
+                f"no tile warmed into the joining member: {added}")
+        require(not fleet.failed, f"failed tickets {fleet.failed}")
+        traced, _, split = traced_split(obs, fleet, traffic["direct"][1])
+        np.testing.assert_array_equal(traced, want["direct1"])
+        torch.cuda.synchronize()
+        predicted = fleet.retired_decodes + sum(fleet_member_decodes(s)
+                                                for s in fleet.services.values())
+        metrics = flt.collect(fleet).as_dict()
+    finally:
+        fleet.close()
+    launches = ops.launch_counts()
+    require(launches["decode_tile"] == predicted,
+            f"fleet.local launched decode_tile {launches['decode_tile']} times; the members "
+            f"report {predicted} decode calls and canary checks")
+    direct = [ms[f"direct{i}"] for i in range(SERVICE_DIRECT)]
+    return launches, {
+        "instances": FLEET_INSTANCES, "replication": FLEET_REPLICATION,
+        "direct_ms": direct, "direct_ms_median": float(np.median(direct)),
+        "tiled_hit_ms_median": float(np.median([ms[f"window{i}"]
+                                                for i in range(1, SERVICE_WINDOW[2])])),
+        "sweep_ms": ms["sweep"], "flush_ms": ms["flush"],
+        "rebalance_remove": removed, "rebalance_add": added,
+        "resident_bytes_max": max(resident), "traced_request": split, "launches": launches,
+        "predicted_decode_tile": predicted, "fleet_cache": metrics["fleet"],
+        "canary": metrics["canary"], "seconds": time.perf_counter() - t0}
+
+
+def fleet_procs(torch, device, flt, obs, traffic, want):
+    """fleet.procs: ``FLEET_WORKERS`` worker processes on the same card,
+    started together."""
+    import numpy as np
+    from torch_slo_smoke import start_workers
+
+    from repro_torch.kernels import ops
+
+    spawn_s = {}
+
+    def spawn(iid):
+        t = time.perf_counter()
+        transport = flt.SocketTransport.spawn(iid, cache_bytes=SERVICE_CACHE_BYTES,
+                                              device=str(device), timeout=120.0,
+                                              **SERVICE_CANARY)
+        transport.ping()
+        spawn_s[iid] = time.perf_counter() - t
+        return transport
+
+    ops.reset_launch_counts()
+    used_before = gpu_memory_used_mib()
+    t0 = time.perf_counter()
+    fleet = flt.FleetFrontend(start_workers(spawn, [f"w{k}" for k in range(FLEET_WORKERS)]),
+                              replication=FLEET_REPLICATION, transport_factory=spawn,
+                              device=device)
+    spawn_wall = time.perf_counter() - t0
+    procs = {iid: t._proc for iid, t in fleet.transports.items()}
+    try:
+        fleet.load_stream("pems", want["path"])
+        fleet.load_stream("pems_tiled", want["path"], tile_entries=SERVICE_TILE)
+        ms = fleet_serve(fleet, traffic, want)
+        contexts = worker_contexts(procs, used_before)
+        traced, spans, split = traced_split(obs, fleet, traffic["direct"][1])
+        np.testing.assert_array_equal(traced, want["direct1"])
+        metrics = flt.collect(fleet).as_dict()
+    finally:
+        fleet.close()
+    for iid, p in procs.items():
+        try:
+            p.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            require(False, f"worker {iid} outlived close()")
+    launches = ops.launch_counts()
+    require(sum(launches.values()) == 0, f"the frontend launched kernels itself: {launches}")
+    flushes = {s.span_id: s.attrs.get("instance") for s in spans if s.name == "transport.flush"}
+    remote = [s for s in spans if s.instance in procs]
+    ids = {s.span_id for s in remote}
+    roots = [s for s in remote if s.parent_id not in ids]
+    require(len({s.trace_id for s in spans}) == 1, "the traced request is not one trace")
+    require(any(s.name == "kernel_decode" for s in remote),
+            f"no worker kernel_decode span: {sorted({s.name for s in remote})}")
+    require(roots and all(flushes.get(s.parent_id) == s.instance for s in roots),
+            "worker spans not under the frontend's transport.flush")
+    direct = [ms[f"direct{i}"] for i in range(SERVICE_DIRECT)]
+    return {"workers": FLEET_WORKERS, "replication": FLEET_REPLICATION,
+            "spawn_s": spawn_s, "spawn_wall_s": spawn_wall, "cuda_contexts": contexts,
+            "direct_ms": direct, "direct_ms_median": float(np.median(direct)),
+            "tiled_hit_ms_median": float(np.median([ms[f"window{i}"]
+                                                    for i in range(1, SERVICE_WINDOW[2])])),
+            "sweep_ms": ms["sweep"], "flush_ms": ms["flush"],
+            "traced_request": split, "traced_spans": len(spans), "worker_spans": len(remote),
+            "worker_kernel_decode_spans": sum(s.name == "kernel_decode" for s in remote),
+            "fleet_cache": metrics["fleet"], "canary": metrics["canary"],
+            "exited": {iid: p.returncode for iid, p in procs.items()},
+            "seconds": time.perf_counter() - t0}
+
+
+def phase_fleet(torch, device, smi, workdir, pems_path, traffic, answers):
+    """The serving fleet on the card (ROADMAP A.6): phase service's PEMS-SF
+    file and traffic through ``FLEET_INSTANCES`` in-process members
+    (``fleet.local``: bitwise phase service's answers, rebalances behind
+    the drain barrier with a warm handoff, resident bytes within each
+    member's budget, ``decode_tile`` launched once per decode call and
+    canary check the members report), through ``FLEET_WORKERS`` worker
+    processes (``fleet.procs``: bitwise the same, each worker holding a
+    CUDA context, one stitched trace), then the SLO and repair drills of
+    ``scripts/torch_slo_smoke.py`` and ``scripts/torch_repair_drill.py``
+    (the repair's NTTD refit launching the training kernels, no plain
+    version).  Returns this process's launches over the phase."""
+    from repro_torch import fleet as flt
+    from repro_torch import obs
+    from repro_torch.kernels import ops, ref
+
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import torch_repair_drill
+    import torch_slo_smoke
+
+    t0 = time.perf_counter()
+    want = {**answers, "path": pems_path}
+    with plain_calls_counted(ref) as plain:
+        local_launches, local = fleet_local(torch, device, flt, traffic, want)
+        emit({"phase": "fleet.local", **local, "name_power_limit": smi})
+        procs = fleet_procs(torch, device, flt, obs, traffic, want)
+        emit({"phase": "fleet.procs", **procs, "name_power_limit": smi})
+        ops.reset_launch_counts()
+        slo = torch_slo_smoke.run(str(device))
+        slo_launches = ops.launch_counts()
+        emit({"phase": "fleet.slo", **slo, "launches": slo_launches, "name_power_limit": smi})
+        ops.reset_launch_counts()
+        repair = torch_repair_drill.run(str(device), out=os.path.join(workdir, "repair_drill"))
+        torch.cuda.synchronize()
+        repair_launches = ops.launch_counts()
+    require(sum(plain.values()) == 0, f"plain versions ran in phase fleet: {plain}")
+    require(slo["decisions"].count("scale_up") == 1 and slo["decisions"].count("scale_down") == 1,
+            f"slo drill {slo['decisions']}")
+    quality = repair["runs"][1]
+    training = ["lstm_scan", "lstm_scan_bwd"]
+    if quality["middle_cores"] >= 1:
+        training += ["tt_contract", "tt_contract_bwd"]
+    require(quality["device"].startswith(device.type), f"the refit ran on {quality['device']}")
+    for name in training + ["decode_tile"]:
+        require(repair_launches[name] > 0,
+                f"the repair's refit did not launch {name}: {repair_launches}")
+    emit({"phase": "fleet.repair", **repair, "launches": repair_launches,
+          "kernels_of_the_refit": training,
+          "time_to_repair_s": {r["kind"]: r["time_to_repair_s"] for r in repair["runs"]},
+          "refit_entries_per_sec": quality["refit_entries_per_sec"],
+          "name_power_limit": smi})
+    total = {k: local_launches[k] + slo_launches[k] + repair_launches[k]
+             for k in local_launches}
+    emit({"phase": "fleet", "seconds": time.perf_counter() - t0, "launches": total,
+          "plain_calls": plain, "name_power_limit": smi})
+    return total
 
 
 FIT_STEP_SHAPE = (8192, 10, 18, 10)  # B, T (PEMS-SF's d'), H, R of the MEDIUM fit
@@ -2624,8 +2992,9 @@ def main() -> int:
         stream_launches, stream_step_s, stream_path = phase_stream(torch, device, smi, workdir)
         phase_stream_parity(torch, device)
         delta_path = phase_stream_delta(torch, device, workdir)
-        service_launches, store_launches = phase_service(torch, device, smi, enc, workdir,
-                                                         stream_path, delta_path)
+        service_launches, store_launches, *served = phase_service(
+            torch, device, smi, enc, workdir, stream_path, delta_path)
+        fleet_launches = phase_fleet(torch, device, smi, workdir, *served)
         serve_launches = phase_serve(torch, device)
         simt_lstm = lstm_simt_timing(torch, device, lstm_simt_launches, errs)
         from repro_torch.kernels import lstm as _lstm
@@ -2650,6 +3019,9 @@ def main() -> int:
             if row["name"] in service_launches:
                 row["launches_service"] = (service_launches[row["name"]]
                                            + store_launches[row["name"]])
+        for row in kernels:  # and in phase fleet, this process's launches (the simt
+            # bodies never run there: hidden 16 and 24 are register buckets)
+            row["launches_fleet"] = fleet_launches.get(row["name"], 0)
         torch.cuda.synchronize()
         emit({"kernels": kernels})
     except Exception:  # any failed phase fails the run, with its traceback

@@ -21,8 +21,15 @@ and no span synchronises the device.
 Fit-time telemetry rides the same package: ``REPRO_FIT_LOG=fit.jsonl``
 (or :func:`set_fit_log`) streams per-slab fit events (step, loss,
 entries/sec, reservoir occupancy) and ``VersionedStore`` append
-decisions as JSONL.  The reference's ``exposition``, ``report``,
-``serve_metrics`` and ``slo`` modules are not ported yet.
+decisions as JSONL.
+
+The fleet's side is here too, as in ``repro.obs``: ``slo`` (declarative
+SLOs, the fleet controller's engine), ``exposition`` (Prometheus text,
+the reference's page byte for byte), ``serve_metrics`` (the scrape
+server, ``python -m repro_torch.obs.serve_metrics``) and ``report``
+(``python -m repro_torch.obs.report trace.json``, which reads the traces
+of either package).  A socket fleet stitches its workers' spans under the
+frontend's ``transport.flush`` into one trace.
 """
 from repro_torch.obs.events import clear_events, emit_event, events
 from repro_torch.obs.export import (

@@ -54,7 +54,14 @@ def test_importing_every_module_loads_no_jax():
         "assert len(mods) >= 20, mods\n"
         "assert {'repro_torch.stream.fit', 'repro_torch.stream.writer',\n"
         "        'repro_torch.temporal.delta', 'repro_torch.serve.codec_service',\n"
-        "        'repro_torch.obs', 'repro_torch.temporal.store'} <= set(mods), mods\n"
+        "        'repro_torch.obs', 'repro_torch.temporal.store',\n"
+        "        'repro_torch.fleet', 'repro_torch.fleet.controller',\n"
+        "        'repro_torch.fleet.frontend',\n"
+        "        'repro_torch.fleet.metrics', 'repro_torch.fleet.rebalance',\n"
+        "        'repro_torch.fleet.repair', 'repro_torch.fleet.router',\n"
+        "        'repro_torch.fleet.transport', 'repro_torch.fleet.worker',\n"
+        "        'repro_torch.obs.slo', 'repro_torch.obs.exposition', 'repro_torch.obs.report',\n"
+        "        'repro_torch.obs.serve_metrics'} <= set(mods), mods\n"
         "assert not bad, bad\n"
         "print('ok', len(mods))\n"
     )
@@ -65,7 +72,7 @@ def test_importing_every_module_loads_no_jax():
     assert res.stdout.startswith("ok")
 
 
-def test_entry_points_raise_without_cuda(monkeypatch):
+def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     from repro_torch import codecs, convert
     from repro_torch.devices import resolve_device
 
@@ -96,6 +103,19 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         codecs.load_bytes(v4)
     assert stream.fit_stream("nttd", source, rank=2, device="cpu").ct.device.type == "cpu"
+    # the fleet: its frontend, and a worker started without --device
+    from repro_torch import fleet
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fleet.FleetFrontend()
+    assert fleet.FleetFrontend(1, device="cpu").device.type == "cpu"
+    env = {**os.environ, "PYTHONPATH": SRC, "CUDA_VISIBLE_DEVICES": ""}
+    sock = os.path.join(str(tmp_path), "w.sock")
+    res = subprocess.run([sys.executable, "-m", "repro_torch.fleet.worker", "--listen",
+                          f"unix:{sock}"], env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode != 0 and "no CUDA device" in res.stderr
+    assert "READY" not in res.stdout and not os.path.exists(sock)
 
 
 def test_wrappers_raise_when_the_library_cannot_be_built(monkeypatch):

@@ -425,3 +425,244 @@ def test_versioned_store_emits_append_events(tmp_path, fit_logs):
     assert got == want
     assert [r["version"] for r in got] == [0, 1, 2]
     assert got[0]["keyframe"] is True and got[1]["keyframe"] is False
+
+
+# ---------------------------------------------------------------------------
+# exposition, the scrape server and the report: the fleet's side of obs
+# ---------------------------------------------------------------------------
+def _registries():
+    """The same observations in both packages' registries."""
+    out = []
+    for mod in (obs, jobs):
+        reg = mod.MetricsRegistry()
+        reg.counter("decode_calls", instance="i0").inc(3)
+        reg.counter("repairs_total", payload="e", kind="quality", outcome="ok").inc()
+        reg.gauge("canary_fitness", payload='e"x\\y\n').set(0.75)
+        reg.gauge("9bad name", **{"1label": "v"}).set(float("inf"))
+        h = reg.histogram("decode_ms", buckets=(1.0, 10.0))
+        for v in (0.5, 2.0, 20.0):
+            h.observe(v)
+        w = reg.histogram("flush_latency_seconds", window=8, instance="i1")
+        for v in np.random.default_rng(0).random(20):
+            w.observe(float(v))
+        out.append(reg)
+    return out
+
+
+FLEET_SNAPSHOT = {
+    "fleet": {"hits": 5, "misses": 1, "evictions": 0, "resident_bytes": 4096,
+              "hit_rate": 0.8333},
+    "backpressure_flushes": 2, "excluded": ["i2"], "excluded_total": 1,
+    "decode_p50_ms": 0.25, "decode_p99_ms": None,
+    "canary": {"e": {"checks": 2, "breaches": 0, "rolling_fitness": 0.9},
+               "f": {"checks": 0, "breaches": 0, "rolling_fitness": None}},
+    "instances": {"i0": {"cache": {"hits": 5, "hit_rate": 1.0}, "flushes": 4,
+                         "decode_p50_ms": 0.2, "decode_p99_ms": 0.3,
+                         "peak_inflight_bytes": 800},
+                  "i1": {"cache": {}, "flushes": 0}},
+}
+
+
+def test_exposition_pages_are_the_references_byte_for_byte():
+    from repro.obs.exposition import render_exposition as jrender
+    from repro_torch.obs.exposition import render_exposition as render
+
+    reg, jreg = _registries()
+    cases = [((reg,), (jreg,)), ((reg.as_dict(),), (jreg.as_dict(),)),
+             ((None, FLEET_SNAPSHOT), (None, FLEET_SNAPSHOT)),
+             ((reg.as_dict(), FLEET_SNAPSHOT), (jreg.as_dict(), FLEET_SNAPSHOT)),
+             ((reg, FLEET_SNAPSHOT), (jreg, FLEET_SNAPSHOT)), ((), ())]
+    for ours, theirs in cases:
+        page = render(*ours)
+        assert page.encode() == jrender(*theirs).encode()
+    page = render(reg, FLEET_SNAPSHOT)
+    assert 'decode_ms_bucket{le="+Inf"} 3' in page
+    assert "repro_fleet_cache_hits 5" in page and "repro_fleet_decode_p99_ms" not in page
+    assert 'repro_fleet_instance_flushes{instance="i0"} 4' in page
+    assert render() == ""
+
+
+def test_exposition_of_a_live_fleet_is_the_references(tmp_path):
+    """A port fleet's ``collect().as_dict()`` renders to the reference's
+    page for the same snapshot, with the ``repro_fleet_*`` names."""
+    from repro.obs.exposition import render_exposition as jrender
+    from repro_torch import fleet
+    from repro_torch.codecs import get_codec
+    from repro_torch.obs.exposition import render_exposition as render
+    from repro_torch.stream import sample_heldout, write_chunked
+
+    x = np.random.default_rng(0).random((12, 10, 8)).astype(np.float32)
+    path = str(tmp_path / "p.tcdc")
+    write_chunked(path, get_codec("ttd").fit(x, max_rank=4), chunk_bytes=512,
+                  heldout=sample_heldout(x, 64, seed=1))
+    f = fleet.FleetFrontend(3, cache_bytes=1 << 16, canary_fraction=1.0, device="cpu")
+    try:
+        f.load_stream("e", path, tile_entries=128)
+        f.decode_at("e", np.stack([np.arange(40) % s for s in x.shape], axis=1))
+        snap = fleet.collect(f).as_dict()
+        snapshot = f.metrics.as_dict()  # the frontend's flush-latency registry
+        assert render(snapshot, fleet=snap) == jrender(snapshot, fleet=snap)
+        page = render(fleet=snap)
+        assert page == jrender(fleet=snap)
+        assert "repro_fleet_instances 3" in page and "repro_fleet_canary_checks" in page
+    finally:
+        f.close()
+
+
+def test_metrics_server_scrapes_over_loopback_and_404s():
+    import urllib.error
+    import urllib.request
+
+    from repro_torch.obs.exposition import render_exposition
+    from repro_torch.obs.serve_metrics import CONTENT_TYPE, MetricsServer
+
+    reg = _registries()[0]
+    with MetricsServer(lambda: render_exposition(registry=reg)) as srv:
+        host, port = srv.address
+        assert host == "127.0.0.1" and port > 0
+        with urllib.request.urlopen(f"http://{host}:{port}/metrics", timeout=10) as r:
+            body = r.read().decode()
+            assert r.headers["Content-Type"] == CONTENT_TYPE
+        assert body == render_exposition(registry=reg)
+        with pytest.raises(urllib.error.HTTPError) as e:
+            urllib.request.urlopen(f"http://{host}:{port}/other", timeout=10)
+        assert e.value.code == 404
+    with MetricsServer(lambda: 1 / 0) as srv:  # a failing provider is a 500
+        host, port = srv.address
+        with pytest.raises(urllib.error.HTTPError) as e:
+            urllib.request.urlopen(f"http://{host}:{port}/", timeout=10)
+        assert e.value.code == 500
+
+
+def test_serve_metrics_once_cli_matches_the_reference(tmp_path, capsys):
+    from repro.obs import serve_metrics as jserve
+    from repro_torch.obs import serve_metrics as tserve
+
+    reg = _registries()[0]
+    files = {"fleet.json": FLEET_SNAPSHOT, "registry.json": reg.as_dict(),
+             "trace.json": {"traceEvents": [], "repro_metrics": FLEET_SNAPSHOT}}
+    for name, doc in files.items():
+        path = tmp_path / name
+        path.write_text(json.dumps(doc))
+        pages = []
+        for mod in (tserve, jserve):
+            assert mod.main([str(path), "--once"]) == 0
+            pages.append(capsys.readouterr().out)
+        assert pages[0] == pages[1] and pages[0]
+    bad = tmp_path / "bad.json"
+    bad.write_text("{}")
+    assert tserve.main([str(bad), "--once"]) == 1
+    assert "not a fleet/registry/trace" in capsys.readouterr().err
+
+
+def _traced_file(tmp_path, metrics):
+    """A trace of nested spans from two 'processes', exported by the port."""
+    rec = obs.enable_tracing()
+    rec.clear()
+    try:
+        with obs.span("controller.step"):
+            with obs.span("controller.scale_up", instance="s0"):
+                with obs.span("fleet.flush", tickets=3):
+                    pass
+        rec.ingest([obs.Span("decode_at", 9, 2, 1, 0.5, 0.75, {"payload": "e"}),
+                    obs.Span("kernel_decode", 9, 3, 2, 0.6, 0.7, {"impl": "auto"})],
+                   clock_offset=1.0, instance="w0")
+        path = str(tmp_path / "trace.json")
+        obs.export_chrome_trace(path, metrics=metrics)
+    finally:
+        obs.disable_tracing()
+        rec.clear()
+    return path
+
+
+def test_report_dict_is_the_references_for_the_same_trace(tmp_path, capsys):
+    from repro.obs import report as jreport
+    from repro_torch.obs import report as treport
+
+    fit = tmp_path / "fit.jsonl"
+    fit.write_text("".join(json.dumps(r) + "\n" for r in [
+        {"event": "fit_slab", "step": 1, "loss": 0.5, "entries_per_sec": 1000.0},
+        {"event": "fit_slab", "step": 2, "loss": 0.25, "entries_per_sec": 3000.0},
+        {"event": "version_append", "version": 0, "keyframe": True}]))
+    metrics = {"fleet": {"hits": 1, "misses": 2, "hit_rate": 0.3333},
+               "instances": {"w0": {"cache": {"hits": 1, "misses": 2, "hit_rate": 0.3333},
+                                    "decode_p99_ms": 0.5}},
+               "excluded": ["w9"]}
+    path = _traced_file(tmp_path, metrics)
+    for top in (1, 3, 10):
+        doc = treport.load_trace(path)
+        assert treport.report_dict(doc, top) == jreport.report_dict(jreport.load_trace(path),
+                                                                    top)
+        assert treport.render(doc, top) == jreport.render(doc, top)
+    assert treport.fit_summary_dict(str(fit)) == jreport.fit_summary_dict(str(fit))
+    assert treport.summarize_fit(str(fit)) == jreport.summarize_fit(str(fit))
+    d = treport.report_dict(treport.load_trace(path), 10)
+    assert d["spans"] == 5 and "w0" in d["processes"]
+    outs = []
+    for mod in (treport, jreport):
+        assert mod.main([path, "--format", "json", "--fit", str(fit)]) == 0
+        outs.append(json.loads(capsys.readouterr().out))
+    assert outs[0] == outs[1]
+
+
+def test_report_cli_rejects_a_non_trace_file(tmp_path):
+    import os
+    import subprocess
+    import sys
+
+    src = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "src")
+    bad = tmp_path / "not_a_trace.json"
+    bad.write_text(json.dumps({"instances": {}}))
+    path = _traced_file(tmp_path, None)
+    env = {**os.environ, "PYTHONPATH": src}
+    res = subprocess.run([sys.executable, "-m", "repro_torch.obs.report", str(bad)],
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 1 and "not a Chrome trace-event file" in res.stderr
+    assert "repro_torch.obs.report" in res.stderr and not res.stdout
+    res = subprocess.run([sys.executable, "-m", "repro_torch.obs.report", path, "--top", "2"],
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0 and res.stdout.startswith("5 spans, 5 stages, 2 processes")
+    assert "jax" not in res.stderr
+
+
+def test_socket_fleet_stitches_one_trace(tmp_path, recorder):
+    """One traced request through a port socket fleet: the workers' spans
+    (down to ``kernel_decode`` on an NTTD payload) come back over the wire,
+    re-based and labelled with the worker, under the frontend's
+    ``transport.flush``; the exported file reports both processes."""
+    from repro_torch import fleet
+    from repro_torch.codecs import get_codec
+    from repro_torch.obs.report import load_trace, report_dict
+    from repro_torch.stream import write_chunked
+
+    x = np.random.default_rng(0).random((12, 10, 8)).astype(np.float32)
+    path = str(tmp_path / "nttd.tcdc")
+    enc = get_codec("nttd").fit(x, rank=3, hidden=6, epochs=1, device="cpu")
+    write_chunked(path, enc, chunk_bytes=512)
+    obs.disable_tracing()
+    f = fleet.FleetFrontend(
+        ["w0", "w1"], device="cpu",
+        transport_factory=lambda iid: fleet.SocketTransport.spawn(iid, device="cpu"))
+    try:
+        f.load_stream("e", path)  # untiled: every request decodes
+        idx = np.stack([np.arange(200) % s for s in x.shape], axis=1)
+        untraced = f.decode_at("e", idx)
+        obs.enable_tracing()
+        recorder.clear()
+        traced = f.decode_at("e", idx)
+        spans = recorder.snapshot()
+        trace = str(tmp_path / "fleet_trace.json")
+        obs.export_chrome_trace(trace, metrics=fleet.collect(f).as_dict())
+    finally:
+        f.close()
+    np.testing.assert_array_equal(traced, untraced)  # tracing is observational
+    flushes = {s.span_id: s.attrs["instance"] for s in spans if s.name == "transport.flush"}
+    remote = [s for s in spans if s.instance in ("w0", "w1")]
+    ids = {s.span_id for s in remote}
+    assert {s.name for s in remote} >= {"decode_at", "kernel_decode"}
+    roots = [s for s in remote if s.parent_id not in ids]
+    assert roots and all(flushes[s.parent_id] == s.instance for s in roots)
+    assert len({s.trace_id for s in spans}) == 1  # one stitched trace
+    doc = report_dict(load_trace(trace), top=3)
+    assert {"w0", "w1"} & set(doc["processes"])
+    assert {"transport.flush", "kernel_decode"} <= {r["stage"] for r in doc["stages"]}
