@@ -195,7 +195,37 @@ Phases, each printing JSON lines:
    (``--attn-impl ref``): the prefill logits must agree within
    ``LOGIT_REL_TOL`` of max|logit|, and the greedy tokens wherever the
    oracle run's top-2 margin exceeds twice the largest logit difference.
-8. timing: each kernel, its plain version and, where one exists, one
+8. train (``phase_train_all``): LM training at minicpm-2b's full width.
+   ``train``: ``repro_torch.launch.train.run`` (``main``'s losses with
+   the step times and final state) for 8 steps at full depth (40 layers,
+   d_model 2304, d_ff 5760, vocab 122,753, remat "dots", f32 masters,
+   bf16 compute) at the launcher's batch 8 x seq 128 and WSD schedule,
+   lr 1e-4 (``TRAIN_LR``: the default 3e-4 spikes without warmup):
+   every loss finite, the last below the first, the parameters moved, no
+   kernel launched (training attention is the oracle, as in the
+   reference); the median step ms after the first, tokens/s, peak memory
+   against the card's, and 6·N·tokens / 989 TFLOP/s beside them; the
+   in-place Adam update bitwise the out-of-place one on the card.
+   ``train.resume``: the same width cut to 2 layers, 6 steps uninterrupted
+   against 4 steps ended by a SIGTERM (``--ckpt-dir``, ``--ckpt-every 2``:
+   its checkpoint at step 4) and a second run with ``--resume auto`` to
+   step 6 (losses within ``RESUME_TOL`` relative); checkpoint save
+   seconds and bytes.  ``train.codec``: ``compress_tree`` of the resumed
+   params under the default ``CodecCheckpointConfig`` (per leaf: elements,
+   seconds, fitness, kind), ``decompress_tree`` (raw leaves bitwise), then
+   ``CODEC_GATED_LEAF`` alone at gate -1, so that ``decompress_tree``
+   decodes a codec leaf on the card (its device, dtype and shape, 1e-5 of
+   the plain route's decode; the eval loss before and after, with that
+   leaf in the restored tree), the NTTD training kernels and the fused
+   decode launched and no plain version run (the MLP's three leaves are
+   left out: ``CODEC_SKIP``), and a ``VersionedCheckpointer`` over one
+   leaf at steps 4 and 6 (gate -1 so that its store runs, one delta
+   pass), whose keyframe payload is decoded through the kernel and the
+   plain route.  ``train.embed``:
+   ``NTTDEmbedding.fit`` on the 122,880 x 2304 table with its cuts printed
+   and a [8, 128] ``lookup`` through the kernel and the plain route.
+   Every kernel row gets ``launches_train``: the launches of these phases.
+9. timing: each kernel, its plain version and, where one exists, one
    PyTorch call computing the same function (cuDNN ``nn.LSTM`` for
    ``lstm_scan``, one ``torch.einsum`` over the whole chain for
    ``tt_contract``, ``scaled_dot_product_attention`` for
@@ -241,11 +271,13 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import gc
 import json
 import math
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -296,6 +328,42 @@ SERVE_REQUESTS, SERVE_SLOTS, SERVE_NEW, SERVE_MAX_LEN = 8, 4, 16, 4096
 # ulps at the top of the logits.
 LOGIT_REL_TOL = 5e-2
 FLASH_SHAPE = (1, 2048, 20, 128)  # B, S, H, D of one full-width prefill
+TRAIN_ARCH = "minicpm-2b"
+TRAIN_STEPS = 8                     # at full depth; the launcher's batch 8 x seq 128
+# The launcher's default lr 3e-4 has no warmup in an 8-step run (min(20,
+# 8 // 10) = 0): Adam's first, sign-like updates move every weight by ~lr
+# and the loss spikes (12.19 -> 16.96 at step 2, 12.25 at step 7 on the
+# H100, scripts/torch_train_probe.py); at 1e-4 it ends at 10.19.
+TRAIN_LR = 1e-4
+RESUME_LAYERS = 2                   # train.resume's depth cut (widths kept)
+RESUME_STEPS, RESUME_STOP, RESUME_EVERY = 6, 4, 2
+# PyTorch does not promise a bitwise-repeatable backward of the embedding
+# gather on CUDA, so the resumed losses are held to a tolerance (``max_rel_
+# loss_diff`` prints what the run gave)
+RESUME_TOL = 1e-4
+# train.codec's cut of leaves, to keep the train phases near two minutes:
+# compress_tree leaves out the MLP's three (80 M of 405 M entries)
+CODEC_SKIP = "blocks/mlp"
+# random-init weights fit to fitness ~0, so under the default gate every
+# leaf stays raw: this leaf is compressed once more at gate -1 (VERSIONED_
+# GATE), so that decompress_tree decodes a codec leaf on the card too
+CODEC_GATED_LEAF = "blocks/attn/wo"
+# the VersionedCheckpointer leaf, whose keyframe payload is also decoded
+# through the kernel and the plain route
+VERSIONED_LEAF = "blocks/attn/wk"
+# random-init weights six steps in fit to fitness ~0 (below any gate >= 0):
+# the gate is -1 so that the store path (keyframe fit, delta fit, chain
+# decode) runs on the card instead of demoting the leaf to raw
+VERSIONED_GATE = -1.0
+VERSIONED_KEYFRAME = dict(rank=8, hidden=16, epochs=15, batch_size=65536, lr=1e-2,
+                          init_reorder=False, update_reorder=False, seed=0,
+                          entries_per_epoch=2_000_000)
+VERSIONED_DELTA = dict(rank=4, hidden=8, batch_size=16384, seed=0)
+# one pass of the delta fit over the leaf's 10.6 M entries (the default is
+# 2), a cut of its epochs that keeps the train phases near two minutes
+VERSIONED_DELTA_PASSES = 1
+EMBED_EPOCHS = 1                    # the reference's default is 150
+EMBED_LOOKUP = (8, 128)
 
 
 class SmokeFailure(RuntimeError):
@@ -1242,6 +1310,433 @@ def phase_serve(torch, device):
           "logit_rel_tol": LOGIT_REL_TOL, "greedy_tokens_agree": agree,
           "greedy_tokens": compared,
           "tokens_uid0": got[0].tokens, "plain_tokens_uid0": want[0].tokens})
+    return launches
+
+
+def _leaves(tree) -> list:
+    """The leaves of nested dicts, tuples and NamedTuples, in checkpoint order."""
+    from repro_torch.train.checkpoint import _flatten
+
+    return [leaf for _, leaf in _flatten(tree)]
+
+
+def _tree_equal(torch, a, b) -> bool:
+    la, lb = _leaves(a), _leaves(b)
+    return len(la) == len(lb) and all(torch.equal(x, y) for x, y in zip(la, lb))
+
+
+def _eval_loss(torch, cfg, params, batch) -> float:
+    """The training step's loss (bf16 compute copy of the masters)."""
+    from repro_torch.models import layers, model
+    from repro_torch.optim.optimizers import tree_map
+
+    dt = layers.dtype_of(cfg.compute_dtype)
+    with torch.no_grad():
+        return float(model.loss_fn(tree_map(lambda w: w.to(dt), params), cfg, batch)[0])
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
+
+
+def inplace_adam_bitwise(torch, device) -> bool:
+    """The in-place Adam update against the out-of-place one on the card:
+    3 steps of ``adamw(wsd)`` with clipping and weight decay, over leaves of
+    several sizes in groups of a few leaves."""
+    from repro_torch.optim import optimizers, schedules
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    params = {"a": torch.randn((1000, 37), generator=gen, device=device),
+              "b": {"c": torch.randn((4096,), generator=gen, device=device),
+                    "d": torch.randn((3, 5, 7), generator=gen, device=device)},
+              "e": torch.randn((1 << 16,), generator=gen, device=device)}
+    opt = optimizers.adamw(schedules.wsd(1e-2, 10, warmup=1), weight_decay=0.1,
+                           max_grad_norm=1.0)
+    saved, optimizers.GROUP_ELEMENTS = optimizers.GROUP_ELEMENTS, 40_000
+    try:
+        p1 = optimizers.tree_map(torch.clone, params)
+        p2 = optimizers.tree_map(torch.clone, params)
+        s1, s2 = opt.init(p1), opt.init(p2)
+        for _ in range(3):
+            grads = optimizers.tree_map(lambda x: 3 * torch.randn(x.shape, generator=gen,
+                                                                  device=device), params)
+            upd, s1 = opt.update(grads, s1, p1)
+            p1 = optimizers.apply_updates(p1, upd)
+            s2 = opt.apply_(optimizers.tree_map(torch.clone, grads), s2, p2)
+    finally:
+        optimizers.GROUP_ELEMENTS = saved
+    return _tree_equal(torch, (p1, s1.mu, s1.nu), (p2, s2.mu, s2.nu))
+
+
+def phase_train(torch, device, smi):
+    """minicpm-2b at full width and depth through the launcher on the card."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.dist import sharding
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.models import model
+
+    cfg = configs.get(TRAIN_ARCH)
+    args = train.parse_args(["--arch", TRAIN_ARCH])
+    argv = ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS), "--lr", str(TRAIN_LR),
+            "--log-every", "1"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = ops.launch_counts()
+    t0 = time.perf_counter()
+    run = train.run(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = {k: v - before[k] for k, v in ops.launch_counts().items()}
+    card = torch.cuda.get_device_properties(device).total_memory
+    losses = run.losses
+    require(len(losses) == TRAIN_STEPS and all(math.isfinite(v) for v in losses),
+            f"losses {losses}")
+    require(losses[-1] < losses[0], f"the loss did not fall: {losses}")
+    require(not any(launches.values()),
+            f"training launched {launches}; its attention is the oracle")
+    require(peak < card, f"peak memory {peak} above the card's {card}")
+    # the step moved the parameters: the norms left 1, the embedding its init
+    init = sharding.materialize(0, {"tok": model.param_specs(cfg)["tok"]}, torch.float32,
+                                device)["tok"]["embed"]
+    moved = {"tok/embed": float((run.params["tok"]["embed"] - init).abs().max()),
+             "final_norm": float((run.params["final_norm"] - 1).abs().max()),
+             "blocks/mixer_norm": float((run.params["blocks"]["mixer_norm"] - 1).abs().max())}
+    del init
+    require(moved["tok/embed"] > 0 and moved["final_norm"] > 0
+            and moved["blocks/mixer_norm"] > 0, f"parameters did not move: {moved}")
+    bitwise = inplace_adam_bitwise(torch, device)
+    require(bitwise, "the in-place Adam update differs from the out-of-place one")
+    n = model.param_count(cfg)
+    tokens = args.batch * args.seq
+    step_s = float(np.median(run.step_seconds[1:]))
+    bound_ms = 6 * n * tokens / PEAK_BF16 * 1e3
+    emit({"phase": "train", "arch": TRAIN_ARCH, "argv": argv, "layers": cfg.n_layers,
+          "d_model": cfg.d_model, "d_ff": cfg.d_ff, "vocab": cfg.vocab, "remat": cfg.remat,
+          "param_dtype": cfg.param_dtype, "compute_dtype": cfg.compute_dtype,
+          "params": n, "batch": args.batch, "seq": args.seq, "schedule": args.schedule,
+          "lr": TRAIN_LR, "lr_default": args.lr,
+          "losses": losses, "step_ms": [t * 1e3 for t in run.step_seconds],
+          "step_ms_median_after_first": step_s * 1e3, "tokens_per_s": tokens / step_s,
+          "seconds": wall, "peak_bytes": peak, "card_bytes": card,
+          "peak_share_of_card": peak / card, "moved": moved,
+          "bound_ms_6nt_bf16": bound_ms, "bound_share": bound_ms / (step_s * 1e3),
+          "bound_note": "6*N*tokens over 989 TFLOP/s; for information, no gain",
+          "launches": launches, "inplace_adam_bitwise": bitwise, "name_power_limit": smi})
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def depth_cut(configs, n_layers: int):
+    """The launcher's config, which it reads through ``configs.get``, cut to
+    ``n_layers`` (every width kept)."""
+    get = configs.get
+    configs.get = lambda arch: dataclasses.replace(get(arch), n_layers=n_layers)
+    try:
+        yield
+    finally:
+        configs.get = get
+
+
+def phase_train_resume(torch, device, workdir):
+    """Resume at full width, depth cut: 6 steps against 4 (a SIGTERM ends
+    them, the checkpoint at step 4 stays) + a resumed run to step 6.
+    Returns (the resumed run's params, the step-4 checkpoint's params)."""
+    from repro_torch import configs
+    from repro_torch.launch import train
+    from repro_torch.train import checkpoint as ckpt_lib
+
+    argv = ["--arch", TRAIN_ARCH, "--steps", str(RESUME_STEPS), "--log-every", "1"]
+    d = os.path.join(workdir, "train_ckpt")
+    free = shutil.disk_usage(workdir).free
+    with depth_cut(configs, RESUME_LAYERS):
+        full = train.run(argv)
+    real = train.SyntheticSource.batch_at
+
+    def batch_at(self, step):
+        if step == RESUME_STOP - 1:  # the 4th step finishes, then the run stops
+            os.kill(os.getpid(), signal.SIGTERM)
+        return real(self, step)
+
+    train.SyntheticSource.batch_at = batch_at
+    try:
+        with depth_cut(configs, RESUME_LAYERS):
+            first = train.run(argv + ["--ckpt-dir", d, "--ckpt-every", str(RESUME_EVERY)])
+    finally:
+        train.SyntheticSource.batch_at = real
+    ck = ckpt_lib.Checkpointer(d)
+    require(first.stopped and first.last_step == RESUME_STOP
+            and len(first.losses) == RESUME_STOP and ck.latest_step() == RESUME_STOP,
+            f"SIGTERM run: stopped {first.stopped} at {first.last_step}, checkpoints "
+            f"{ck.all_steps()}")
+    ckpt_bytes = _dir_bytes(os.path.join(d, f"step_{RESUME_STOP:010d}"))
+    t0 = time.perf_counter()
+    state4, _ = ck.restore(RESUME_STOP, {"params": first.params, "opt": first.opt_state})
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    require(_tree_equal(torch, state4, {"params": first.params, "opt": first.opt_state}),
+            "the step-4 checkpoint does not restore bitwise")
+    params4 = state4["params"]
+    first_losses = first.losses
+    del first, state4
+    with depth_cut(configs, RESUME_LAYERS):
+        rest = train.run(argv + ["--ckpt-dir", d, "--resume", "auto"])
+    require(rest.start_step == RESUME_STOP and len(rest.losses) == RESUME_STEPS - RESUME_STOP,
+            f"resumed at {rest.start_step} for {len(rest.losses)} steps")
+    losses = first_losses + rest.losses
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, full.losses))
+    require(rel <= RESUME_TOL, f"resumed losses {losses} vs {full.losses}: rel {rel}")
+    param_diff = max(float((a - b).abs().max()) for a, b in zip(
+        _leaves(rest.params), _leaves(full.params)))
+    steps_saved = ck.all_steps()
+    full_losses = full.losses
+    del full
+    shutil.rmtree(d)
+    timed = os.path.join(workdir, "train_ckpt_timed")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ckpt_lib.Checkpointer(timed, async_save=False).save(
+        RESUME_STEPS, {"params": rest.params, "opt": rest.opt_state})
+    save_s = time.perf_counter() - t0
+    save_bytes = _dir_bytes(timed)
+    shutil.rmtree(timed)
+    emit({"phase": "train.resume", "arch": TRAIN_ARCH, "argv": argv,
+          "reduced": [f"n_layers 40 -> {RESUME_LAYERS} (every width kept)"],
+          "steps": RESUME_STEPS, "sigterm_after_steps": RESUME_STOP,
+          "ckpt_every": RESUME_EVERY, "checkpoints": steps_saved,
+          "losses_uninterrupted": full_losses, "losses_resumed": losses,
+          "max_rel_loss_diff": rel, "tol": RESUME_TOL,
+          "max_abs_param_diff": param_diff, "checkpoint_bytes": ckpt_bytes,
+          "restore_seconds": restore_s, "save_seconds_sync": save_s,
+          "save_bytes": save_bytes, "disk_free_bytes": free})
+    return rest.params, params4
+
+
+def _subtree(params, key: str) -> dict:
+    """``{"a": {"b": leaf}}`` for the key ``a/b`` of ``params``."""
+    node = params
+    for part in key.split("/"):
+        node = node[part]
+    for part in reversed(key.split("/")):
+        node = {part: node}
+    return node
+
+
+def phase_train_codec(torch, device, params, params4, workdir):
+    """NTTD-compressed checkpoints of the resumed run's params on the card."""
+    import numpy as np
+
+    from repro_torch import codecs, configs
+    from repro_torch.codecs.adapters import NTTDEncoded
+    from repro_torch.compress import checkpoint_codec as cc
+    from repro_torch.data.pipeline import PipelineConfig, SyntheticSource
+    from repro_torch.kernels import ops, ref
+    from repro_torch.temporal import VersionedStore
+    from repro_torch.train.checkpoint import _flatten
+
+    cfg = dataclasses.replace(configs.get(TRAIN_ARCH), n_layers=RESUME_LAYERS)
+    ccfg = cc.CodecCheckpointConfig()
+    skip, mlp = CODEC_SKIP.split("/")
+    tree = {**params, skip: {k: v for k, v in params[skip].items() if k != mlp}}
+    with plain_calls_counted(ref) as plain:
+        torch.cuda.synchronize()
+        before = ops.launch_counts()
+        t0 = time.perf_counter()
+        payload, stats = cc.compress_tree(tree, ccfg)
+        compress_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        restored = cc.decompress_tree(payload, tree)
+        torch.cuda.synchronize()
+        decompress_s = time.perf_counter() - t0
+        gated = _subtree(params, CODEC_GATED_LEAF)
+        t0 = time.perf_counter()
+        gpayload, gstats = cc.compress_tree(
+            gated, dataclasses.replace(ccfg, min_fitness=VERSIONED_GATE))
+        gcompress_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        grestored = cc.decompress_tree(gpayload, gated)
+        torch.cuda.synchronize()
+        gdecompress_s = time.perf_counter() - t0
+        launches = {k: v - before[k] for k, v in ops.launch_counts().items()}
+    require(sum(plain.values()) == 0, f"plain versions ran in compress/decompress: {plain}")
+    for name in ("lstm_scan", "lstm_scan_bwd", "tt_contract", "tt_contract_bwd", "decode_tile"):
+        require(launches[name] > 0, f"{name} was not launched by compress_tree: {launches}")
+    require(launches["flash_attention"] == 0, "compress_tree launched flash_attention")
+    got, want = dict(_flatten(restored)), dict(_flatten(tree))
+    for key, item in payload.items():
+        require(got[key].device == want[key].device, f"{key} restored off its device")
+        if item["kind"] == "raw":
+            require(torch.equal(got[key], want[key]), f"raw leaf {key} not restored bitwise")
+    # the codec leaf: on its template's device and dtype, and equal to the
+    # plain route's decode of the same payload
+    gitem = gpayload[CODEC_GATED_LEAF]
+    require(gitem["kind"] == ccfg.codec, f"{CODEC_GATED_LEAF} at gate {VERSIONED_GATE} "
+            f"stayed {gitem['kind']}")
+    gleaf, gwant = dict(_flatten(grestored))[CODEC_GATED_LEAF], dict(_flatten(gated))[
+        CODEC_GATED_LEAF]
+    require(gleaf.device == gwant.device and gleaf.dtype == gwant.dtype
+            and gleaf.shape == gwant.shape and bool(torch.isfinite(gleaf).all()),
+            f"{CODEC_GATED_LEAF} restored as {gleaf.dtype} {tuple(gleaf.shape)} on "
+            f"{gleaf.device}")
+    gplain = torch.from_numpy(_with_impl(codecs.load_bytes(gitem["data"], device=device),
+                                         "ref", NTTDEncoded).to_dense()).to(device)
+    gerr = float((gleaf - gplain).abs().max())
+    require(torch.allclose(gleaf, gplain, rtol=TOL["float32"], atol=TOL["float32"]),
+            f"{CODEC_GATED_LEAF}: decompress_tree and the plain decode differ by {gerr}")
+    del gplain
+    src = SyntheticSource(PipelineConfig(batch_size=8, seq_len=128, vocab=cfg.vocab, seed=0))
+    batch = {k: torch.from_numpy(v).to(device) for k, v in src.batch_at(RESUME_STEPS).items()}
+    # the restored tree, with the MLP left out of compress_tree and the
+    # codec leaf in place of its raw copy
+    gattn, gname = CODEC_GATED_LEAF.split("/")[1:]
+    full_restored = {**restored, skip: {**restored[skip], mlp: params[skip][mlp],
+                                        gattn: {**restored[skip][gattn], gname: gleaf}}}
+    loss_before, loss_after = (_eval_loss(torch, cfg, p, batch) for p in (params, full_restored))
+    del restored, full_restored, grestored, gleaf
+    # a VersionedCheckpointer over one leaf at steps 4 and 6
+    vdir = os.path.join(workdir, "versioned")
+    vcfg = cc.VersionedCheckpointConfig(min_fitness=VERSIONED_GATE,
+                                        delta_passes=VERSIONED_DELTA_PASSES,
+                                        keyframe_opts=VERSIONED_KEYFRAME,
+                                        delta_opts=VERSIONED_DELTA)
+    subs = [_subtree(p, VERSIONED_LEAF) for p in (params4, params)]
+    with plain_calls_counted(ref) as vplain:
+        before = ops.launch_counts()
+        t0 = time.perf_counter()
+        with cc.VersionedCheckpointer(vdir, vcfg) as vc:
+            vstats = [vc.save_step(t) for t in subs]
+        vsave_s = time.perf_counter() - t0
+        reader = cc.VersionedCheckpointer(vdir)
+        vrel = []
+        t0 = time.perf_counter()
+        for step, t in enumerate(subs):
+            back = reader.restore_step(step, t)
+            for (key, a), (_, b) in zip(_flatten(back), _flatten(t)):
+                require(a.shape == b.shape and a.device == b.device
+                        and bool(torch.isfinite(a).all()), f"versioned step {step} {key}")
+                vrel.append([step, key, float((a - b).norm() / b.norm())])
+        vrestore_s = time.perf_counter() - t0
+        vlaunches = {k: v - before[k] for k, v in ops.launch_counts().items()}
+    require(sum(vplain.values()) == 0, f"plain versions ran in the versioned store: {vplain}")
+    require(vstats[0]["leaves_store"] == 1 and vstats[1]["leaves_store"] == 1
+            and vstats[0]["keyframes"] == 1, f"versioned stats {vstats}")
+    # the keyframe payload of that leaf through the kernel and the plain route
+    with open(os.path.join(vdir, "manifest.json")) as f:
+        fname = json.load(f)["leaves"][VERSIONED_LEAF]["file"]
+    with VersionedStore.open(os.path.join(vdir, fname)) as vr:
+        enc = vr.component(0)
+    idx = np.stack([np.random.default_rng(SEED).integers(0, n, REQUEST) for n in enc.shape],
+                   axis=1)
+    kern = enc.decode_at(idx)
+    plain_route = _with_impl(enc, "ref", NTTDEncoded).decode_at(idx)
+    probe_err = float(np.abs(kern - plain_route).max())
+    require(np.allclose(kern, plain_route, rtol=TOL["float32"], atol=TOL["float32"]),
+            f"{VERSIONED_LEAF}: kernel and plain decodes differ by {probe_err}")
+    vbytes = _dir_bytes(vdir)
+    shutil.rmtree(vdir)
+    emit({"phase": "train.codec", "arch": TRAIN_ARCH,
+          "reduced": [f"n_layers 40 -> {RESUME_LAYERS} (train.resume's params)",
+                      f"compress_tree without {CODEC_SKIP}'s 3 leaves (80 M of 405 M entries)",
+                      f"VersionedCheckpointer over {VERSIONED_LEAF} alone, delta passes 2 -> "
+                      f"{VERSIONED_DELTA_PASSES}"],
+          "config": dataclasses.asdict(ccfg),
+          "leaves": stats["leaves"], "raw_bytes": stats["raw_bytes"],
+          "compressed_bytes": stats["compressed_bytes"], "ratio": stats["ratio"],
+          "leaves_codec": stats["leaves_codec"], "leaves_raw": stats["leaves_raw"],
+          "compress_seconds": compress_s, "decompress_seconds": decompress_s,
+          "codec_leaf": {"leaf": CODEC_GATED_LEAF, "gate": VERSIONED_GATE,
+                         "leaves": gstats["leaves"], "raw_bytes": gstats["raw_bytes"],
+                         "compressed_bytes": gstats["compressed_bytes"],
+                         "ratio": gstats["ratio"], "compress_seconds": gcompress_s,
+                         "decompress_seconds": gdecompress_s,
+                         "max_abs_err_vs_plain": gerr},
+          "eval_loss_before": loss_before, "eval_loss_after": loss_after,
+          "eval_loss_after_note": f"restored tree, {CODEC_GATED_LEAF} the codec leaf",
+          "launches": launches, "plain_calls": plain,
+          "probe": {"leaf": VERSIONED_LEAF, "payload": "the store's keyframe",
+                    "entries": REQUEST, "max_abs_err": probe_err},
+          "versioned": {"leaf": VERSIONED_LEAF, "gate": VERSIONED_GATE,
+                        "delta_passes": VERSIONED_DELTA_PASSES,
+                        "keyframe_opts": VERSIONED_KEYFRAME, "delta_opts": VERSIONED_DELTA,
+                        "steps": [RESUME_STOP, RESUME_STEPS], "stats": vstats,
+                        "bytes": vbytes, "save_seconds": vsave_s,
+                        "restore_seconds": vrestore_s, "rel_err": vrel,
+                        "launches": vlaunches, "plain_calls": vplain}})
+
+
+def phase_train_embed(torch, device, table):
+    """``NTTDEmbedding`` of the resumed run's 122,880 x 2304 table."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models.nttd_embed import NTTDEmbedding
+
+    vocab = configs.get(TRAIN_ARCH).vocab
+    arr = table.detach().float().cpu().numpy()
+    with plain_calls_counted(ref) as plain:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        emb = NTTDEmbedding.fit(arr, epochs=EMBED_EPOCHS, reorder=False)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        ids = torch.from_numpy(np.random.default_rng(SEED).integers(
+            0, vocab, size=EMBED_LOOKUP)).to(device)
+        before = ops.launch_counts()["decode_tile"]
+        t0 = time.perf_counter()
+        got = emb.lookup(ids)
+        torch.cuda.synchronize()
+        lookup_ms = (time.perf_counter() - t0) * 1e3
+        lookups = ops.launch_counts()["decode_tile"] - before
+    require(sum(plain.values()) == 0, f"plain versions ran in the embedding: {plain}")
+    require(lookups == 1, f"one lookup launched decode_tile {lookups} times")
+    ct = emb.ct
+    plain_emb = dataclasses.replace(
+        emb, ct=dataclasses.replace(ct, cfg=dataclasses.replace(ct.cfg, kernel_impl="ref")))
+    want = plain_emb.lookup(ids)
+    err = float((got - want).abs().max())
+    require(got.shape == (*EMBED_LOOKUP, arr.shape[1]) and bool(torch.isfinite(got).all()),
+            "lookup output")
+    require(torch.allclose(got, want, rtol=TOL["float32"], atol=TOL["float32"]),
+            f"lookup: kernel and plain route differ by {err}")
+    rows = torch.from_numpy(arr).to(device)[ids]
+    rel = float((got - rows).norm() / rows.norm())
+    emit({"phase": "train.embed", "table": list(arr.shape),
+          "reduced": [f"epochs 150 -> {EMBED_EPOCHS}",
+                      "reorder off: the TSP init's distance matrix over 122,880 rows is "
+                      f"{arr.shape[0] ** 2 * 8 / 1e9:.0f} GB of f64 on the host"],
+          "rank": ct.cfg.rank, "hidden": ct.cfg.hidden, "fit_seconds": fit_s,
+          "lookup": list(EMBED_LOOKUP), "lookup_ms": lookup_ms, "lookup_launches": lookups,
+          "max_abs_err_vs_plain": err, "rel_err_vs_table": rel,
+          "payload_bytes": emb.payload_bytes(), "raw_bytes": emb.raw_bytes(),
+          "plain_calls": plain})
+
+
+def phase_train_all(torch, device, smi, workdir) -> dict:
+    """The train phases; returns each kernel's launches in them (the simt
+    bodies under their row names)."""
+    from repro_torch.kernels import decode_tile as _dt
+    from repro_torch.kernels import lstm as _lstm
+    from repro_torch.kernels import ops
+
+    ops.reset_launch_counts()
+    phase_train(torch, device, smi)
+    params, params4 = phase_train_resume(torch, device, workdir)
+    phase_train_codec(torch, device, params, params4, workdir)
+    del params4
+    phase_train_embed(torch, device, params["tok"]["embed"])
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = ops.launch_counts()
+    launches.update(decode_tile_simt=_dt.simt_launches, lstm_scan_simt=_lstm.simt_launches)
     return launches
 
 
@@ -2996,6 +3491,7 @@ def main() -> int:
             torch, device, smi, enc, workdir, stream_path, delta_path)
         fleet_launches = phase_fleet(torch, device, smi, workdir, *served)
         serve_launches = phase_serve(torch, device)
+        train_launches = phase_train_all(torch, device, smi, workdir)
         simt_lstm = lstm_simt_timing(torch, device, lstm_simt_launches, errs)
         from repro_torch.kernels import lstm as _lstm
         from repro_torch.kernels import tt_contract as _tt
@@ -3022,6 +3518,8 @@ def main() -> int:
         for row in kernels:  # and in phase fleet, this process's launches (the simt
             # bodies never run there: hidden 16 and 24 are register buckets)
             row["launches_fleet"] = fleet_launches.get(row["name"], 0)
+        for row in kernels:  # and in the train phases (flash: 0, training runs the oracle)
+            row["launches_train"] = train_launches.get(row["name"], 0)
         torch.cuda.synchronize()
         emit({"kernels": kernels})
     except Exception:  # any failed phase fails the run, with its traceback

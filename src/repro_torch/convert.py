@@ -9,8 +9,11 @@ The same call carries an NTTD params tree and an LM params tree
 port mirrors.  numpy has no bf16 of its own; a JAX bf16 leaf arrives as an
 ``ml_dtypes`` bfloat16 array and is carried over exactly.
 
-``compressed_from_numpy`` rebuilds a port ``CompressedTensor`` from the
-numpy parts of a reference one.
+``adam_state_from_numpy`` carries an optimizer state (the reference's
+``AdamState`` with numpy leaves, or anything with ``step``, ``mu`` and
+``nu``) into the port's ``AdamState``, so both packages start a training
+step from the same state.  ``compressed_from_numpy`` rebuilds a port
+``CompressedTensor`` from the numpy parts of a reference one.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ from repro_torch.core import nttd
 from repro_torch.core.codec import CompressedTensor
 from repro_torch.core.folding import spec_from_factors
 from repro_torch.devices import resolve_device
+from repro_torch.optim.optimizers import AdamState
 
 
 def _leaf(arr, device: torch.device, dtype: torch.dtype | None) -> torch.Tensor:
@@ -52,6 +56,16 @@ def params_to_numpy(params: nttd.Params) -> dict[str, Any]:
     if isinstance(params, dict):
         return {k: params_to_numpy(v) for k, v in params.items()}
     return params.detach().cpu().numpy()
+
+
+def adam_state_from_numpy(state, device=None) -> AdamState:
+    """An optimizer state with numpy leaves (``state.step``, ``state.mu``,
+    ``state.nu``) -> the port's ``AdamState`` on ``device`` (CUDA unless
+    given), every leaf in its own dtype."""
+    device = resolve_device(device)
+    return AdamState(step=_leaf(state.step, device, None),
+                     mu=params_from_numpy(state.mu, device),
+                     nu=params_from_numpy(state.nu, device))
 
 
 def compressed_from_numpy(

@@ -4,6 +4,7 @@
     specs  = param_specs(cfg)                          # ParamSpec tree
     params = init_params(cfg, seed, device)            # real weights
     logits, aux   = forward(params, cfg, tokens=...)   # teacher-forced
+    loss, metrics = loss_fn(params, cfg, batch)
     logits, cache = prefill(params, cfg, tokens, cache)
     logits, cache = decode_step(params, cfg, token, cache, cache_len)
 
@@ -70,6 +71,16 @@ def forward(params, cfg: ModelConfig, tokens=None, embeds=None):
     x, _, aux = transformer.run_stack(params, x, cfg, mode="full")
     x = layers.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return layers.unembed(params["tok"], x, layers.dtype_of(cfg.compute_dtype)), aux
+
+
+def loss_fn(params, cfg: ModelConfig, batch: dict):
+    """batch: {'tokens' or 'embeds', 'labels'}.  Returns (loss, {'xent', 'aux'})."""
+    logits, aux = forward(
+        params, cfg, tokens=batch.get("tokens"), embeds=batch.get("embeds")
+    )
+    xent = layers.softmax_xent(logits, batch["labels"], valid_vocab=cfg.vocab)
+    loss = xent + cfg.moe_aux_weight * aux
+    return loss, {"xent": xent, "aux": aux}
 
 
 def prefill(params, cfg: ModelConfig, tokens=None, cache=None, embeds=None):

@@ -3,14 +3,27 @@
 Only the ``dense`` layout is ported: a block is one (attention, MLP)
 sublayer pair, and blocks are stacked on a leading ``[n_blocks, sub, ...]``
 dim of every leaf, as in the reference.  The reference's ``lax.scan``
-over blocks is a Python loop over that dim here, and the KV cache is
-written in place.  ``remat`` does not apply: nothing here is trained yet.
-The MoE, hybrid and SSM layouts raise ``NotImplementedError`` (ROADMAP
-A.9).
+over blocks is a Python loop over that dim here (``torch.unbind``, whose
+gradient is one stack of the blocks' gradients), and the KV cache is
+written in place.
+
+``cfg.remat`` wraps each block of the full (training) mode as the
+reference wraps its scan body in ``jax.checkpoint``: "none" keeps every
+activation, "full" recomputes the block in the backward pass
+(``torch.utils.checkpoint``), "dots" saves only the matrix products and
+recomputes the rest (a selective-checkpoint policy that saves ``aten.mm``,
+the projections' and the MLP's products, as the reference's
+``dots_with_no_batch_dims_saveable`` saves its dot products without batch
+dims; the attention oracle's batched products are recomputed).  All three
+give the same loss and gradients.  The MoE, hybrid and SSM layouts raise
+``NotImplementedError`` (ROADMAP A.9).
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+import torch.utils.checkpoint as torch_checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.dist.sharding import ParamSpec
@@ -101,6 +114,38 @@ def apply_block(
     return x
 
 
+def _unstack(tree, n: int) -> list:
+    """A stacked-params tree -> ``n`` per-block trees of views."""
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: parts[k][i] for k in tree} for i in range(n)]
+    return list(torch.unbind(tree, 0))
+
+
+#: the products "dots" saves: every 2-D matrix product (the batched
+#: attention products are ``bmm``)
+_DOT_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    policy = torch_checkpoint.CheckpointPolicy
+    return policy.MUST_SAVE if op in _DOT_OPS else policy.PREFER_RECOMPUTE
+
+
+def _remat_wrap(fn, cfg: ModelConfig):
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat == "dots":
+        context_fn = functools.partial(torch_checkpoint.create_selective_checkpoint_contexts,
+                                       _save_dots)
+    elif cfg.remat == "full":
+        context_fn = torch_checkpoint.noop_context_fn
+    else:
+        raise ValueError(cfg.remat)
+    return functools.partial(torch_checkpoint.checkpoint, fn, use_reentrant=False,
+                             context_fn=context_fn)
+
+
 # ---------------------------------------------------------------------------
 # stack (loop over blocks)
 # ---------------------------------------------------------------------------
@@ -116,8 +161,13 @@ def run_stack(
     the one passed in, updated in place; aux is 0 for dense stacks."""
     if mode not in ("full", "prefill", "decode"):
         raise ValueError(mode)
-    for i in range(cfg.n_blocks):
-        bslice = None if mode == "full" else _tree_index(cache, i)
-        x = apply_block(_tree_index(params["blocks"], i), x, cfg, bslice, cache_len, mode)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return x, (None if mode == "full" else cache), aux
+    if mode == "full":
+        body = _remat_wrap(lambda bp, h: apply_block(bp, h, cfg, None, None, "full"), cfg)
+        for bp in _unstack(params["blocks"], cfg.n_blocks):
+            x = body(bp, x)
+        return x, None, aux
+    for i in range(cfg.n_blocks):
+        x = apply_block(_tree_index(params["blocks"], i), x, cfg, _tree_index(cache, i),
+                        cache_len, mode)
+    return x, cache, aux

@@ -1,4 +1,4 @@
-"""Optimizers of the port (the codec's Adam), as in ``repro.optim``."""
+"""Optimizers and learning-rate schedules of the port, as in ``repro.optim``."""
 from repro_torch.optim.optimizers import (
     AdamState,
     Optimizer,
@@ -6,8 +6,10 @@ from repro_torch.optim.optimizers import (
     adamw,
     apply_updates,
     clip_by_global_norm,
+    clip_by_global_norm_,
     global_norm,
 )
+from repro_torch.optim.schedules import constant, cosine, wsd
 
 __all__ = [
     "AdamState",
@@ -17,4 +19,8 @@ __all__ = [
     "apply_updates",
     "global_norm",
     "clip_by_global_norm",
+    "clip_by_global_norm_",
+    "constant",
+    "cosine",
+    "wsd",
 ]

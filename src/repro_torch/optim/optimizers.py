@@ -22,6 +22,8 @@ from typing import Any, Callable, NamedTuple
 import torch
 
 F32 = torch.float32
+#: leaves updated together by ``apply_``; a larger leaf is a group alone
+GROUP_ELEMENTS = 1 << 27
 Schedule = Callable[[torch.Tensor], torch.Tensor]
 
 
@@ -61,6 +63,7 @@ class AdamState(NamedTuple):
 class Optimizer:
     init: Callable
     update: Callable  # (grads, state, params) -> (updates, state)
+    apply_: Callable  # (grads, state, params) -> state, all in place
 
 
 def global_norm(tree) -> torch.Tensor:
@@ -72,6 +75,29 @@ def clip_by_global_norm(tree, max_norm: float) -> tuple[Any, torch.Tensor]:
     norm = global_norm(tree)
     scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
     return tree_map(lambda x: x * scale.to(x.dtype), tree), norm
+
+
+def clip_by_global_norm_(tree, max_norm: float) -> torch.Tensor:
+    """``clip_by_global_norm`` in place; returns the norm before clipping."""
+    norm = global_norm(tree)
+    scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
+    for x in tree_leaves(tree):
+        x.mul_(scale.to(x.dtype))
+    return norm
+
+
+def _groups(*lists: list) -> list[tuple[list, ...]]:
+    """Zip parallel leaf lists into groups of at most ``GROUP_ELEMENTS``
+    elements (a larger leaf makes a group alone)."""
+    out, start, size = [], 0, 0
+    n = len(lists[0])
+    for i in range(n + 1):
+        if i == n or (size and size + lists[0][i].numel() > GROUP_ELEMENTS):
+            out.append(tuple(lst[start:i] for lst in lists))
+            start, size = i, 0
+        if i < n:
+            size += lists[0][i].numel()
+    return [g for g in out if g[0]]
 
 
 def adamw(
@@ -105,20 +131,22 @@ def adamw(
             nu=tree_map(lambda p: torch.zeros(p.shape, dtype=F32, device=p.device), params),
         )
 
+    def bias_scales(step: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        stepf = step.to(F32)
+        b1_t, b2_t, one, _ = scalars(step.device)
+        return one / (one - torch.pow(b1_t, stepf)), one / (one - torch.pow(b2_t, stepf))
+
     def update(grads, state: AdamState, params):
         if max_grad_norm is not None:
             grads, _ = clip_by_global_norm(grads, max_grad_norm)
         step = state.step + 1
-        stepf = step.to(F32)
         g = [x.to(F32) for x in tree_leaves(grads)]
         # mu = b1 m + (1 - b1) g;  nu = b2 v + (1 - b2) g^2
         mu = torch._foreach_add(torch._foreach_mul(tree_leaves(state.mu), b1),
                                 torch._foreach_mul(g, 1 - b1))
         nu = torch._foreach_add(torch._foreach_mul(tree_leaves(state.nu), b2),
                                 torch._foreach_mul(torch._foreach_mul(g, g), 1 - b2))
-        b1_t, b2_t, one, _ = scalars(step.device)
-        mu_hat_scale = one / (one - torch.pow(b1_t, stepf))
-        nu_hat_scale = one / (one - torch.pow(b2_t, stepf))
+        mu_hat_scale, nu_hat_scale = bias_scales(step)
         lr_t = sched(step)
         # u = (m mu_hat) / (sqrt(v nu_hat) + eps) [+ wd p];  update = -lr u
         u = torch._foreach_div(
@@ -131,7 +159,38 @@ def adamw(
         return tree_unflatten(params, upd), AdamState(
             step=step, mu=tree_unflatten(params, mu), nu=tree_unflatten(params, nu))
 
-    return Optimizer(init=init, update=update)
+    def apply_(grads, state: AdamState, params) -> AdamState:
+        """``update`` then ``apply_updates``, in place: ``params``,
+        ``state.mu`` and ``state.nu`` are updated, ``grads`` clipped (and so
+        consumed).  Returns the state with its new step."""
+        if max_grad_norm is not None:
+            clip_by_global_norm_(grads, max_grad_norm)
+        step = state.step + 1
+        mu_hat_scale, nu_hat_scale = bias_scales(step)
+        neg_lr = -sched(step)
+        for p, g, mu, nu in _groups(tree_leaves(params), tree_leaves(grads),
+                                    tree_leaves(state.mu), tree_leaves(state.nu)):
+            g = [x.to(F32) for x in g]
+            torch._foreach_mul_(mu, b1)
+            torch._foreach_add_(mu, torch._foreach_mul(g, 1 - b1))
+            torch._foreach_mul_(nu, b2)
+            g2 = torch._foreach_mul(g, g)
+            torch._foreach_mul_(g2, 1 - b2)
+            torch._foreach_add_(nu, g2)
+            del g, g2
+            u = torch._foreach_mul(mu, mu_hat_scale)
+            den = torch._foreach_mul(nu, nu_hat_scale)
+            torch._foreach_sqrt_(den)
+            torch._foreach_add_(den, eps)
+            torch._foreach_div_(u, den)
+            del den
+            if weight_decay:
+                torch._foreach_add_(u, torch._foreach_mul([x.to(F32) for x in p], weight_decay))
+            torch._foreach_mul_(u, neg_lr)
+            torch._foreach_add_(p, [x.to(q.dtype) for x, q in zip(u, p)])
+        return AdamState(step=step, mu=state.mu, nu=state.nu)
+
+    return Optimizer(init=init, update=update, apply_=apply_)
 
 
 def adam(lr: float | Schedule, **kw) -> Optimizer:

@@ -294,10 +294,9 @@ class _StreamPayload:
     quarantine: dict[int, str] = dataclasses.field(default_factory=dict)
     #: in-flight background warm (prefetch): joined by _get before use
     warm: concurrent.futures.Future | None = None
-    #: True after a background warm materialized the body: the NEXT counted
-    #: access is the one the warm's miss already paid for, so it must not
-    #: also count a hit (keeps counters identical to the synchronous path,
-    #: where materialization absorbs the first access)
+    #: True after a background warm materialized the body: the NEXT access
+    #: counts the warm's miss (and no hit), on the caller's thread, as the
+    #: synchronous path counts the materialization that absorbs it
     warm_credit: bool = False
 
 
@@ -541,7 +540,9 @@ class CodecService:
                 f"payload {name!r} is versioned; query it through "
                 "decode_at/submit (version=) instead"
             )
-        if sp.enc is None and sp.warm is not None:
+        if sp.warm is not None:
+            # join the warm even when its body is already set: its
+            # bookkeeping (warm_credit) lands only when it returns
             warm, sp.warm = sp.warm, None
             with obs.span("prefetch_wait", payload=name):
                 warm.result()  # propagate a failed background warm verbatim
@@ -552,12 +553,16 @@ class CodecService:
                     "(ownership filter excludes every chunk)"
                 )
             self._materialize(name, sp)
+        elif sp.warm_credit:
+            # the background warm's materialization: its miss is counted
+            # here, on the caller's thread, where the same access counts it
+            # with prefetching off (the warm thread counts nothing, so no
+            # counter is updated from two threads)
+            sp.warm_credit = False
+            self._count_miss(name)
         elif count:
-            if sp.warm_credit:
-                sp.warm_credit = False  # background warm's miss covered this
-            else:
-                self.cache_stats.hit(name)
-                self._info[name].cache_hits += 1
+            self.cache_stats.hit(name)
+            self._info[name].cache_hits += 1
         return sp.enc
 
     def _read_chunk_checked(
@@ -595,8 +600,13 @@ class CodecService:
             self.metrics.counter("chunks_quarantined", payload=name).inc()
             raise ChunkCorruptError(name, cid, sp.path, str(e)) from e
 
+    def _count_miss(self, name: str) -> None:
+        self.cache_stats.miss(name)
+        self._info[name].cache_misses += 1
+
     def _materialize(
-        self, name: str, sp: _StreamPayload, pipelined: bool = True
+        self, name: str, sp: _StreamPayload, pipelined: bool = True,
+        count: bool = True,
     ) -> None:
         """Read + parse a lazy payload body (counted as one miss, exactly
         like the pre-warm era).  Only BASE chunks form the body; TCDP patch
@@ -606,9 +616,10 @@ class CodecService:
         of poisoning the payload.  ``pipelined=False`` reads chunks
         inline — required when already ON the single prefetch thread (the
         warm path), where submitting to the pool and waiting would
-        deadlock."""
-        self.cache_stats.miss(name)
-        self._info[name].cache_misses += 1
+        deadlock.  ``count=False`` (the warm path) leaves the miss to the
+        caller's first access (``_get``)."""
+        if count:
+            self._count_miss(name)
         nb = _n_base(sp)
         with obs.span("materialize", payload=name, chunks=nb):
             with obs.span("chunk_read", payload=name, chunks=nb):
@@ -653,7 +664,7 @@ class CodecService:
             return
         if sp.ownership is not None and not sp.ownership.owns_payload():
             return
-        self._materialize(name, sp, pipelined=False)
+        self._materialize(name, sp, pipelined=False, count=False)
         sp.warm_credit = True
 
     # -------------------------------------------------------------- versions

@@ -1,0 +1,131 @@
+"""Step factories: train / prefill / decode, as in ``repro.train.step``.
+
+``make_train_step`` is the reference's step in eager PyTorch: the f32
+master weights cast once to the compute dtype, the loss and its gradients
+(``torch.autograd.grad`` against the masters, so every gradient comes back
+in the masters' dtype as ``jax.grad`` gives it), the ``grad_transform``
+hook, the optimizer and the metrics ``loss``/``xent``/``aux``/``grad_norm``.
+
+The step updates the params and the optimizer state in place
+(``Optimizer.apply_``) and returns the same tensors, so a step holds one
+copy of each: the port's form of the reference's ``donate_argnums=(0, 1)``.
+It gives the same bits as ``update`` followed by ``apply_updates``.
+
+Training attention is the oracle with autograd (``cfg.attn_impl="ref"``,
+the configs' default), as the reference trains through its jnp oracle: the
+reference has no backward attention kernel.
+
+The sharding trees of the reference (``effective_rules``,
+``batch_shardings``, ``param_shardings``, ``opt_shardings``,
+``cache_shardings``) wait for ROADMAP A.8: on one device every leaf is
+whole.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.models import layers, model
+from repro_torch.optim import optimizers
+from repro_torch.optim.optimizers import AdamState, tree_leaves, tree_map, tree_unflatten
+
+
+# ---------------------------------------------------------------------------
+# step functions
+# ---------------------------------------------------------------------------
+def value_and_grad(loss_fn, params, *args):
+    """``((loss, aux), grads)`` of ``loss_fn(params, *args) -> (loss, aux)``
+    against every leaf of ``params``; ``aux`` is detached."""
+    leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+    with torch.enable_grad():
+        loss, aux = loss_fn(tree_unflatten(params, leaves), *args)
+        grads = torch.autograd.grad(loss, leaves)
+    aux = tree_map(lambda a: a.detach(), aux)
+    return (loss.detach(), aux), tree_unflatten(params, list(grads))
+
+
+def make_train_step(cfg: ModelConfig, opt, grad_transform=None):
+    """(params, opt_state, batch) -> (params, opt_state, metrics), the
+    params and state updated in place.
+
+    ``grad_transform(grads) -> grads`` hooks gradient compression (see
+    ``repro_torch.dist.grad_compress``) between backprop and the optimizer.
+    """
+    compute_dt = layers.dtype_of(cfg.compute_dtype)
+    param_dt = layers.dtype_of(cfg.param_dtype)
+
+    def loss_with_cast(p, batch):
+        if param_dt != compute_dt:
+            # cast the master weights once; every use then reads the
+            # compute-dtype copy, as in the reference
+            p = tree_map(lambda w: w.to(compute_dt), p)
+        return model.loss_fn(p, cfg, batch)
+
+    def train_step(params, opt_state, batch):
+        (loss, metrics), grads = value_and_grad(loss_with_cast, params, batch)
+        if grad_transform is not None:
+            grads = grad_transform(grads)
+        metrics = dict(metrics)
+        metrics["loss"] = loss
+        # before the update: the in-place update clips the grads it is given
+        metrics["grad_norm"] = optimizers.global_norm(grads)
+        opt_state = opt.apply_(grads, opt_state, params)
+        return params, opt_state, metrics
+
+    return train_step
+
+
+def make_prefill_step(cfg: ModelConfig):
+    def prefill_step(params, cache, batch):
+        with torch.no_grad():
+            return model.prefill(params, cfg, tokens=batch.get("tokens"),
+                                 embeds=batch.get("embeds"), cache=cache)
+
+    return prefill_step
+
+
+def make_decode_step(cfg: ModelConfig):
+    def decode_step(params, cache, batch, cache_len):
+        with torch.no_grad():
+            return model.decode_step(params, cfg, token=batch.get("tokens"),
+                                     embeds=batch.get("embeds"), cache=cache,
+                                     cache_len=cache_len)
+
+    return decode_step
+
+
+# ---------------------------------------------------------------------------
+# abstract inputs (meta tensors: shape and dtype, no storage)
+# ---------------------------------------------------------------------------
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict[str, Any]:
+    """Abstract model inputs for one (arch x shape) cell."""
+    b, s = shape.global_batch, shape.seq_len
+    ct = layers.dtype_of(cfg.compute_dtype)
+    i32 = torch.int32
+    if shape.kind == "train":
+        batch: dict[str, Any] = {"labels": _meta((b, s), i32)}
+        if cfg.input_kind == "embeddings":
+            batch["embeds"] = _meta((b, s, cfg.d_model), ct)
+        else:
+            batch["tokens"] = _meta((b, s), i32)
+        return batch
+    if shape.kind == "prefill":
+        if cfg.input_kind == "embeddings":
+            return {"embeds": _meta((b, s, cfg.d_model), ct)}
+        return {"tokens": _meta((b, s), i32)}
+    # decode: one new token against a cache of length s
+    if cfg.input_kind == "embeddings":
+        return {"embeds": _meta((b, 1, cfg.d_model), ct)}
+    return {"tokens": _meta((b, 1), i32)}
+
+
+def abstract_opt_state(cfg: ModelConfig) -> AdamState:
+    f32 = tree_map(lambda x: _meta(x.shape, torch.float32), model.abstract_params(cfg))
+    return AdamState(step=_meta((), torch.int32), mu=f32,
+                     nu=tree_map(lambda x: _meta(x.shape, torch.float32), f32))

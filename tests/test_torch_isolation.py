@@ -61,7 +61,11 @@ def test_importing_every_module_loads_no_jax():
         "        'repro_torch.fleet.repair', 'repro_torch.fleet.router',\n"
         "        'repro_torch.fleet.transport', 'repro_torch.fleet.worker',\n"
         "        'repro_torch.obs.slo', 'repro_torch.obs.exposition', 'repro_torch.obs.report',\n"
-        "        'repro_torch.obs.serve_metrics'} <= set(mods), mods\n"
+        "        'repro_torch.obs.serve_metrics', 'repro_torch.optim.schedules',\n"
+        "        'repro_torch.data.pipeline', 'repro_torch.dist.grad_compress',\n"
+        "        'repro_torch.train.step', 'repro_torch.train.checkpoint',\n"
+        "        'repro_torch.launch.train', 'repro_torch.compress.checkpoint_codec',\n"
+        "        'repro_torch.models.nttd_embed'} <= set(mods), mods\n"
         "assert not bad, bad\n"
         "print('ok', len(mods))\n"
     )
@@ -116,6 +120,23 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
                          timeout=120)
     assert res.returncode != 0 and "no CUDA device" in res.stderr
     assert "READY" not in res.stdout and not os.path.exists(sock)
+    # training, compressed checkpoints and the compressed embedding
+    from repro_torch.compress import checkpoint_codec
+    from repro_torch.launch import train
+    from repro_torch.models.nttd_embed import NTTDEmbedding
+
+    leaf = {"w": torch.zeros((64, 32))}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--arch", "minicpm-2b", "--smoke", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        checkpoint_codec.compress_tree(leaf, checkpoint_codec.CodecCheckpointConfig(
+            min_elements=16, epochs=1))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        checkpoint_codec.VersionedCheckpointer(
+            str(tmp_path / "v"), checkpoint_codec.VersionedCheckpointConfig(min_elements=16)
+        ).save_step(leaf)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        NTTDEmbedding.fit(np.zeros((8, 4), np.float32), epochs=1)
 
 
 def test_wrappers_raise_when_the_library_cannot_be_built(monkeypatch):

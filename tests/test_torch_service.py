@@ -20,6 +20,7 @@ call and canary check: the launch rule ``chip_smoke.py`` holds on the card.
 """
 import dataclasses
 import os
+import time
 
 import numpy as np
 import pytest
@@ -337,6 +338,27 @@ def test_prefetch_on_and_off_bitwise_equal(files, runs):
     on = _drive(PORT, paths, blob, 10 * std, prefetch=True)
     _same_logs(on[0], off[0], exact=True)
     _same(on[1], off[1], 0.0)
+
+
+def test_prefetch_warm_that_finishes_first_counts_as_prefetch_off(files, runs, monkeypatch):
+    """The caller descheduled right after each ``load_stream`` (as a busy
+    CPU may leave it): every background warm runs to its end first.  The
+    warm thread counts nothing, so the stats still equal prefetch off.
+    Before, the warm counted its miss itself, and ``refresh`` then copied
+    the old counters over the new payload's: ``info.nttd.cache_misses`` was
+    4 against 5."""
+    paths, blob, std = files[0]["port"], files[1], files[2]
+    real = tservice.CodecService.load_stream
+
+    def load_stream(self, *args, **kwargs):
+        out = real(self, *args, **kwargs)
+        time.sleep(0.05)  # the warm thread takes the interpreter meanwhile
+        return out
+
+    monkeypatch.setattr(tservice.CodecService, "load_stream", load_stream)
+    on = _drive(PORT, paths, blob, 10 * std, prefetch=True)
+    _same_logs(on[0], runs["port"]["port"][0], exact=True)
+    _same(on[1], runs["port"]["port"][1], 0.0)
 
 
 def test_tracing_on_and_off_bitwise_equal(files, runs, tmp_path):
