@@ -195,6 +195,39 @@ Phases, each printing JSON lines:
    (``--attn-impl ref``): the prefill logits must agree within
    ``LOGIT_REL_TOL`` of max|logit|, and the greedy tokens wherever the
    oracle run's top-2 margin exceeds twice the largest logit difference.
+   families (``phase_families``): the MoE, Mamba2 and hybrid layouts and
+   the embedding configs, each model built from seed 0 and freed before
+   the next.  ``families.ssm``: mamba2-1.3b at full width and depth (48
+   layers, d_model 2048) in bf16 through the launcher, requests of 1,
+   2, 300 (across the 256-token chunk) and 1000 tokens over 2 slots, 16
+   new tokens each: finite tokens, no flash launch; then in f32 a prefill
+   of 300 and of 2 tokens (below the conv's k-1, ROADMAP C.8) plus one
+   decode step against ``forward`` on S + 1 tokens, within
+   ``SSM_TF_TOL`` of max|logit|.  ``families.moe``: grok-1 (3 layers) and
+   llama4-maverick (2 layers: one dense and one MoE) at full width in
+   bf16 through the launcher on both routes, 6 requests of 1, 128, 300,
+   2048, 5 and 33 tokens over 2 slots: flash launches = attention
+   sublayers x requests, prefill logits within ``FAMILY_LOGIT_REL_TOL``,
+   greedy tokens by the serve phase's margin rule.  bf16 router logits
+   sit near ties that the attention's rounding can move, so the compared
+   routes share one routing: a second kernel-route run records every MoE
+   sublayer's expert ids (``RouteLog``) and the plain route replays them,
+   with gate values from its own probabilities; every prefill and token is
+   then compared.  Times, launches and peak bytes come from a first
+   kernel-route run with no hook.  ``families.hybrid``: jamba's smoke
+   config on the card in f32 (the flash kernel's simt body at D 8): both
+   routes within ``HYBRID_TOL`` of max|logit|, and prefill then two decode
+   steps against teacher forcing within ``HYBRID_TF_TOL``, at the
+   capacity factor E / k (no token dropped: a forward over S + 2 tokens
+   and a prefill over S drop differently at the config's 1.25).
+   ``families.embeds``: musicgen-medium at full width and depth (48
+   layers, D 64: flash's ``wgmma`` body) and internvl2-76b at full width,
+   8 layers, through the launcher on both routes as ``families.moe``, then
+   a 300-row ``embeds`` prefill and two decode steps through
+   ``train.step.make_prefill_step``/``make_decode_step`` on both routes
+   (flash launches = layers).  Each line prints weight and peak bytes,
+   prefill ms by prompt length and decode ms a token, and its depth cut
+   in ``reduced``; every kernel row gets ``launches_families``.
 8. train (``phase_train_all``): LM training at minicpm-2b's full width.
    ``train``: ``repro_torch.launch.train.run`` (``main``'s losses with
    the step times and final state) for 8 steps at full depth (40 layers,
@@ -328,6 +361,26 @@ SERVE_REQUESTS, SERVE_SLOTS, SERVE_NEW, SERVE_MAX_LEN = 8, 4, 16, 4096
 # ulps at the top of the logits.
 LOGIT_REL_TOL = 5e-2
 FLASH_SHAPE = (1, 2048, 20, 128)  # B, S, H, D of one full-width prefill
+# phase families: the MoE, Mamba2 and hybrid layouts and the embedding
+# configs (each model's depth cut, where one is made, is in its line's
+# ``reduced``)
+FAMILY_REQUESTS, FAMILY_SLOTS, FAMILY_NEW = 6, 2, 16
+FAMILY_LENS = (1, 128, 300, 2048, 5, 33)
+FAMILY_MAX_LEN = 2048 + 16 + 1
+# the routes differ in bf16 attention rounding, as in phase serve (an MoE
+# model's plain route replays the kernel route's experts, ``RouteLog``)
+FAMILY_LOGIT_REL_TOL = LOGIT_REL_TOL
+SSM_ARCH = "mamba2-1.3b"
+SSM_LENS = (1, 2, 300, 1000)        # 300 crosses the 256-token chunk
+SSM_TF_LENS = (300, 2)              # f32 prefill + 1 decode step vs forward on S + 1
+SSM_TF_TOL = 1e-4                   # f32, of max|logit|
+MOE_CUTS = {"grok-1-314b": 3, "llama4-maverick-400b-a17b": 2}  # n_layers on the card
+HYBRID_ARCH = "jamba-1.5-large-398b"
+HYBRID_LENS = (1, 2, 37, 5)         # the smoke chunk is 16
+HYBRID_TOL = 1e-5                   # f32, of max|logit|: both routes
+HYBRID_TF_TOL = 1e-4                # f32, of max|logit|: prefill + decode vs forward
+EMBED_CUTS = {"musicgen-medium": None, "internvl2-76b": 8}  # None: full depth
+EMBED_PROMPT, EMBED_DECODE = 300, 3  # embeds: a prompt, then 2 decode steps
 TRAIN_ARCH = "minicpm-2b"
 TRAIN_STEPS = 8                     # at full depth; the launcher's batch 8 x seq 128
 # The launcher's default lr 3e-4 has no warmup in an 8-step run (min(20,
@@ -639,6 +692,14 @@ FLASH_CASES = (
     (1, 256, 230, 4, 2, 128, 0, True),    # kv_valid 230 inside a 64-row kv tile
     (1, 128, 128, 2, 2, 128, -64, True),  # rows 0..63 fully masked at D 128
     (1, 4096, 4096, 20, 20, 128, 0, True),  # the serve shape at S 4096
+    # the families' prefills: musicgen 24/24 at D 64, grok 48/8, llama4
+    # 40/8, internvl2 64/8 at D 128, at the longest and a ragged prompt
+    (1, 2048, 2048, 24, 24, 64, 0, True),
+    (1, 300, 300, 24, 24, 64, 0, True),
+    (1, 2048, 2048, 48, 8, 128, 0, True),
+    (1, 300, 300, 48, 8, 128, 0, True),
+    (1, 2048, 2048, 40, 8, 128, 0, True),
+    (1, 2048, 2048, 64, 8, 128, 0, True),
 )
 # shapes off the buckets, run on zero-padded weights: (12, 5) in (12, 8),
 # the paper's SMALL 12/6 in (12, 8), its MEDIUM 18/10 in (20, 12)
@@ -1233,58 +1294,120 @@ def phase_wide(torch, device):
     return simt, lstm_simt
 
 
-def phase_serve(torch, device):
-    """The LM serving path at qwen1.5-4b's full width, through the flash
-    kernel, held against the same requests served through the oracle."""
-    import numpy as np
+class RouteLog:
+    """The MoE routers' expert ids inside ``serve.main``, by request:
+    ``calls[uid][c]`` is call c of request uid (0 its prefill, j + 1 its
+    decode step j), a list of ids [1, S, k] by MoE sublayer, kept on the
+    device.  Requests are numbered in prefill order (the engine's queue:
+    uid order); a decode step is the request last prefilled into its
+    cache.  ``recording`` keeps the ids one run's routers pick;
+    ``replaying`` makes another run's routers take them, with gate values
+    from that run's own probabilities."""
 
-    from repro_torch import configs
-    from repro_torch.dist.sharding import leaves
+    def __init__(self):
+        self.calls: dict = {}
+        self.recorded = self.replayed = 0
+
+    @contextlib.contextmanager
+    def _patched(self, routed):
+        """``moe.route`` replaced by ``routed(route, p, x, cfg, uid, call,
+        sublayer)`` for the duration."""
+        from repro_torch.models import model, moe
+
+        route, prefill, decode = moe.route, model.prefill, model.decode_step
+        uid_of, calls_made, where = {}, {}, {}
+
+        def tracked(fn, first):
+            def call(*args, cache=None, **kwargs):
+                if first:
+                    uid_of[id(cache)] = len(calls_made)
+                    calls_made[len(calls_made)] = 0
+                uid = uid_of[id(cache)]
+                where.update(uid=uid, call=calls_made[uid], sub=0)
+                calls_made[uid] += 1
+                try:
+                    return fn(*args, cache=cache, **kwargs)
+                finally:
+                    where.clear()
+            return call
+
+        def hooked(p, x, cfg):
+            require(bool(where), "an MoE router ran outside the engine's prefill and decode")
+            out = routed(route, p, x, cfg, where["uid"], where["call"], where["sub"])
+            where["sub"] += 1
+            return out
+
+        moe.route, model.prefill = hooked, tracked(prefill, True)
+        model.decode_step = tracked(decode, False)
+        try:
+            yield self
+        finally:
+            moe.route, model.prefill, model.decode_step = route, prefill, decode
+
+    def recording(self):
+        def record(route, p, x, cfg, uid, call, sub):
+            probs, gate_vals, gate_idx = route(p, x, cfg)
+            self.calls.setdefault(uid, {}).setdefault(call, []).append(gate_idx)
+            self.recorded += 1
+            return probs, gate_vals, gate_idx
+        return self._patched(record)
+
+    def replaying(self):
+        def replay(route, p, x, cfg, uid, call, sub):
+            probs, _, _ = route(p, x, cfg)
+            ids = self.calls.get(uid, {}).get(call, [])
+            require(sub < len(ids) and ids[sub].shape == probs.shape[:-1] + (cfg.moe_top_k,),
+                    f"request {uid} call {call}: no recorded experts for MoE sublayer {sub}")
+            vals = probs.gather(-1, ids[sub])
+            self.replayed += 1
+            return probs, vals / vals.sum(-1, keepdim=True).clamp_min(1e-9), ids[sub]
+        return self._patched(replay)
+
+
+def serve_route(torch, argv, route: str, hook=None) -> tuple:
+    """``serve.main(argv)`` once on ``route`` ("kernel": the flash kernel,
+    "plain": ``--attn-impl ref``), inside the context manager ``hook``
+    where given: (results by uid, seconds, launches, peak bytes)."""
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
-    from repro_torch.models import model
 
-    rng = np.random.default_rng(SEED)
-    lens = [128, 2048] + [int(n) for n in rng.integers(1, 2048, size=SERVE_REQUESTS - 2)]
-    rng.shuffle(lens)
-    require(any(n % 128 for n in lens), "no prompt length off the 128 tile")
-    argv = ["--arch", SERVE_ARCH, "--requests", str(SERVE_REQUESTS),
-            "--slots", str(SERVE_SLOTS), "--prompt-len", ",".join(map(str, lens)),
-            "--max-new", str(SERVE_NEW), "--max-len", str(SERVE_MAX_LEN), "--keep-logits"]
-    cfg = configs.get(SERVE_ARCH)
-    weights = model.abstract_params(
-        dataclasses.replace(cfg, param_dtype=cfg.compute_dtype))
-    weight_bytes = sum(t.numel() * t.element_size() for t in leaves(weights))
-
-    runs = {}
-    for route in ("kernel", "plain"):
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        ops.reset_launch_counts()
-        t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with hook or contextlib.nullcontext():
         results = serve.main(argv + (["--attn-impl", "ref"] if route == "plain" else []))
-        torch.cuda.synchronize()
-        runs[route] = (sorted(results, key=lambda r: r.uid), time.perf_counter() - t0,
-                       ops.launch_counts(), torch.cuda.max_memory_allocated())
-    (got, wall, launches, peak), (want, plain_wall, plain_launches, _) = (
-        runs["kernel"], runs["plain"])
-    require(launches["flash_attention"] == cfg.n_layers * SERVE_REQUESTS,
-            f"flash_attention launched {launches['flash_attention']} times, expected "
-            f"{cfg.n_layers} per prefill x {SERVE_REQUESTS}")
-    require(plain_launches["flash_attention"] == 0, "the oracle route launched the kernel")
+    torch.cuda.synchronize()
+    out = (sorted(results, key=lambda r: r.uid), time.perf_counter() - t0,
+           ops.launch_counts(), torch.cuda.max_memory_allocated())
+    del results
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
+
+def serve_routes(torch, argv, routes=("kernel", "plain")) -> dict:
+    """{route: ``serve_route``'s tuple} for each of ``routes``."""
+    return {route: serve_route(torch, argv, route) for route in routes}
+
+
+def route_agreement(torch, got, want, vocab: int, new_tokens: int, rel_tol: float) -> dict:
+    """The kernel route's results against the plain route's: prefill logits
+    within ``rel_tol`` of max|logit|, and greedy tokens equal wherever the
+    plain run's margin exceeds twice the largest logit difference (after
+    the first allowed divergence the two runs continue from different
+    prefixes and are not compared further)."""
     diff = rel = 0.0
     for a, b in zip(got, want):
-        require(len(a.tokens) == SERVE_NEW and a.prefill_logits.shape == (cfg.vocab,)
+        require(len(a.tokens) == new_tokens and a.prefill_logits.shape == (vocab,)
                 and bool(torch.isfinite(a.prefill_logits).all()), f"request {a.uid} output")
         d = float((a.prefill_logits - b.prefill_logits).abs().max())
         diff = max(diff, d)
         rel = max(rel, d / float(b.prefill_logits.abs().max()))
-    require(rel <= LOGIT_REL_TOL,
-            f"prefill logits differ by {rel} of max|logit| (limit {LOGIT_REL_TOL})")
-    # greedy tokens: equal wherever the oracle run's margin exceeds twice the
-    # largest logit difference; after the first allowed divergence the two
-    # runs continue from different prefixes and are not compared further
+    require(rel <= rel_tol,
+            f"prefill logits differ by {rel} of max|logit| (limit {rel_tol})")
     agree = compared = 0
     for a, b in zip(got, want):
         for ta, tb, margin in zip(a.tokens, b.tokens, b.margins):
@@ -1294,23 +1417,291 @@ def phase_serve(torch, device):
                 break
             agree += 1
         compared += len(a.tokens)
-    decode = [ms for r in got for ms in r.decode_ms]
-    plain_decode = [ms for r in want for ms in r.decode_ms]
+    return {"prefill_logits_max_abs_diff": diff, "prefill_logits_rel_diff": rel,
+            "logit_rel_tol": rel_tol, "greedy_tokens_agree": agree, "greedy_tokens": compared}
+
+
+def serve_timings(results, lens, prefix: str = "") -> dict:
+    decode = [ms for r in results for ms in r.decode_ms]
+    return {f"{prefix}prefill_len_ms": [[lens[r.uid], r.prefill_ms] for r in results],
+            f"{prefix}decode_ms_per_token": sum(decode) / len(decode)}
+
+
+def weight_bytes_of(cfg) -> int:
+    """Bytes of the launcher's weights (held in the compute dtype)."""
+    from repro_torch.dist.sharding import leaves
+    from repro_torch.models import model
+
+    weights = model.abstract_params(dataclasses.replace(cfg, param_dtype=cfg.compute_dtype))
+    return sum(t.numel() * t.element_size() for t in leaves(weights))
+
+
+def phase_serve(torch, device):
+    """The LM serving path at qwen1.5-4b's full width, through the flash
+    kernel, held against the same requests served through the oracle."""
+    import numpy as np
+
+    from repro_torch import configs
+
+    rng = np.random.default_rng(SEED)
+    lens = [128, 2048] + [int(n) for n in rng.integers(1, 2048, size=SERVE_REQUESTS - 2)]
+    rng.shuffle(lens)
+    require(any(n % 128 for n in lens), "no prompt length off the 128 tile")
+    argv = ["--arch", SERVE_ARCH, "--requests", str(SERVE_REQUESTS),
+            "--slots", str(SERVE_SLOTS), "--prompt-len", ",".join(map(str, lens)),
+            "--max-new", str(SERVE_NEW), "--max-len", str(SERVE_MAX_LEN), "--keep-logits"]
+    cfg = configs.get(SERVE_ARCH)
+    runs = serve_routes(torch, argv)
+    (got, wall, launches, peak), (want, plain_wall, plain_launches, _) = (
+        runs["kernel"], runs["plain"])
+    require(launches["flash_attention"] == cfg.n_layers * SERVE_REQUESTS,
+            f"flash_attention launched {launches['flash_attention']} times, expected "
+            f"{cfg.n_layers} per prefill x {SERVE_REQUESTS}")
+    require(plain_launches["flash_attention"] == 0, "the oracle route launched the kernel")
+    agreement = route_agreement(torch, got, want, cfg.vocab, SERVE_NEW, LOGIT_REL_TOL)
     n_new = sum(len(r.tokens) for r in got)
     emit({"phase": "serve", "arch": SERVE_ARCH, "dtype": cfg.compute_dtype,
           "requests": SERVE_REQUESTS, "slots": SERVE_SLOTS, "new_tokens": SERVE_NEW,
-          "max_len": SERVE_MAX_LEN, "prompt_lens": lens, "weight_bytes": weight_bytes,
+          "max_len": SERVE_MAX_LEN, "prompt_lens": lens, "weight_bytes": weight_bytes_of(cfg),
           "peak_bytes": peak, "seconds": wall, "plain_seconds": plain_wall,
-          "prefill_len_ms": [[lens[r.uid], r.prefill_ms] for r in got],
-          "plain_prefill_len_ms": [[lens[r.uid], r.prefill_ms] for r in want],
-          "decode_ms_per_token": sum(decode) / len(decode),
-          "plain_decode_ms_per_token": sum(plain_decode) / len(plain_decode),
-          "tokens_per_s": n_new / wall, "launches": launches,
-          "prefill_logits_max_abs_diff": diff, "prefill_logits_rel_diff": rel,
-          "logit_rel_tol": LOGIT_REL_TOL, "greedy_tokens_agree": agree,
-          "greedy_tokens": compared,
+          **serve_timings(got, lens), **serve_timings(want, lens, "plain_"),
+          "tokens_per_s": n_new / wall, "launches": launches, **agreement,
           "tokens_uid0": got[0].tokens, "plain_tokens_uid0": want[0].tokens})
     return launches
+
+
+def family_serve(torch, arch: str, lens, requests: int, slots: int, new_tokens: int,
+                 max_len: int, routes=("kernel", "plain"), smoke: bool = False) -> dict:
+    """One family model through the launcher on ``routes``; the flash
+    launches must be the config's attention sublayers x requests on the
+    kernel route and 0 on the plain one.  An MoE model's plain route
+    replays the experts of a second, recorded kernel-route run, and that
+    run is the one compared; the first kernel-route run is unhooked and
+    gives the times.  Returns the runs and the figures the phase lines
+    print."""
+    from repro_torch import configs
+    from repro_torch.models import transformer
+
+    cfg = configs.get_smoke(arch) if smoke else configs.get(arch)
+    argv = ["--arch", arch, "--requests", str(requests), "--slots", str(slots),
+            "--prompt-len", ",".join(map(str, lens)), "--max-new", str(new_tokens),
+            "--max-len", str(max_len), "--keep-logits"] + (["--smoke"] if smoke else [])
+    replay = bool(cfg.moe_experts) and "plain" in routes
+    runs = serve_routes(torch, argv, [r for r in routes if not (replay and r == "plain")])
+    checked = dict(runs)
+    if replay:
+        log = RouteLog()
+        checked["kernel, recorded"] = serve_route(torch, argv, "kernel", log.recording())
+        runs["plain"] = checked["plain"] = serve_route(torch, argv, "plain", log.replaying())
+        require(log.replayed == log.recorded > 0,
+                f"{arch}: {log.replayed} of {log.recorded} recorded routings replayed")
+    attn = cfg.n_blocks * transformer._counts(cfg)["attn"]
+    for route, (results, _, launches, _) in checked.items():
+        want = 0 if route == "plain" else attn * requests
+        require(launches["flash_attention"] == want,
+                f"{arch} {route}: flash_attention launched {launches['flash_attention']} "
+                f"times, expected {want} ({attn} attention sublayers x {requests} prefills)")
+        for r in results:
+            require(len(r.tokens) == new_tokens and all(0 <= t < cfg.vocab for t in r.tokens)
+                    and bool(torch.isfinite(r.prefill_logits).all()),
+                    f"{arch} {route}: request {r.uid} output")
+    results, wall, launches, peak = runs[routes[0]]
+    line = {"arch": arch, "dtype": cfg.compute_dtype, "layers": cfg.n_layers,
+            "d_model": cfg.d_model, "requests": requests, "slots": slots,
+            "new_tokens": new_tokens, "max_len": max_len,
+            "prompt_lens": [lens[i % len(lens)] for i in range(requests)],
+            "weight_bytes": weight_bytes_of(cfg), "peak_bytes": peak, "seconds": wall,
+            **serve_timings(results, [lens[i % len(lens)] for i in range(requests)]),
+            "flash_launches": launches["flash_attention"],
+            "flash_launches_per_prefill": attn}
+    if "plain" in runs and "kernel" in runs:
+        plain, plain_wall, _, plain_peak = runs["plain"]
+        compared = checked["kernel, recorded" if replay else "kernel"][0]
+        line.update({"plain_seconds": plain_wall, "plain_peak_bytes": plain_peak,
+                     **serve_timings(plain, line["prompt_lens"], "plain_"),
+                     "plain_replays_kernel_experts": replay,
+                     **route_agreement(torch, compared, plain, cfg.vocab, new_tokens,
+                                       FAMILY_LOGIT_REL_TOL if not smoke else HYBRID_TOL)})
+    return {"runs": runs, "line": line, "cfg": cfg}
+
+
+def teacher_forcing_rel(torch, cfg, params, prompt_len: int, decode_steps: int) -> float:
+    """Prefill of ``prompt_len`` seeded tokens then ``decode_steps`` decode
+    steps against ``forward`` on the whole sequence: the largest logit
+    difference over max|logit| of the forward."""
+    from repro_torch.models import model
+
+    device = params["tok"]["embed"].device
+    gen = torch.Generator().manual_seed(SEED + prompt_len)
+    toks = torch.randint(0, cfg.vocab, (1, prompt_len + decode_steps), generator=gen)
+    toks = toks.to(device)
+    with torch.no_grad():
+        want, _ = model.forward(params, cfg, tokens=toks)
+        want = want[0, :, : cfg.vocab].float()
+        cache = model.init_cache(cfg, 1, prompt_len + decode_steps + 1, device=device)
+        got, cache = model.prefill(params, cfg, tokens=toks[:, :prompt_len], cache=cache)
+        rows = [got[0, -1]]
+        for step in range(decode_steps):
+            pos = prompt_len + step
+            got, cache = model.decode_step(params, cfg, token=toks[:, pos:pos + 1],
+                                           cache=cache, cache_len=pos)
+            rows.append(got[0, -1])
+    got = torch.stack(rows)[:, : cfg.vocab].float()
+    ref = want[prompt_len - 1:]
+    require(bool(torch.isfinite(got).all()), f"{cfg.arch_id}: non-finite decode logits")
+    return float((got - ref).abs().max() / ref.abs().max())
+
+
+def phase_families_ssm(torch, device) -> dict:
+    """mamba2-1.3b at full width and depth through the launcher, then the
+    f32 decode against teacher forcing (ROADMAP C.8's short prompt too)."""
+    from repro_torch import configs
+    from repro_torch.models import model
+
+    serve = family_serve(torch, SSM_ARCH, SSM_LENS, len(SSM_LENS), FAMILY_SLOTS,
+                         FAMILY_NEW, max(SSM_LENS) + FAMILY_NEW + 1, routes=("kernel",))
+    cfg = dataclasses.replace(configs.get(SSM_ARCH), param_dtype="float32",
+                              compute_dtype="float32")
+    params = model.init_params(cfg, SEED, device)
+    rel = {str(n): teacher_forcing_rel(torch, cfg, params, n, 1) for n in SSM_TF_LENS}
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    for n, r in rel.items():
+        require(r <= SSM_TF_TOL, f"{SSM_ARCH} f32: prefill {n} + decode differs from "
+                                 f"teacher forcing by {r} of max|logit| (limit {SSM_TF_TOL})")
+    emit({"phase": "families.ssm", **serve["line"], "reduced": [],
+          "teacher_forcing_dtype": "float32", "teacher_forcing_rel": rel,
+          "teacher_forcing_tol": SSM_TF_TOL})
+    return serve["runs"]["kernel"][2]
+
+
+def phase_families_moe(torch, device) -> dict:
+    """grok-1 and llama4-maverick at full width, depth cut, in bf16 through
+    the launcher on both routes."""
+    from repro_torch import configs
+
+    launches = {}
+    for arch, layers in MOE_CUTS.items():
+        full = configs.get(arch)
+        with depth_cut(configs, layers):
+            serve = family_serve(torch, arch, FAMILY_LENS, FAMILY_REQUESTS, FAMILY_SLOTS,
+                                 FAMILY_NEW, FAMILY_MAX_LEN)
+        emit({"phase": "families.moe", **serve["line"], "experts": full.moe_experts,
+              "top_k": full.moe_top_k, "reduced": [f"n_layers {full.n_layers} -> {layers}"]})
+        for name, n in serve["runs"]["kernel"][2].items():
+            launches[name] = launches.get(name, 0) + n
+    return launches
+
+
+def phase_families_hybrid(torch, device) -> dict:
+    """jamba's smoke config on the card in f32: both routes within
+    ``HYBRID_TOL``, and prefill then decode against teacher forcing."""
+    from repro_torch import configs
+    from repro_torch.kernels import attention as _attention
+    from repro_torch.models import model
+
+    serve = family_serve(torch, HYBRID_ARCH, HYBRID_LENS, len(HYBRID_LENS), FAMILY_SLOTS,
+                         FAMILY_NEW, max(HYBRID_LENS) + FAMILY_NEW + 1, smoke=True)
+    cfg = configs.get_smoke(HYBRID_ARCH)
+    # teacher forcing equals prefill + decode only where no capacity drop
+    # differs between them: at factor E / k every expert can take every token
+    cfg = dataclasses.replace(cfg, attn_impl="auto",
+                              moe_capacity_factor=cfg.moe_experts / cfg.moe_top_k)
+    params = model.init_params(cfg, SEED, device)
+    rel = {str(n): teacher_forcing_rel(torch, cfg, params, n, 2) for n in HYBRID_LENS}
+    for n, r in rel.items():
+        require(r <= HYBRID_TF_TOL, f"{HYBRID_ARCH} smoke: prefill {n} + decode differs "
+                                    f"from teacher forcing by {r} (limit {HYBRID_TF_TOL})")
+    emit({"phase": "families.hybrid", **serve["line"], "config": "smoke",
+          "flash_body": _attention.flash_body(torch.float32, cfg.resolved_head_dim),
+          "teacher_forcing_rel": rel, "teacher_forcing_tol": HYBRID_TF_TOL,
+          "teacher_forcing_capacity_factor": cfg.moe_capacity_factor,
+          "reduced": ["the smoke config: one 8-sublayer block at full width is 44.2 B "
+                      "parameters, 88 GB in bf16, more than one 80 GB card"]})
+    return serve["runs"]["kernel"][2]
+
+
+def phase_families_embeds(torch, device) -> dict:
+    """musicgen-medium at full width and depth and internvl2-76b at full
+    width, depth cut, through the launcher on both routes, then prefill and
+    decode from ``embeds`` through ``train.step``'s factories."""
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.models import model
+    from repro_torch.train import step
+
+    launches = {}
+    for arch, layers in EMBED_CUTS.items():
+        full = configs.get(arch)
+        with depth_cut(configs, layers or full.n_layers):
+            serve = family_serve(torch, arch, FAMILY_LENS, FAMILY_REQUESTS, FAMILY_SLOTS,
+                                 FAMILY_NEW, FAMILY_MAX_LEN)
+            cfg = dataclasses.replace(configs.get(arch), attn_impl="auto",
+                                      param_dtype=full.compute_dtype)
+        for name, n in serve["runs"]["kernel"][2].items():
+            launches[name] = launches.get(name, 0) + n
+        # embeds in, through the step factories, on both routes
+        params = model.init_params(cfg, SEED, device)
+        gen = torch.Generator().manual_seed(SEED)
+        emb = torch.randn((1, EMBED_PROMPT + EMBED_DECODE, cfg.d_model), generator=gen)
+        emb = emb.to(device, torch.bfloat16)
+        outs = {}
+        for route, impl in (("kernel", "auto"), ("plain", "ref")):
+            rcfg = dataclasses.replace(cfg, attn_impl=impl)
+            prefill, decode = step.make_prefill_step(rcfg), step.make_decode_step(rcfg)
+            cache = model.init_cache(rcfg, 1, EMBED_PROMPT + EMBED_DECODE, device=device)
+            ops.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = prefill(params, cache, {"embeds": emb[:, :EMBED_PROMPT]})
+            rows = [logits[0, -1]]
+            for i in range(EMBED_DECODE - 1):
+                pos = EMBED_PROMPT + i
+                logits, cache = decode(params, cache, {"embeds": emb[:, pos:pos + 1]}, pos)
+                rows.append(logits[0, -1])
+            rows = torch.stack(rows)[:, : cfg.vocab].float()
+            torch.cuda.synchronize()
+            outs[route] = (rows, time.perf_counter() - t0, ops.launch_counts())
+            del cache
+        (got, step_s, got_launches), (want, plain_step_s, plain_launches) = (
+            outs["kernel"], outs["plain"])
+        require(got_launches["flash_attention"] == cfg.n_layers
+                and plain_launches["flash_attention"] == 0,
+                f"{arch} embeds: flash launched {got_launches['flash_attention']} / "
+                f"{plain_launches['flash_attention']} times, expected {cfg.n_layers} / 0")
+        require(bool(torch.isfinite(got).all()), f"{arch} embeds: non-finite logits")
+        rel = float((got - want).abs().max() / want.abs().max())
+        require(rel <= FAMILY_LOGIT_REL_TOL,
+                f"{arch} embeds: routes differ by {rel} of max|logit| "
+                f"(limit {FAMILY_LOGIT_REL_TOL})")
+        launches["flash_attention"] += got_launches["flash_attention"]
+        del params, outs, got, want
+        gc.collect()
+        torch.cuda.empty_cache()
+        emit({"phase": "families.embeds", **serve["line"],
+              "reduced": [f"n_layers {full.n_layers} -> {layers}"] if layers else [],
+              "embeds_prompt": EMBED_PROMPT, "embeds_decode_steps": EMBED_DECODE - 1,
+              "embeds_seconds": step_s, "embeds_plain_seconds": plain_step_s,
+              "embeds_flash_launches": got_launches["flash_attention"],
+              "embeds_logits_rel_diff": rel})
+    return launches
+
+
+def phase_families(torch, device) -> dict:
+    """The MoE, Mamba2 and hybrid layouts and the embedding configs: the
+    kernel launches of the phases' measured (kernel-route) runs."""
+    total: dict = {}
+    for fn in (phase_families_ssm, phase_families_moe, phase_families_hybrid,
+               phase_families_embeds):
+        t0 = time.perf_counter()
+        for name, n in fn(torch, device).items():
+            total[name] = total.get(name, 0) + n
+        gc.collect()
+        torch.cuda.empty_cache()
+        emit({"phase": f"{fn.__name__[6:].replace('_', '.', 1)}.done",
+              "seconds": time.perf_counter() - t0})
+    return total
 
 
 def _leaves(tree) -> list:
@@ -3491,6 +3882,7 @@ def main() -> int:
             torch, device, smi, enc, workdir, stream_path, delta_path)
         fleet_launches = phase_fleet(torch, device, smi, workdir, *served)
         serve_launches = phase_serve(torch, device)
+        family_launches = phase_families(torch, device)
         train_launches = phase_train_all(torch, device, smi, workdir)
         simt_lstm = lstm_simt_timing(torch, device, lstm_simt_launches, errs)
         from repro_torch.kernels import lstm as _lstm
@@ -3518,6 +3910,8 @@ def main() -> int:
         for row in kernels:  # and in phase fleet, this process's launches (the simt
             # bodies never run there: hidden 16 and 24 are register buckets)
             row["launches_fleet"] = fleet_launches.get(row["name"], 0)
+        for row in kernels:  # and in the families phases' kernel-route runs
+            row["launches_families"] = family_launches.get(row["name"], 0)
         for row in kernels:  # and in the train phases (flash: 0, training runs the oracle)
             row["launches_train"] = train_launches.get(row["name"], 0)
         torch.cuda.synchronize()

@@ -6,7 +6,7 @@ trees.  ``materialize`` turns a spec tree into tensors on one device,
 each leaf drawn from its own ``torch.Generator`` seeded from ``(seed,
 crc32(path))``, so adding a leaf never reshuffles the others.  The draws
 cannot equal JAX's; the shapes, dtypes and standard deviations do.  The
-logical axes are kept for the sharding rules of ROADMAP A.10; on one
+logical axes are kept for the sharding rules of ROADMAP A.8; on one
 device ``shard`` is the identity and is left out.
 """
 from __future__ import annotations

@@ -1,2 +1,3 @@
-"""The LM side: dense decoder stacks for serving (``model``), their
-layers, attention and the stack over blocks."""
+"""The LM side: decoder stacks of every family (dense, MoE, Mamba2 and
+hybrid; ``model``), their layers, attention, Mamba2 and MoE blocks and the
+stack over blocks."""

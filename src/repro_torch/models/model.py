@@ -1,5 +1,4 @@
-"""Model API over the ported (dense) architectures, port of
-``repro.models.model``.
+"""Model API over the architecture zoo, port of ``repro.models.model``.
 
     specs  = param_specs(cfg)                          # ParamSpec tree
     params = init_params(cfg, seed, device)            # real weights
@@ -8,14 +7,15 @@
     logits, cache = prefill(params, cfg, tokens, cache)
     logits, cache = decode_step(params, cfg, token, cache, cache_len)
 
-Params are a nested dict mirroring the JAX tree key for key.  Caches are
-preallocated by ``init_cache`` and updated in place by ``prefill`` and
-``decode_step``, which return the same dict.
+Params are a nested dict mirroring the JAX tree key for key.  Caches
+(attention k/v, Mamba conv and ssm state) are preallocated by
+``init_cache`` and updated in place by ``prefill`` and ``decode_step``,
+which return the same dict.  ``[vlm]``/``[audio]`` archs take
+precomputed frontend embeddings via ``embeds=``.
 """
 from __future__ import annotations
 
 import math
-
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.devices import resolve_device
@@ -48,7 +48,8 @@ def cache_specs(cfg: ModelConfig, batch: int, max_len: int, long_ctx: bool = Fal
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, long_ctx: bool = False,
                device=None) -> dict:
-    """Zero KV cache in ``cfg.compute_dtype`` on ``device`` (CUDA unless given)."""
+    """Zero cache on ``device`` (CUDA unless given): k/v and the conv state
+    in ``cfg.compute_dtype``, the ssm state in f32."""
     return sharding.materialize(
         0, cache_specs(cfg, batch, max_len, long_ctx), layers.dtype_of(cfg.compute_dtype),
         resolve_device(device),
@@ -109,6 +110,11 @@ def decode_step(params, cfg: ModelConfig, token=None, cache=None, cache_len: int
 # analytic parameter counts
 # ---------------------------------------------------------------------------
 def param_count(cfg: ModelConfig, active_only: bool = False) -> int:
-    """Total parameters (dense stacks: every parameter is active)."""
-    specs = sharding.leaves(param_specs(cfg))
-    return sum(math.prod(s.shape) for s in specs)
+    """Total parameters, or with ``active_only`` those a token uses: the
+    total less the weights of the experts its router does not pick."""
+    total = sum(math.prod(s.shape) for s in sharding.leaves(param_specs(cfg)))
+    if not active_only or not cfg.moe_experts:
+        return total
+    n_moe = sum(1 for _, f in transformer.block_layout(cfg) if f == "moe") * cfg.n_blocks
+    per_expert = 3 * cfg.d_model * cfg.d_ff
+    return total - n_moe * (cfg.moe_experts - cfg.moe_top_k) * per_expert

@@ -1,11 +1,23 @@
-"""Decoder stack assembly, port of ``repro.models.transformer``.
+"""Decoder stack assembly for all four families, port of
+``repro.models.transformer``.
 
-Only the ``dense`` layout is ported: a block is one (attention, MLP)
-sublayer pair, and blocks are stacked on a leading ``[n_blocks, sub, ...]``
-dim of every leaf, as in the reference.  The reference's ``lax.scan``
-over blocks is a Python loop over that dim here (``torch.unbind``, whose
-gradient is one stack of the blocks' gradients), and the KV cache is
-written in place.
+A *block* is the unit stacked over depth; each family defines a block
+layout, a list of (mixer, ffn) sublayers:
+
+  dense    : [(attn, mlp)]                                x n_layers
+  moe e1   : [(attn, moe)]                                x n_layers   (grok)
+  moe e2   : [(attn, mlp), (attn, moe)]                   x n_layers/2 (llama4)
+  hybrid   : [(attn, mlp|moe), (mamba, ...) x 7]          x n_layers/8 (jamba,
+             1 attention per 8 sublayers, MoE on odd sublayer indices)
+  ssm      : [(mamba, None)]                              x n_layers   (mamba2)
+
+Within a block, params of each sublayer type are stacked on a sublayer
+dim and applied by a short loop; blocks are stacked on a leading
+``[n_blocks, ...]`` dim of every leaf, as in the reference.  The
+reference's ``lax.scan`` over blocks is a Python loop over that dim here
+(``torch.unbind``, whose gradient is one stack of the blocks' gradients),
+and the caches (attention k/v, Mamba conv and ssm state) are written in
+place.  ``aux`` sums the MoE load-balance losses over sublayers and blocks.
 
 ``cfg.remat`` wraps each block of the full (training) mode as the
 reference wraps its scan body in ``jax.checkpoint``: "none" keeps every
@@ -14,27 +26,20 @@ activation, "full" recomputes the block in the backward pass
 recomputes the rest (a selective-checkpoint policy that saves ``aten.mm``,
 the projections' and the MLP's products, as the reference's
 ``dots_with_no_batch_dims_saveable`` saves its dot products without batch
-dims; the attention oracle's batched products are recomputed).  All three
-give the same loss and gradients.  The MoE, hybrid and SSM layouts raise
-``NotImplementedError`` (ROADMAP A.9).
+dims; batched products, the attention oracle's, the experts' and the
+SSD's, are recomputed).  All three give the same loss and gradients.
 """
 from __future__ import annotations
 
 import functools
+from typing import Any
 
 import torch
 import torch.utils.checkpoint as torch_checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.dist.sharding import ParamSpec
-from repro_torch.models import attention, layers
-
-
-def _not_ported(cfg: ModelConfig) -> NotImplementedError:
-    return NotImplementedError(
-        f"family {cfg.family!r} ({cfg.arch_id}) is not ported yet: only 'dense' "
-        "stacks are (ROADMAP A.9: MoE, Mamba and hybrid layouts come with their families)"
-    )
+from repro_torch.models import attention, layers, mamba, moe
 
 
 # ---------------------------------------------------------------------------
@@ -43,21 +48,53 @@ def _not_ported(cfg: ModelConfig) -> NotImplementedError:
 def block_layout(cfg: ModelConfig) -> list[tuple[str, str | None]]:
     if cfg.family == "dense":
         return [("attn", "mlp")]
-    raise _not_ported(cfg)
+    if cfg.family == "moe":
+        if cfg.moe_every == 1:
+            return [("attn", "moe")]
+        return [("attn", "moe" if i % 2 == 1 else "mlp") for i in range(cfg.moe_every)]
+    if cfg.family == "hybrid":
+        return [("attn" if i == 0 else "mamba",
+                 "moe" if (cfg.moe_experts and i % 2 == 1) else "mlp")
+                for i in range(cfg.attn_every)]
+    if cfg.family == "ssm":
+        return [("mamba", None)]
+    raise ValueError(cfg.family)
+
+
+def _counts(cfg: ModelConfig) -> dict[str, int]:
+    layout = block_layout(cfg)
+    return {
+        "attn": sum(1 for m, _ in layout if m == "attn"),
+        "mamba": sum(1 for m, _ in layout if m == "mamba"),
+        "mlp": sum(1 for _, f in layout if f == "mlp"),
+        "moe": sum(1 for _, f in layout if f == "moe"),
+        "sub": len(layout),
+        "ffn": sum(1 for _, f in layout if f),
+    }
 
 
 # ---------------------------------------------------------------------------
 # parameter specs
 # ---------------------------------------------------------------------------
 def block_specs(cfg: ModelConfig) -> dict:
-    sub = len(block_layout(cfg))
+    c = _counts(cfg)
     nb, d = cfg.n_blocks, cfg.d_model
-    return {
-        "mixer_norm": ParamSpec((nb, sub, d), ("layers", "layers", "act_embed"), init="ones"),
-        "ffn_norm": ParamSpec((nb, sub, d), ("layers", "layers", "act_embed"), init="ones"),
-        "attn": attention.attn_specs(cfg, stacked=(nb, sub)),
-        "mlp": layers.mlp_specs(d, cfg.d_ff, stacked=(nb, sub)),
+    specs: dict[str, Any] = {
+        "mixer_norm": ParamSpec((nb, c["sub"], d), ("layers", "layers", "act_embed"),
+                                init="ones"),
     }
+    if c["ffn"]:
+        specs["ffn_norm"] = ParamSpec((nb, c["ffn"], d), ("layers", "layers", "act_embed"),
+                                      init="ones")
+    if c["attn"]:
+        specs["attn"] = attention.attn_specs(cfg, stacked=(nb, c["attn"]))
+    if c["mamba"]:
+        specs["mamba"] = mamba.mamba_specs(cfg, stacked=(nb, c["mamba"]))
+    if c["mlp"]:
+        specs["mlp"] = layers.mlp_specs(d, cfg.d_ff, stacked=(nb, c["mlp"]))
+    if c["moe"]:
+        specs["moe"] = moe.moe_specs(cfg, stacked=(nb, c["moe"]))
+    return specs
 
 
 def param_specs(cfg: ModelConfig) -> dict:
@@ -72,9 +109,15 @@ def param_specs(cfg: ModelConfig) -> dict:
 # cache specs (serving)
 # ---------------------------------------------------------------------------
 def cache_specs(cfg: ModelConfig, batch: int, max_len: int, long_ctx: bool = False) -> dict:
-    sub = len(block_layout(cfg))
-    return {"attn": attention.cache_specs(cfg, batch, max_len, long_ctx,
-                                          stacked=(cfg.n_blocks, sub))}
+    c = _counts(cfg)
+    nb = cfg.n_blocks
+    out: dict[str, Any] = {}
+    if c["attn"]:
+        out["attn"] = attention.cache_specs(cfg, batch, max_len, long_ctx,
+                                            stacked=(nb, c["attn"]))
+    if c["mamba"]:
+        out["mamba"] = mamba.state_specs(cfg, batch, stacked=(nb, c["mamba"]))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -93,25 +136,46 @@ def apply_block(
     cache: dict | None,
     cache_len: int | None,
     mode: str,  # full | prefill | decode
-) -> torch.Tensor:
-    """One dense block; ``cache`` (this block's ``[sub, ...]`` slice) is
-    written in place in prefill and decode modes."""
+) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """One block -> (x, aux).  ``cache`` (this block's slice of every cache
+    leaf) is written in place in prefill and decode modes; aux is None in a
+    block without MoE sublayers."""
     eps = cfg.norm_eps
     dt = layers.dtype_of(cfg.compute_dtype)
-    for sub in range(len(block_layout(cfg))):
+    aux = None
+    idx = {"attn": 0, "mamba": 0, "mlp": 0, "moe": 0}
+    for sub, (mixer, ffn) in enumerate(block_layout(cfg)):
         h = layers.rmsnorm(x, bp["mixer_norm"][sub], eps)
-        ap = _tree_index(bp["attn"], sub)
-        if mode == "full":
-            y = attention.self_attention(ap, h, cfg)
-        elif mode == "prefill":
-            y, _ = attention.prefill_attention(ap, h, cfg, _tree_index(cache["attn"], sub))
+        j = idx[mixer]
+        if mixer == "attn":
+            ap = _tree_index(bp["attn"], j)
+            if mode == "full":
+                y = attention.self_attention(ap, h, cfg)
+            elif mode == "prefill":
+                y, _ = attention.prefill_attention(ap, h, cfg, _tree_index(cache["attn"], j))
+            else:
+                y, _ = attention.decode_attention(ap, h, cfg, _tree_index(cache["attn"], j),
+                                                  cache_len)
         else:
-            y, _ = attention.decode_attention(ap, h, cfg, _tree_index(cache["attn"], sub),
-                                              cache_len)
+            st = _tree_index(cache["mamba"], j) if mode != "full" else None
+            y, nst = mamba.mamba_forward(_tree_index(bp["mamba"], j), h, cfg,
+                                         st if mode == "decode" else None)
+            if st is not None:  # prefill writes the prompt's state over the slot's
+                for name, leaf in st.items():
+                    leaf.copy_(nst[name])
+        idx[mixer] += 1
         x = x + y
-        h = layers.rmsnorm(x, bp["ffn_norm"][sub], eps)
-        x = x + layers.mlp(_tree_index(bp["mlp"], sub), h, dt)
-    return x
+
+        if ffn:
+            h = layers.rmsnorm(x, bp["ffn_norm"][idx["mlp"] + idx["moe"]], eps)
+            if ffn == "mlp":
+                y = layers.mlp(_tree_index(bp["mlp"], idx["mlp"]), h, dt)
+            else:
+                y, a = moe.moe_ffn(_tree_index(bp["moe"], idx["moe"]), h, cfg)
+                aux = a if aux is None else aux + a
+            idx[ffn] += 1
+            x = x + y
+    return x, aux
 
 
 def _unstack(tree, n: int) -> list:
@@ -158,16 +222,20 @@ def run_stack(
     mode: str = "full",
 ) -> tuple[torch.Tensor, dict | None, torch.Tensor]:
     """x: [B, S, d] hidden states -> (x, cache_or_None, aux).  The cache is
-    the one passed in, updated in place; aux is 0 for dense stacks."""
+    the one passed in, updated in place; aux sums the blocks' MoE losses."""
     if mode not in ("full", "prefill", "decode"):
         raise ValueError(mode)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if mode == "full":
         body = _remat_wrap(lambda bp, h: apply_block(bp, h, cfg, None, None, "full"), cfg)
         for bp in _unstack(params["blocks"], cfg.n_blocks):
-            x = body(bp, x)
+            x, a = body(bp, x)
+            if a is not None:
+                aux = aux + a
         return x, None, aux
     for i in range(cfg.n_blocks):
-        x = apply_block(_tree_index(params["blocks"], i), x, cfg, _tree_index(cache, i),
-                        cache_len, mode)
+        x, a = apply_block(_tree_index(params["blocks"], i), x, cfg, _tree_index(cache, i),
+                           cache_len, mode)
+        if a is not None:
+            aux = aux + a
     return x, cache, aux

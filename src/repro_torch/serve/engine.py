@@ -1,9 +1,11 @@
 """Batched serving engine: fixed-slot continuous batching.
 
-Port of ``repro.serve.engine``.  The engine owns one KV cache
-``[.., 1, max_len, ..]`` per slot.  Requests queue up; whenever a slot
-frees (sequence finished), the next request is prefilled into that slot
-and decoding continues for every busy slot.  Everything runs on the
+Port of ``repro.serve.engine``.  The engine owns one cache per slot (KV
+``[.., 1, max_len, ..]``, and a Mamba model's conv and ssm state), which
+prefill and decode write in place.  Requests queue up; whenever a slot
+frees (sequence finished), the next request is prefilled into that slot,
+over the state of the slot's last request, and decoding continues for
+every busy slot.  Everything runs on the
 params' device.  Greedy sampling by default; with a temperature, tokens
 are drawn through a ``torch.Generator`` seeded by ``seed``.
 

@@ -37,11 +37,14 @@ from repro_torch.optim.optimizers import AdamState, tree_leaves, tree_map, tree_
 # ---------------------------------------------------------------------------
 def value_and_grad(loss_fn, params, *args):
     """``((loss, aux), grads)`` of ``loss_fn(params, *args) -> (loss, aux)``
-    against every leaf of ``params``; ``aux`` is detached."""
+    against every leaf of ``params``; ``aux`` is detached.  A leaf the loss
+    does not read (the token table of a model fed ``embeds``) gets a zero
+    gradient, as ``jax.grad`` gives it."""
     leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
     with torch.enable_grad():
         loss, aux = loss_fn(tree_unflatten(params, leaves), *args)
-        grads = torch.autograd.grad(loss, leaves)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
     aux = tree_map(lambda a: a.detach(), aux)
     return (loss.detach(), aux), tree_unflatten(params, list(grads))
 

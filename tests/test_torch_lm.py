@@ -8,6 +8,12 @@ measured differences on the smoke configs are at most 4e-6 on logits up
 to 4.7), and greedy tokens equal.  The kernel route of the port
 (``attn_impl="cuda"``, the flash kernel's plain version on the CPU) is
 held against the reference's ``pallas_interpret``.
+
+jamba's smoke config (16 residual updates, 7 of them Mamba) is held to
+1e-5 of its largest value instead of elementwise: its f32 logits sit
+1.3e-5 (the port) and 1.5e-5 (the reference) from an f64 evaluation at a
+largest logit of 3.6, so the two packages' f32 rounding differs by up to
+2.2e-5 there (every sublayer alone agrees within 2e-6).
 """
 import dataclasses
 import math
@@ -31,13 +37,24 @@ from repro_torch.models import model as tmodel
 from repro_torch.serve.engine import Request, ServeEngine
 
 TOL = 1e-5
-SMOKE_ARCHS = ["qwen1.5-4b", "starcoder2-15b", "minicpm-2b"]
+SMOKE_ARCHS = ["qwen1.5-4b", "starcoder2-15b", "minicpm-2b", "musicgen-medium",
+               "internvl2-76b", "mamba2-1.3b", "grok-1-314b", "llama4-maverick-400b-a17b",
+               "jamba-1.5-large-398b"]
+SCALED_TOL_ARCHS = ("jamba-1.5-large-398b",)
 ROUTES = [("ref", "ref"), ("pallas_interpret", "cuda")]  # (reference impl, port impl)
 
 
 def _close(got: torch.Tensor, want, tol: float = TOL) -> None:
     np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
                                rtol=tol, atol=tol)
+
+
+def _close_model(arch: str, got: torch.Tensor, want) -> None:
+    if arch not in SCALED_TOL_ARCHS:
+        return _close(got, want)
+    want = np.asarray(want, np.float32)
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=0,
+                               atol=TOL * (1.0 + float(np.abs(want).max())))
 
 
 def _t(a) -> torch.Tensor:
@@ -122,27 +139,37 @@ def test_model_paths_match_jax(arch, jimpl, timpl):
     jp, tp = _pair_params(jcfg)
     toks = np.random.default_rng(5).integers(0, jcfg.vocab, size=(2, 12))
 
-    jl, _ = jmodel.forward(jp, jcfg, tokens=jnp.asarray(toks))
+    jl, jaux = jmodel.forward(jp, jcfg, tokens=jnp.asarray(toks))
     tl, aux = tmodel.forward(tp, tcfg, tokens=torch.from_numpy(toks))
-    _close(tl, jl)
-    assert float(aux) == 0.0
+    _close_model(arch, tl, jl)
+    if tcfg.moe_experts:
+        _close(aux, jaux)
+    else:
+        assert float(aux) == 0.0
 
     jcache = jmodel.init_cache(jcfg, 2, 32)
     tcache = tmodel.init_cache(tcfg, 2, 32, device="cpu")
     jl, jcache = jmodel.prefill(jp, jcfg, tokens=jnp.asarray(toks), cache=jcache)
     tl, tcache = tmodel.prefill(tp, tcfg, tokens=torch.from_numpy(toks), cache=tcache)
-    _close(tl, jl)
-    for name in ("k", "v"):
-        _close(tcache["attn"][name], jcache["attn"][name])
+    _close_model(arch, tl, jl)
+    _caches_close(arch, tcache, jcache)
 
     for step, nxt in enumerate(([[3], [5]], [[7], [11]])):
         jl, jcache = jmodel.decode_step(jp, jcfg, token=jnp.asarray(nxt), cache=jcache,
                                         cache_len=jnp.int32(12 + step))
         tl, tcache = tmodel.decode_step(tp, tcfg, token=torch.tensor(nxt), cache=tcache,
                                         cache_len=12 + step)
-        _close(tl, jl)
-    for name in ("k", "v"):
-        _close(tcache["attn"][name], jcache["attn"][name])
+        _close_model(arch, tl, jl)
+    _caches_close(arch, tcache, jcache)
+
+
+def _caches_close(arch, tcache, jcache) -> None:
+    """Every cache leaf (attention k/v, Mamba conv/ssm) equal, dtypes too."""
+    got, want = _flat(tcache), _flat(jcache)
+    assert sorted(got) == sorted(want)
+    for key, leaf in got.items():
+        assert str(leaf.dtype).split(".")[-1] == str(want[key].dtype), key
+        _close_model(arch, leaf, want[key])
 
 
 def test_bf16_serving_params_carry_over_exactly():
@@ -171,6 +198,11 @@ ENGINE_SETUPS = [
     ("qwen1.5-4b", 2, 64, [12], 6),
     ("minicpm-2b", 3, 48, [8] * 7, 4),
     ("starcoder2-15b", 2, 64, [5, 13, 9], 5),
+    # the reference's Mamba decode needs prompts of 3 tokens or more (C.8);
+    # a reused slot must start from its new prompt's state
+    ("mamba2-1.3b", 2, 48, [3, 17, 9, 5], 5),
+    ("grok-1-314b", 2, 48, [5, 13, 9], 4),
+    ("jamba-1.5-large-398b", 2, 48, [7, 20, 4], 4),
 ]
 
 
@@ -273,6 +305,8 @@ def test_param_tree_matches_jax_eval_shape(arch, smoke):
         assert tuple(leaf.shape) == want[key].shape, key
         assert str(leaf.dtype).split(".")[-1] == str(want[key].dtype), key
     assert tmodel.param_count(tcfg) == jmodel.param_count(jcfg)
+    assert tmodel.param_count(tcfg, active_only=True) == jmodel.param_count(jcfg, active_only=True)
+    assert tcfg.active_param_count() == jcfg.active_param_count()
 
 
 @pytest.mark.parametrize("arch", SMOKE_ARCHS)
@@ -301,7 +335,8 @@ def test_init_params_follow_the_reference_rule(arch):
     # adding a leaf never reshuffles the others: the seed is per path
     again = _flat(sharding.materialize(0, {"extra": specs["/tok/embed"],
                                            **tmodel.param_specs(cfg)}, torch.float32, "cpu"))
-    assert torch.equal(again["/blocks/attn/wq"], got["/blocks/attn/wq"])
+    drawn = [k for k, spec in specs.items() if k.startswith("/blocks/") and spec.init == "fan_in"]
+    assert drawn and all(torch.equal(again[k], got[k]) for k in drawn)
 
 
 def test_cache_specs_and_registry():
@@ -309,10 +344,14 @@ def test_cache_specs_and_registry():
     cache = tmodel.init_cache(cfg, 1, 40, device="cpu")
     assert tuple(cache["attn"]["k"].shape) == (3, 1, 1, 40, 2, 8)
     assert not cache["attn"]["v"].any()
-    with pytest.raises(KeyError, match="unported"):
-        configs.get("grok-1-314b")
-    moe = dataclasses.replace(cfg, family="moe", moe_experts=4, moe_top_k=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
-        tmodel.param_specs(moe)
+    assert configs.get("grok-1-314b").family == "moe"
+    with pytest.raises(KeyError, match="unknown arch"):
+        configs.get("grok-2")
+    with pytest.raises(ValueError, match="rwkv"):
+        tmodel.param_specs(dataclasses.replace(cfg, family="rwkv"))
+    ssm = tmodel.init_cache(configs.get_smoke("mamba2-1.3b"), 1, 40, device="cpu")
+    assert sorted(ssm) == ["mamba"]
+    assert tuple(ssm["mamba"]["ssm"].shape) == (3, 1, 1, 8, 16, 16)
+    assert ssm["mamba"]["ssm"].dtype == torch.float32 and not ssm["mamba"]["ssm"].any()
     assert layers.dtype_of("bfloat16") is torch.bfloat16
     assert layers.padded_vocab(122753) == 122880 and layers.padded_vocab(151936) == 151936
