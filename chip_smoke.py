@@ -258,6 +258,25 @@ Phases, each printing JSON lines:
    ``NTTDEmbedding.fit`` on the 122,880 x 2304 table with its cuts printed
    and a [8, 128] ``lookup`` through the kernel and the plain route.
    Every kernel row gets ``launches_train``: the launches of these phases.
+   dist (``phase_dist``): the data-parallel NTTD fit epoch
+   (``core.codec._make_train_epoch(..., mesh=)``) at the MEDIUM fit shape
+   (rank 10, hidden 18, lr 1e-2, the PEMS-SF replica's entries), 4 steps
+   of 8192 entries, in worlds of child processes spawned with a
+   ``FileStore`` in the work directory (this process joins no group):
+   ``dist.a``, one NCCL rank on the card, whose epoch must equal the
+   single-device epoch of this process bitwise; ``dist.b``, two gloo
+   ranks on ``cuda:0`` (NCCL refuses two ranks on one card; gloo's
+   all-reduce takes CUDA tensors), 4096 entries a rank, loss within rtol
+   1e-5 and params within rtol 1e-4 / atol 1e-6 of the single-device
+   epoch, the ranks' params bitwise equal, then elastic restore of a leaf
+   saved on one device with ``Shard(0)`` and ``Shard(1)``, each rank's
+   chunk its slice of the leaf.  Every rank must launch the four training
+   kernels once a step and run no plain version; each prints its backend,
+   device, the ms of a step and the all-reduce's share of a step.  A
+   rank's non-zero exit or a timeout fails the run.  ``dist.rules``: the
+   dry-run's rule check of all 128 LM cells (and the 32 it skips) and the
+   codec's DP cell on both production meshes.  Every kernel row gets
+   ``launches_dist``: the launches of the ranks' checked epochs.
 9. timing: each kernel, its plain version and, where one exists, one
    PyTorch call computing the same function (cuDNN ``nn.LSTM`` for
    ``lstm_scan``, one ``torch.einsum`` over the whole chain for
@@ -415,6 +434,15 @@ VERSIONED_DELTA = dict(rank=4, hidden=8, batch_size=16384, seed=0)
 # one pass of the delta fit over the leaf's 10.6 M entries (the default is
 # 2), a cut of its epochs that keeps the train phases near two minutes
 VERSIONED_DELTA_PASSES = 1
+DIST_STEPS = 4                      # the data-parallel epoch's steps
+DIST_BATCH = 8192                   # entries a step: the MEDIUM fit's batch
+DIST_TIMING_EPOCHS = 3              # epochs timed after the checked one
+DIST_LOSS_RTOL = 1e-5
+DIST_PARAM_TOL = dict(rtol=1e-4, atol=1e-6)
+DIST_TIMEOUT = 240                  # seconds a world may take, start-up included
+DIST_LEAF = (2048, 1024)            # the leaf dist.b restores
+DIST_CELLS = (128, 32)              # the dry-run sweep's cells kept and skipped
+TRAIN_KERNELS = ("lstm_scan", "lstm_scan_bwd", "tt_contract", "tt_contract_bwd")
 EMBED_EPOCHS = 1                    # the reference's default is 150
 EMBED_LOOKUP = (8, 128)
 
@@ -3744,6 +3772,302 @@ def phase_fleet(torch, device, smi, workdir, pems_path, traffic, answers):
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase dist: the data-parallel fit epoch over spawned ranks, the rule check
+# ---------------------------------------------------------------------------
+def dist_epoch_setup(torch, device, inputs):
+    """(spec, cfg, opt, params, positions, values) of the DP epoch on
+    ``device`` from the arrays ``dist_inputs`` wrote."""
+    from repro_torch import convert
+    from repro_torch.configs import tensorcodec_paper
+    from repro_torch.core import nttd
+    from repro_torch.core.folding import make_folding_spec
+    from repro_torch.optim import optimizers
+
+    spec = make_folding_spec(tuple(int(n) for n in inputs["shape"]))
+    med = tensorcodec_paper.MEDIUM
+    cfg = nttd.NTTDConfig(rank=med.rank, hidden=med.hidden, kernel_impl="cuda")
+    params = convert.params_from_numpy(_unflat_npz(inputs, "params/"), device)
+    return (spec, cfg, optimizers.adam(med.lr), params,
+            torch.as_tensor(inputs["pos"], device=device),
+            torch.as_tensor(inputs["vals"], device=device))
+
+
+def _unflat_npz(npz, prefix: str) -> dict:
+    tree: dict = {}
+    for key in npz.files:
+        if key.startswith(prefix):
+            *path, leaf = key[len(prefix):].split("/")
+            node = tree
+            for part in path:
+                node = node.setdefault(part, {})
+            node[leaf] = npz[key]
+    return tree
+
+
+def _flat_tree(tree, prefix: str) -> dict:
+    if isinstance(tree, dict):
+        return {key: leaf for k, v in tree.items()
+                for key, leaf in _flat_tree(v, f"{prefix}{k}/").items()}
+    return {prefix[:-1]: tree.detach().cpu().numpy()}
+
+
+def dist_inputs(torch, workdir) -> str:
+    """The MEDIUM fit's first epoch inputs: the port's init (seed 0) and
+    DIST_STEPS x DIST_BATCH random entries of the normalized PEMS-SF
+    replica; written to ``workdir/dist/inputs.npz``."""
+    import numpy as np
+
+    from repro_torch.codecs.indexing import flat_to_multi
+    from repro_torch.configs import tensorcodec_paper
+    from repro_torch.core import nttd
+    from repro_torch.core.folding import make_folding_spec
+    from repro_torch.data import synthetic_tensors
+
+    x = synthetic_tensors.load(FIT_DATASET, mini=False, seed=SEED)
+    xn = (x - float(x.mean())) / float(x.std())
+    rng = np.random.default_rng(SEED)
+    pos = flat_to_multi(rng.integers(0, x.size, DIST_STEPS * DIST_BATCH), x.shape)
+    vals = xn[tuple(pos.T)]
+    med = tensorcodec_paper.MEDIUM
+    params = nttd.init_params(torch.Generator().manual_seed(SEED), make_folding_spec(x.shape),
+                              nttd.NTTDConfig(rank=med.rank, hidden=med.hidden), "cpu")
+    path = os.path.join(workdir, "dist", "inputs.npz")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    np.savez(path, shape=np.asarray(x.shape),
+             pos=pos.reshape(DIST_STEPS, DIST_BATCH, -1).astype(np.int32),
+             vals=vals.reshape(DIST_STEPS, DIST_BATCH).astype(np.float32),
+             **_flat_tree(params, "params/"))
+    return path
+
+
+def dist_rank(rank: int, world: int, backend: str, device_type: str, workdir: str,
+              name: str) -> None:
+    """One rank of world ``name``, in a spawned process: joins the group
+    through a FileStore, runs the DP epoch once with every launch counted
+    (the checked run), then DIST_TIMING_EPOCHS untimed-collective epochs
+    for the step's ms and as many with each all-reduce timed; world "b"
+    also restores ``leaf`` with Shard(0) and Shard(1).  Writes its results
+    to ``workdir/dist/<name><rank>.npz``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import codec
+    from repro_torch.kernels import ops, ref
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = os.path.join(workdir, "dist")
+    device = torch.device(device_type, 0)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    store = dist.FileStore(os.path.join(out, f"store_{name}"), world)
+    kwargs = {"device_id": device} if backend == "nccl" else {}
+    dist.init_process_group(backend, store=store, rank=rank, world_size=world, **kwargs)
+    try:
+        from torch.distributed.device_mesh import init_device_mesh
+
+        mesh = init_device_mesh(device.type, (world,), mesh_dim_names=("data",))
+        inputs = np.load(os.path.join(out, "inputs.npz"))
+        spec, cfg, opt, params, pos, vals = dist_epoch_setup(torch, device, inputs)
+        epoch = codec._make_train_epoch(spec, cfg, opt, mesh=mesh)
+        sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+        with plain_calls_counted(ref) as plain:
+            sync()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            p, o, loss = epoch(params, opt.init(params), pos, vals)
+            sync()
+            first_s = time.perf_counter() - t0
+            launches = ops.launch_counts()
+        res = {"loss": loss.cpu().numpy(), **_flat_tree(p, "params/")}
+
+        def timed_epochs():
+            nonlocal p, o
+            sync()
+            t = time.perf_counter()
+            for _ in range(DIST_TIMING_EPOCHS):
+                p, o, _ = epoch(p, o, pos, vals)
+            sync()
+            return time.perf_counter() - t
+
+        steps = DIST_TIMING_EPOCHS * DIST_STEPS
+        step_s = timed_epochs() / steps
+        all_reduce, reduce_s = dist.all_reduce, [0.0]
+
+        def timed_all_reduce(*args, **kw):  # the host clock around a drained stream
+            sync()
+            t = time.perf_counter()
+            work = all_reduce(*args, **kw)
+            sync()
+            reduce_s[0] += time.perf_counter() - t
+            return work
+
+        dist.all_reduce = timed_all_reduce
+        try:
+            timed_s = timed_epochs()
+        finally:
+            dist.all_reduce = all_reduce
+        if name == "b":
+            res.update(dist_restore(torch, mesh, workdir))
+        np.savez(os.path.join(out, f"{name}{rank}.npz"), **res, meta=np.array(json.dumps({
+            "backend": dist.get_backend(), "world": dist.get_world_size(), "rank": rank,
+            "device": str(pos.device), "device_name": torch.cuda.get_device_name(device)
+            if device.type == "cuda" else "cpu", "launches": launches, "plain_calls": plain,
+            "first_epoch_s": first_s, "step_ms": step_s * 1e3,
+            "step_ms_reduce_timed": timed_s / steps * 1e3,
+            "all_reduce_ms_per_step": reduce_s[0] / steps * 1e3,
+            "all_reduce_share": reduce_s[0] / timed_s})))
+    finally:
+        dist.destroy_process_group()
+
+
+def dist_restore(torch, mesh, workdir) -> dict:
+    """The leaf ``phase_dist`` saved on one device, restored on ``mesh``
+    with Shard(0) and Shard(1): each rank's chunk must be its slice."""
+    from torch.distributed.tensor import Shard
+
+    from repro_torch.dist.sharding import NamedSharding, PartitionSpec
+    from repro_torch.train import checkpoint as ckpt_lib
+
+    want = torch.randn(DIST_LEAF, generator=torch.Generator().manual_seed(SEED))
+    rank, world = mesh.get_coordinate()[0], mesh.size()
+    ck = ckpt_lib.Checkpointer(os.path.join(workdir, "dist", "ckpt"))
+    template = {"w": torch.empty(DIST_LEAF, device="meta")}
+    checked = {}
+    for dim, spec in ((0, PartitionSpec("data", None)), (1, PartitionSpec(None, "data"))):
+        tree, _ = ck.restore(1, template, {"w": NamedSharding(mesh, spec)})
+        w = tree["w"]
+        n = DIST_LEAF[dim] // world
+        piece = want.narrow(dim, rank * n, n)
+        require(tuple(w.placements) == (Shard(dim),), f"restored with {w.placements}")
+        require(w.to_local().device.type == mesh.device_type, f"on {w.to_local().device}")
+        require(torch.equal(w.to_local().cpu(), piece), f"Shard({dim}): rank {rank}'s chunk "
+                f"is not its slice")
+        checked[f"restore_shard{dim}_local_shape"] = list(w.to_local().shape)
+    return {"restore": json.dumps(checked)}
+
+
+def run_world(name: str, world: int, backend: str, device_type: str, workdir: str) -> list:
+    """Spawn ``world`` ranks of ``dist_rank``; each must exit 0 within
+    DIST_TIMEOUT.  Returns each rank's results."""
+    import multiprocessing
+
+    import numpy as np
+
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=dist_rank, args=(r, world, backend, device_type, workdir, name))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + DIST_TIMEOUT
+    try:  # until all exit, one fails (its peers may wait on it forever) or time is up
+        while (any(p.is_alive() for p in procs) and time.monotonic() < deadline
+               and not any(p.exitcode for p in procs)):
+            time.sleep(0.1)
+    finally:
+        alive = [p for p in procs if p.is_alive()]
+        for p in alive:
+            p.kill()
+            p.join()
+    codes = [p.exitcode for p in procs]
+    require(not any(c for c, p in zip(codes, procs) if p not in alive),
+            f"dist.{name}: rank exit codes {codes} (killed: {len(alive)})")
+    require(not alive, f"dist.{name}: {len(alive)} of {world} ranks timed out")
+    out = []
+    for r in range(world):
+        res = dict(np.load(os.path.join(workdir, "dist", f"{name}{r}.npz")))
+        res["meta"] = json.loads(str(res["meta"]))
+        if "restore" in res:
+            res["meta"]["restore"] = json.loads(str(res.pop("restore")))
+        out.append(res)
+    return out
+
+
+def dist_rule_check() -> dict:
+    """The dry-run rule check of every LM cell and of the codec's DP cell."""
+    from repro_torch.launch import dryrun, dryrun_codec
+
+    t0 = time.perf_counter()
+    status, leaves, largest = {"ok": 0, "skip": 0}, 0, {}
+    for rules in ("base", "fsdp"):
+        for arch, shape, mesh in dryrun.cells("both"):
+            res = dryrun.check_cell(arch, shape, mesh, rules)
+            status[res["status"]] += 1
+            if res["status"] == "ok":
+                leaves += sum(len(v) for v in res["specs"].values())
+                total = sum(res["bytes_per_device"].values())
+                if total > largest.get("bytes", 0):
+                    largest = {"cell": [arch, shape, mesh, rules], "bytes": total}
+    codec = {m: dryrun_codec.check(m)["bytes_per_device"] for m in ("single", "multi")}
+    require((status["ok"], status["skip"]) == DIST_CELLS,
+            f"dry-run cells {status}, expected {DIST_CELLS}")
+    return {"cells": status, "leaves": leaves, "largest_bytes_per_device": largest,
+            "codec_bytes_per_device": codec, "seconds": time.perf_counter() - t0}
+
+
+def phase_dist(torch, device, smi, workdir) -> dict:
+    """The DP epoch in worlds ``a`` (one NCCL rank) and ``b`` (two gloo
+    ranks on one card), held against this process's single-device epoch;
+    elastic restore; the rule check.  Returns each kernel's launches in
+    the ranks' checked epochs, summed over ranks."""
+    import numpy as np
+
+    from repro_torch.core import codec
+    from repro_torch.train import checkpoint as ckpt_lib
+
+    t0 = time.perf_counter()
+    inputs = np.load(dist_inputs(torch, workdir))
+    ckpt_lib.Checkpointer(os.path.join(workdir, "dist", "ckpt"), async_save=False).save(
+        1, {"w": torch.randn(DIST_LEAF, generator=torch.Generator().manual_seed(SEED)).to(
+            device)})
+    spec, cfg, opt, params, pos, vals = dist_epoch_setup(torch, device, inputs)
+    p, _, loss = codec._make_train_epoch(spec, cfg, opt)(params, opt.init(params), pos, vals)
+    want = {"loss": loss.cpu().numpy(), **_flat_tree(p, "params/")}
+    nccl = "nccl" if device.type == "cuda" else "gloo"
+    worlds = {"a": run_world("a", 1, nccl, device.type, workdir),
+              "b": run_world("b", 2, "gloo", device.type, workdir)}
+    launches = dict.fromkeys(TRAIN_KERNELS, 0)
+    report = {}
+    for name, ranks in worlds.items():
+        for r, res in enumerate(ranks):
+            meta = res["meta"]
+            require(all(meta["launches"][k] == DIST_STEPS for k in TRAIN_KERNELS),
+                    f"dist.{name} rank {r} launched {meta['launches']}; expected "
+                    f"{DIST_STEPS} of each training kernel")
+            require(sum(meta["plain_calls"].values()) == 0,
+                    f"dist.{name} rank {r} ran plain versions: {meta['plain_calls']}")
+            for k in launches:
+                launches[k] += meta["launches"][k]
+        for r, res in enumerate(ranks[1:], 1):  # replicated params stay bitwise equal
+            require(all(np.array_equal(res[k], ranks[0][k]) for k in want),
+                    f"dist.{name}: rank {r}'s params differ from rank 0's")
+        got = ranks[0]
+        errs = {k: float(np.abs(got[k] - want[k]).max()) for k in want}
+        if name == "a":
+            require(all(np.array_equal(got[k], want[k]) for k in want),
+                    f"dist.a: the one-rank epoch is not the single-device one bitwise: {errs}")
+        else:
+            require(abs(float(got["loss"]) - float(want["loss"]))
+                    <= DIST_LOSS_RTOL * abs(float(want["loss"])),
+                    f"dist.b: loss {float(got['loss'])} vs {float(want['loss'])}")
+            for k in want:
+                if k != "loss":
+                    np.testing.assert_allclose(got[k], want[k], **DIST_PARAM_TOL, err_msg=k)
+        report[name] = {"ranks": [r["meta"] for r in ranks], "max_abs_err": errs,
+                        "loss": float(got["loss"]), "loss_single_device": float(want["loss"])}
+        emit({"phase": f"dist.{name}", "world": len(ranks), "steps": DIST_STEPS,
+              "batch": DIST_BATCH, "entries_per_rank": DIST_BATCH // len(ranks),
+              **report[name], "name_power_limit": smi})
+    rules = dist_rule_check()
+    emit({"phase": "dist.rules", **rules})
+    emit({"phase": "dist", "seconds": time.perf_counter() - t0, "launches": launches,
+          "not_shown": "NCCL collectives across cards: one card holds world a's one rank "
+                       "and world b's two gloo ranks"})
+    return launches
+
+
 FIT_STEP_SHAPE = (8192, 10, 18, 10)  # B, T (PEMS-SF's d'), H, R of the MEDIUM fit
 
 
@@ -3884,6 +4208,7 @@ def main() -> int:
         serve_launches = phase_serve(torch, device)
         family_launches = phase_families(torch, device)
         train_launches = phase_train_all(torch, device, smi, workdir)
+        dist_launches = phase_dist(torch, device, smi, workdir)
         simt_lstm = lstm_simt_timing(torch, device, lstm_simt_launches, errs)
         from repro_torch.kernels import lstm as _lstm
         from repro_torch.kernels import tt_contract as _tt
@@ -3914,6 +4239,8 @@ def main() -> int:
             row["launches_families"] = family_launches.get(row["name"], 0)
         for row in kernels:  # and in the train phases (flash: 0, training runs the oracle)
             row["launches_train"] = train_launches.get(row["name"], 0)
+        for row in kernels:  # and in the data-parallel epochs' ranks (phase dist)
+            row["launches_dist"] = dist_launches.get(row["name"], 0)
         torch.cuda.synchronize()
         emit({"kernels": kernels})
     except Exception:  # any failed phase fails the run, with its traceback

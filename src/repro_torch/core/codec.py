@@ -31,6 +31,7 @@ from repro_torch.codecs.indexing import flat_to_multi
 from repro_torch.core import nttd, reorder
 from repro_torch.core.folding import FoldingSpec, make_folding_spec
 from repro_torch.devices import resolve_device
+from repro_torch.dist import sharding
 from repro_torch.kernels import lstm, tt_contract
 from repro_torch.optim import optimizers
 
@@ -222,14 +223,31 @@ def _make_train_step(spec: FoldingSpec, cfg: nttd.NTTDConfig, opt):
     return step
 
 
-def _make_train_epoch(spec: FoldingSpec, cfg: nttd.NTTDConfig, opt):
+def _make_train_epoch(spec: FoldingSpec, cfg: nttd.NTTDConfig, opt, mesh=None):
     """One epoch, the reference's ``lax.scan`` over minibatches as a loop
     of steps on the device: positions [S, B, d] and values [S, B] on the
     params' device -> (params, opt_state, summed loss as a device scalar).
-    Nothing is read back to the host."""
-    step = _make_train_step(spec, cfg, opt)
+    Nothing is read back to the host.
+
+    With ``mesh`` (a ``DeviceMesh`` over the initialized process group)
+    the epoch is data-parallel, as the reference's under the argument
+    shardings of ``launch/dryrun_codec.py``: P is the product of the
+    mesh's ``pod`` and ``data`` axes, and every rank, given the whole
+    positions and values, takes its contiguous 1/P block of each step's
+    batch (its block under ``(None, ('pod', 'data'))``), runs the step's
+    forward and backward on it, and all-reduces the SUM of the gradients
+    and of the loss (the loss is a sum) in one flat buffer, one
+    all-reduce per dp axis a step.  Adam then runs the same on every rank,
+    so the replicated params stay bitwise equal.  A batch that P does not
+    divide raises before any work."""
+    if mesh is None:
+        step = _make_train_step(spec, cfg, opt)
+    else:
+        step = _make_dp_train_step(spec, cfg, opt, mesh)
 
     def epoch(params, opt_state, positions, values):
+        if mesh is not None:
+            positions, values = step.local_block(positions), step.local_block(values)
         losses = []
         for s in range(positions.shape[0]):
             params, opt_state, loss = step(params, opt_state, positions[s], values[s])
@@ -237,6 +255,47 @@ def _make_train_epoch(spec: FoldingSpec, cfg: nttd.NTTDConfig, opt):
         return params, opt_state, torch.sum(torch.stack(losses))
 
     return epoch
+
+
+def _make_dp_train_step(spec: FoldingSpec, cfg: nttd.NTTDConfig, opt, mesh):
+    """The data-parallel step of ``_make_train_epoch``: (params, opt_state,
+    this rank's positions [b, d], values [b]) -> (params, opt_state, the
+    whole batch's loss).  ``step.local_block(x)`` takes this rank's block
+    of x's dim 1."""
+    import torch.distributed as dist
+
+    value_and_grad = _make_value_and_grad(spec, cfg)
+    names = mesh.mesh_dim_names
+    axes = sharding.dp_axes(mesh)
+    groups = [mesh.get_group(a) for a in axes]
+    coord = dict(zip(names, mesh.get_coordinate()))
+    n_blocks, block = 1, 0
+    for a in axes:  # major to minor, as the reference's ('pod', 'data')
+        size = mesh.size(names.index(a))
+        n_blocks, block = n_blocks * size, block * size + coord[a]
+
+    def local_block(x: torch.Tensor) -> torch.Tensor:
+        if x.shape[1] % n_blocks:
+            raise ValueError(f"data-parallel epoch: batch {x.shape[1]} does not divide over "
+                             f"{n_blocks} ranks of the mesh's {axes} axes")
+        b = x.shape[1] // n_blocks
+        return x[:, block * b:(block + 1) * b]
+
+    def step(params, opt_state, positions, values):
+        loss, grads = value_and_grad(params, positions, values)
+        leaves = optimizers.tree_leaves(grads)
+        flat = torch.cat([g.reshape(-1) for g in leaves] + [loss.reshape(1)])
+        for group in groups:
+            dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+        parts = torch.split(flat, [g.numel() for g in leaves] + [1])
+        grads = optimizers.tree_unflatten(
+            grads, [p.view_as(g) for p, g in zip(parts, leaves)])
+        updates, opt_state = opt.update(grads, opt_state, params)
+        params = optimizers.apply_updates(params, updates)
+        return params, opt_state, parts[-1].reshape(())
+
+    step.local_block = local_block
+    return step
 
 
 def _fitness(params: nttd.Params, spec: FoldingSpec, cfg: nttd.NTTDConfig, pos: np.ndarray,

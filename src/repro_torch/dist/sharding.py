@@ -1,17 +1,46 @@
-"""Parameter specs and their materialization: the init half of
-``repro.dist.sharding``.
+"""Logical-axis sharding, as in ``repro.dist.sharding``: ParamSpec trees,
+rules tables, late mesh binding, and materialization.
 
 Weights are declared once as ``ParamSpec(shape, logical_axes, init)``
-trees.  ``materialize`` turns a spec tree into tensors on one device,
-each leaf drawn from its own ``torch.Generator`` seeded from ``(seed,
+trees; activations are constrained with ``shard(x, *axes)``.  Nothing in
+the model code names a mesh axis: the rules tables bind logical axes to
+mesh axes when a program is placed, so the same definition runs whole on
+one device or spread over a mesh.
+
+Resolution semantics (``logical_pspec``), the reference's four rules:
+  * rules map a logical axis to a mesh axis name, a tuple of names, or
+    ``None`` (replicate); axes missing from the table replicate too;
+  * mesh axes not present in the target mesh are dropped (e.g. 'pod' on a
+    single-pod mesh);
+  * a mesh axis consumed by an earlier dim of the same tensor is skipped
+    (a spec must not repeat a mesh axis);
+  * when the tensor shape is known, a dim that the mapped axis product
+    does not divide evenly falls back to replication, all or nothing.
+
+A spec is a ``PartitionSpec``: a tuple with one entry per tensor dim, each
+``None``, a mesh axis name or a tuple of names, as JAX's.  A mesh is
+anything with ``axis_names`` and a ``shape`` (``MeshShape``, for meshes
+larger than the process group, as the dry-run's) or a
+``torch.distributed.device_mesh.DeviceMesh``.  ``placements`` turns a
+spec into DTensor placements, one per mesh dim (JAX lists them per tensor
+dim): a dim on several mesh axes is ``Shard(d)`` on each, which DTensor
+splits major to minor in the mesh's order, so a tuple in another order
+raises.
+
+``shard`` is an identity outside a ``sharding_ctx``; inside one it
+redistributes a ``DTensor`` to the resolved placements.
+
+``materialize`` turns a spec tree into tensors on one device, each leaf
+drawn from its own ``torch.Generator`` seeded from ``(seed,
 crc32(path))``, so adding a leaf never reshuffles the others.  The draws
-cannot equal JAX's; the shapes, dtypes and standard deviations do.  The
-logical axes are kept for the sharding rules of ROADMAP A.8; on one
-device ``shard`` is the identity and is left out.
+cannot equal JAX's; the shapes, dtypes and standard deviations do.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import math
+import threading
 import zlib
 from typing import Any, Callable
 
@@ -51,6 +80,267 @@ def leaves(tree) -> list:
     if isinstance(tree, dict):
         return [leaf for v in tree.values() for leaf in leaves(v)]
     return [tree]
+
+
+def keyed_leaves(tree, path: str = "") -> dict[str, Any]:
+    """``{keystr: leaf}`` of a tree of dicts and NamedTuples, JAX's
+    ``keystr`` paths (``".mu['blocks']['attn']['wq']"``)."""
+    if isinstance(tree, dict):
+        items = [(f"{path}[{k!r}]", v) for k, v in tree.items()]
+    elif isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        items = [(f"{path}.{f}", getattr(tree, f)) for f in tree._fields]
+    else:
+        return {path: tree}
+    return {k: leaf for p, v in items for k, leaf in keyed_leaves(v, p).items()}
+
+
+# ---------------------------------------------------------------------------
+# rules tables (logical axis -> mesh axis | tuple of mesh axes | None)
+# ---------------------------------------------------------------------------
+# Megatron-style tensor parallelism on 'model', data parallelism on
+# ('pod', 'data').  Weights stay unsharded on their input dims (pure TP);
+# FSDP_RULES below adds the ZeRO-3 weight sharding over the DP axes.
+BASE_RULES: dict[str, Any] = {
+    # activations
+    "batch": ("pod", "data"),
+    "seq": None,          # -> 'model' (Megatron SP) via effective_rules
+    "seq_attn": None,     # -> 'model' for context-parallel attention cells
+    "act_embed": None,
+    # embedding / unembedding
+    "vocab": "model",
+    "embed": None,
+    # stacked-layer and generic weight dims
+    "layers": None,
+    "ffn_in": None,
+    "mlp": "model",
+    # attention
+    "heads": "model",
+    "kv_heads": "model",
+    "head_dim": None,
+    # KV cache; kv_seq flips to 'data'/'model' per-cell (flash-decode)
+    "kv_seq": None,
+    "long_kv": "data",
+    # MoE: dispatch groups ride the DP axes (keeps the sort/scatter local),
+    # expert weights are TP-sharded on their hidden dim like dense MLPs
+    "moe_group": ("pod", "data"),
+    "experts": None,
+    "expert_in": None,
+    "expert_mlp": "model",
+    "capacity": None,
+    # Mamba / SSD
+    "ssm_inner": "model",
+    "ssm_heads": "model",
+    "ssm_head_dim": None,
+    "ssm_state": None,
+    "conv_k": None,
+}
+
+# ZeRO-3/FSDP: additionally shard every weight's input dim over the DP
+# axes.  Experts move to 'model' (expert parallelism); 'expert_mlp' then
+# loses 'model' via the first-dim-wins fallback, so expert weights gather
+# only over 'data' on their d_model dim.
+FSDP_RULES: dict[str, Any] = dict(
+    BASE_RULES,
+    ffn_in=("pod", "data"),
+    embed=("pod", "data"),
+    experts="model",
+    expert_in=("pod", "data"),
+)
+
+
+# ---------------------------------------------------------------------------
+# meshes and specs
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class MeshShape:
+    """A mesh by its axis names and sizes alone, with no process group
+    behind it: JAX's ``AbstractMesh``, for meshes larger than the world
+    (the production meshes of the dry-run)."""
+
+    sizes: tuple[int, ...]
+    axis_names: tuple[str, ...]
+
+    def __post_init__(self):
+        if len(self.sizes) != len(self.axis_names):
+            raise ValueError(f"MeshShape: sizes {self.sizes} vs axes {self.axis_names}")
+
+    @property
+    def shape(self) -> dict[str, int]:
+        return dict(zip(self.axis_names, self.sizes))
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.sizes)
+
+
+def dp_axes(mesh) -> tuple[str, ...]:
+    """The mesh's data-parallel axes, ``pod`` then ``data`` (major to
+    minor), as the reference's ``(None, ('pod', 'data'))`` batch specs."""
+    return tuple(a for a in ("pod", "data") if a in mesh_axes(mesh))
+
+
+def mesh_axes(mesh) -> dict[str, int]:
+    """``{axis name: size}`` in the mesh's major-to-minor order, of a
+    ``MeshShape`` or a ``DeviceMesh`` (whose ``shape`` is a tuple)."""
+    names = getattr(mesh, "mesh_dim_names", None)
+    if names is not None:
+        return dict(zip(names, mesh.shape))
+    return {a: mesh.shape[a] for a in mesh.axis_names}
+
+
+class PartitionSpec(tuple):
+    """One entry per tensor dim: ``None``, a mesh axis name, or a tuple of
+    names split major to minor.  A one-name tuple is the name, as in JAX."""
+
+    def __new__(cls, *parts):
+        return super().__new__(cls, (p[0] if isinstance(p, tuple) and len(p) == 1 else p
+                                     for p in parts))
+
+    def __repr__(self) -> str:
+        return f"PartitionSpec{tuple.__repr__(self)}"
+
+
+P = PartitionSpec
+
+
+def _rule_axes(logical: str | None, rules: dict) -> tuple[str, ...]:
+    if logical is None:
+        return ()
+    r = rules.get(logical)
+    if r is None:
+        return ()
+    if isinstance(r, str):
+        return (r,)
+    return tuple(r)
+
+
+def logical_pspec(axes: tuple[str | None, ...], rules: dict, mesh,
+                  shape: tuple[int, ...] | None = None) -> PartitionSpec:
+    """Resolve logical axis names to a ``PartitionSpec`` on ``mesh``.
+
+    With ``shape`` given, dims the mapped mesh-axis product does not
+    divide evenly are replicated instead (all-or-nothing per dim).
+    """
+    sizes = mesh_axes(mesh)
+    used: set[str] = set()
+    parts: list[Any] = []
+    for i, logical in enumerate(axes):
+        cand = [m for m in _rule_axes(logical, rules) if m in sizes and m not in used]
+        if cand and shape is not None and shape[i] % math.prod(sizes[m] for m in cand):
+            cand = []
+        used.update(cand)
+        parts.append(None if not cand else cand[0] if len(cand) == 1 else tuple(cand))
+    return PartitionSpec(*parts)
+
+
+def _entry_axes(entry) -> tuple[str, ...]:
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def shard_counts(spec: PartitionSpec, mesh) -> list[int]:
+    """The number of pieces each tensor dim is split into."""
+    sizes = mesh_axes(mesh)
+    return [math.prod(sizes[a] for a in _entry_axes(e)) for e in spec]
+
+
+def placements(spec: PartitionSpec, mesh) -> tuple:
+    """DTensor placements of ``spec`` on ``mesh``, one per mesh dim:
+    ``Shard(d)`` where the spec puts that mesh axis on tensor dim ``d``,
+    else ``Replicate()``.  A tensor dim on several mesh axes must name
+    them in the mesh's order (DTensor splits major to minor); any other
+    order raises."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    order = list(mesh_axes(mesh))
+    dim_of: dict[str, int] = {}
+    for d, entry in enumerate(spec):
+        names = _entry_axes(entry)
+        unknown = [a for a in names if a not in order]
+        if unknown:
+            raise ValueError(f"placements: {spec} names {unknown}, not axes of {order}")
+        if [order.index(a) for a in names] != sorted(order.index(a) for a in names):
+            raise ValueError(
+                f"placements: dim {d} of {spec} is split over {names}, an order the mesh "
+                f"{tuple(order)} cannot express (DTensor splits in mesh order)")
+        for a in names:
+            if a in dim_of:
+                raise ValueError(f"placements: {spec} uses mesh axis {a!r} twice")
+            dim_of[a] = d
+    return tuple(Shard(dim_of[a]) if a in dim_of else Replicate() for a in order)
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A spec bound to a mesh, as JAX's ``NamedSharding``."""
+
+    mesh: Any
+    spec: PartitionSpec
+
+    @property
+    def placements(self) -> tuple:
+        return placements(self.spec, self.mesh)
+
+    def shard_shape(self, shape: tuple[int, ...]) -> tuple[int, ...]:
+        """The shape of one device's piece; raises where a dim does not divide."""
+        counts = shard_counts(self.spec, self.mesh) + [1] * (len(shape) - len(self.spec))
+        if len(self.spec) > len(shape) or any(n % c for n, c in zip(shape, counts)):
+            raise ValueError(f"{self.spec} does not divide shape {tuple(shape)}")
+        return tuple(n // c for n, c in zip(shape, counts))
+
+
+# ---------------------------------------------------------------------------
+# sharding context + activation constraints
+# ---------------------------------------------------------------------------
+_CTX = threading.local()
+
+
+@contextlib.contextmanager
+def sharding_ctx(mesh, rules: dict):
+    """Bind (mesh, rules) for the ``shard`` constraints run inside."""
+    prev = getattr(_CTX, "val", None)
+    _CTX.val = (mesh, dict(rules))
+    try:
+        yield
+    finally:
+        _CTX.val = prev
+
+
+def current_ctx() -> tuple[Any, dict] | None:
+    return getattr(_CTX, "val", None)
+
+
+def shard(x: torch.Tensor, *axes: str | None) -> torch.Tensor:
+    """Lay ``x`` out on its logical axes under the active ``sharding_ctx``.
+
+    Identity when no context is active (one device).  Inside one, ``x``
+    must be a ``DTensor`` on the context's ``DeviceMesh``: it is
+    redistributed to the resolved placements; a plain tensor raises.
+    """
+    if x.dim() != len(axes):
+        # validated on the identity path too, so one-device tests catch a
+        # bad annotation before it first runs under a mesh
+        raise ValueError(f"shard: rank {x.dim()} tensor with axes {axes}")
+    ctx = current_ctx()
+    if ctx is None:
+        return x
+    from torch.distributed.tensor import DTensor
+
+    mesh, rules = ctx
+    if not isinstance(x, DTensor):
+        raise TypeError("shard: inside a sharding_ctx the tensor must be a DTensor")
+    spec = logical_pspec(axes, rules, mesh, shape=tuple(x.shape))
+    return x.redistribute(mesh, placements(spec, mesh))
+
+
+# ---------------------------------------------------------------------------
+# spec-tree operations
+# ---------------------------------------------------------------------------
+def tree_shardings(mesh, specs, rules: dict):
+    """ParamSpec tree -> ``NamedSharding`` tree (divisibility-checked)."""
+    return map_with_path(
+        lambda _, s: NamedSharding(mesh, logical_pspec(s.axes, rules, mesh, s.shape)), specs)
 
 
 def tree_abstract(specs, dtype: torch.dtype):

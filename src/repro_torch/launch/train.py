@@ -13,7 +13,7 @@ The step updates the params and the optimizer state in place (the
 reference donates both to its jitted step), so a full-width step holds one
 copy of the f32 masters, their gradients, Adam's two moments and the bf16
 compute copy.  One device only: ``--mesh`` other than ``1x1`` raises
-(ROADMAP A.8).  A final checkpoint that the last periodic save already
+(ROADMAP A.9).  A final checkpoint that the last periodic save already
 wrote is not written again.
 
 ``main(argv)`` returns the losses, as the reference's does; ``run(argv)``
@@ -108,7 +108,7 @@ def run(argv=None) -> TrainRun:
     args = parse_args(argv)
     if args.mesh not in (None, "1x1"):
         raise NotImplementedError(
-            f"--mesh {args.mesh}: the port trains on one device; meshes wait for ROADMAP A.8")
+            f"--mesh {args.mesh}: the port trains on one device; meshes wait for ROADMAP A.9")
     device = resolve_device(args.device)
     cfg = configs.get_smoke(args.arch) if args.smoke else configs.get(args.arch)
 

@@ -46,6 +46,11 @@ def cache_specs(cfg: ModelConfig, batch: int, max_len: int, long_ctx: bool = Fal
     return transformer.cache_specs(cfg, batch, max_len, long_ctx)
 
 
+def abstract_cache(cfg: ModelConfig, batch: int, max_len: int, long_ctx: bool = False):
+    return sharding.tree_abstract(
+        cache_specs(cfg, batch, max_len, long_ctx), layers.dtype_of(cfg.compute_dtype))
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, long_ctx: bool = False,
                device=None) -> dict:
     """Zero cache on ``device`` (CUDA unless given): k/v and the conv state

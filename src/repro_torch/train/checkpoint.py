@@ -7,7 +7,16 @@
   * the layout is the reference's: one ``.npy`` per leaf and a
     ``manifest.json`` of logical metadata (paths, shapes, dtypes), so a
     checkpoint written by either package restores in the other
-  * ``restore`` puts each leaf on the device of the template's leaf
+  * ``restore`` puts each leaf on the device of the template's leaf, or,
+    given ``shardings`` (``dist.sharding.NamedSharding`` leaves on a
+    ``DeviceMesh``), lays it out on their placements: elastic, a
+    checkpoint written on mesh A restores onto mesh B.  Each rank reads
+    the leaf whole and keeps its own chunk (``distribute_tensor`` with
+    ``src_data_rank=None``): no scatter, no collective.
+  * a tree of ``DTensor``s saves whole leaves (``full_tensor``, so every
+    rank calls ``save``), the same bytes as a one-device save, written by
+    rank 0 alone; the caller waits (``wait()``) and holds the ranks at a
+    barrier before another rank reads them.
 
 Leaf keys are the reference's ``_flatten`` strings, which JAX's path keys
 give: dict keys in sorted order, a NamedTuple field as ``.<field>`` in
@@ -73,12 +82,21 @@ def _unflatten_into(template, values: dict):
     return build(template, ())
 
 
+def _is_dtensor(leaf) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(leaf, DTensor)
+
+
 def to_host(leaf) -> np.ndarray:
     """A leaf as the numpy array the reference would save (bf16: its bits
     as two-byte void elements), in memory of its own: a tensor on the CPU
-    is copied too, so the caller may update it in place at once."""
+    is copied too, so the caller may update it in place at once.  A
+    ``DTensor`` is gathered whole first (a collective)."""
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach()
+        if _is_dtensor(t):
+            t = t.full_tensor()
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).to("cpu", copy=True).numpy().view(_BF16_NP)
         return t.to("cpu", copy=True).numpy()
@@ -120,7 +138,10 @@ class Checkpointer:
         self.wait()
         # snapshot to host memory synchronously: the caller may update the
         # tree in place as soon as this returns
-        host = [(k, to_host(v), dtype_name(v)) for k, v in _flatten(tree)]
+        flat = _flatten(tree)
+        host = [(k, to_host(v), dtype_name(v)) for k, v in flat]
+        if any(_is_dtensor(v) for _, v in flat) and torch.distributed.get_rank() != 0:
+            return  # rank 0 writes the gathered leaves
         if self.async_save:
             self._thread = threading.Thread(
                 target=self._write_async, args=(step, host, extra or {}), daemon=True
@@ -175,9 +196,14 @@ class Checkpointer:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: int | None, template):
-        """Load a checkpoint into ``template``'s structure, each leaf on the
-        device of the template's leaf.  Returns (tree, manifest)."""
+    def restore(self, step: int | None, template, shardings=None):
+        """Load a checkpoint into ``template``'s structure; reshard onto the
+        current mesh (elastic).  Returns (tree, manifest).
+
+        A leaf whose key has a ``NamedSharding`` in ``shardings`` (same
+        structure, ``None`` leaves allowed) becomes a ``DTensor`` on its
+        mesh and placements, whatever mesh wrote the checkpoint; every
+        other leaf goes to the device of the template's leaf."""
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -186,19 +212,35 @@ class Checkpointer:
         with open(os.path.join(d, "manifest.json")) as f:
             manifest = json.load(f)
         devices = {k: leaf_device(v) for k, v in _flatten(template)}
+        targets = dict(_flatten(shardings)) if shardings is not None else {}
         values = {}
         for key, meta in manifest["leaves"].items():
-            if key in devices:  # the template's leaves only (e.g. params without opt)
-                arr = np.load(os.path.join(d, meta["file"]))
+            if key not in devices:  # the template's leaves only (e.g. params without opt)
+                continue
+            arr = np.load(os.path.join(d, meta["file"]))
+            target = targets.get(key)
+            if target is None:
                 values[key] = from_host(arr, meta["dtype"], devices[key])
+            else:
+                values[key] = _distribute(from_host(arr, meta["dtype"], "cpu"), target)
         return _unflatten_into(template, values), manifest
 
 
-def auto_resume(ckpt: Checkpointer, template):
+def _distribute(t: torch.Tensor, target) -> torch.Tensor:
+    """``t``, whole on every rank, as a ``DTensor`` on ``target``'s mesh and
+    placements: each rank keeps its own chunk, with no communication."""
+    from torch.distributed.tensor import distribute_tensor
+
+    mesh = target.mesh
+    return distribute_tensor(t.to(mesh.device_type), mesh, target.placements,
+                             src_data_rank=None)
+
+
+def auto_resume(ckpt: Checkpointer, template, shardings=None):
     """Resume from the latest checkpoint if one exists (crash recovery).
     Returns (tree or None, step)."""
     step = ckpt.latest_step()
     if step is None:
         return None, 0
-    tree, manifest = ckpt.restore(step, template)
+    tree, manifest = ckpt.restore(step, template, shardings)
     return tree, manifest["step"]

@@ -1,4 +1,5 @@
-"""Step factories: train / prefill / decode, as in ``repro.train.step``.
+"""Step factories: train / prefill / decode, with sharding trees, as in
+``repro.train.step``.
 
 ``make_train_step`` is the reference's step in eager PyTorch: the f32
 master weights cast once to the compute dtype, the loss and its gradients
@@ -15,18 +16,22 @@ Training attention is the oracle with autograd (``cfg.attn_impl="ref"``,
 the configs' default), as the reference trains through its jnp oracle: the
 reference has no backward attention kernel.
 
-The sharding trees of the reference (``effective_rules``,
-``batch_shardings``, ``param_shardings``, ``opt_shardings``,
-``cache_shardings``) wait for ROADMAP A.8: on one device every leaf is
-whole.
+The sharding trees (``effective_rules``, ``batch_shardings``,
+``param_shardings``, ``opt_shardings``, ``cache_shardings``) are the
+reference's, ``NamedSharding`` trees on a ``MeshShape`` or a
+``DeviceMesh``; the dry-run's rule check resolves them.  The steps above
+run on one device, every leaf whole: the tensor-parallel step that would
+run under those trees waits for ROADMAP A.9.
 """
 from __future__ import annotations
 
+import math
 from typing import Any
 
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.dist import sharding
 from repro_torch.models import layers, model
 from repro_torch.optim import optimizers
 from repro_torch.optim.optimizers import AdamState, tree_leaves, tree_map, tree_unflatten
@@ -132,3 +137,57 @@ def abstract_opt_state(cfg: ModelConfig) -> AdamState:
     f32 = tree_map(lambda x: _meta(x.shape, torch.float32), model.abstract_params(cfg))
     return AdamState(step=_meta((), torch.int32), mu=f32,
                      nu=tree_map(lambda x: _meta(x.shape, torch.float32), f32))
+
+
+# ---------------------------------------------------------------------------
+# sharding trees
+# ---------------------------------------------------------------------------
+def effective_rules(mesh, shape: ShapeConfig, base: dict | None = None,
+                    cfg: ModelConfig | None = None) -> dict:
+    """Adjust the rules table to the cell:
+    * global batch cannot fill the DP axes (long-context decode) ->
+      replicate batch, spread the KV length over 'data' (SP flash-decode);
+    * serving with a TP axis -> the cache's length over 'model'
+      (flash-decode: no assigned arch has KV heads the 16-way axis divides);
+    * head count cannot take the TP axis -> context-parallel attention
+      (q/scores sharded on 'seq_attn' -> 'model'), and in training the
+      residual stream's sequence too (Megatron SP)."""
+    rules = dict(base or sharding.BASE_RULES)
+    sizes = sharding.mesh_axes(mesh)
+    dp = math.prod(sizes[a] for a in sharding.dp_axes(mesh))
+    if shape.global_batch % dp != 0:
+        rules["batch"] = None
+        rules["kv_seq"] = "data"
+    elif shape.kind in ("prefill", "decode") and "model" in sizes:
+        rules["kv_seq"] = "model"
+    if cfg is not None and cfg.n_heads and "model" in sizes and cfg.n_heads % sizes["model"]:
+        rules["seq_attn"] = "model"
+        if shape.kind == "train":
+            rules["seq"] = "model"
+    return rules
+
+
+def batch_shardings(mesh, cfg: ModelConfig, batch_spec: dict, rules: dict) -> dict:
+    def spec_for(name):
+        logical = ("batch", "seq", "act_embed") if name == "embeds" else ("batch", "seq")
+        return sharding.NamedSharding(mesh, sharding.logical_pspec(logical, rules, mesh))
+
+    return {k: spec_for(k) for k in batch_spec}
+
+
+def replicated(mesh) -> sharding.NamedSharding:
+    return sharding.NamedSharding(mesh, sharding.PartitionSpec())
+
+
+def param_shardings(mesh, cfg: ModelConfig, rules: dict):
+    return sharding.tree_shardings(mesh, model.param_specs(cfg), rules)
+
+
+def opt_shardings(mesh, cfg: ModelConfig, rules: dict) -> AdamState:
+    ps = param_shardings(mesh, cfg, rules)
+    return AdamState(step=replicated(mesh), mu=ps, nu=ps)
+
+
+def cache_shardings(mesh, cfg: ModelConfig, batch: int, max_len: int, long_ctx: bool,
+                    rules: dict):
+    return sharding.tree_shardings(mesh, model.cache_specs(cfg, batch, max_len, long_ctx), rules)

@@ -433,7 +433,7 @@ def test_launcher_mmap_data(tmp_path):
 
 
 def test_launcher_refuses_a_mesh_and_a_missing_card(monkeypatch):
-    with pytest.raises(NotImplementedError, match="A.8"):
+    with pytest.raises(NotImplementedError, match="A.9"):
         tlaunch.main(SMOKE + ["--steps", "1", "--mesh", "2x2"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     argv = [a for a in SMOKE if a not in ("--device", "cpu")]
