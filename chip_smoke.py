@@ -277,6 +277,23 @@ Phases, each printing JSON lines:
    dry-run's rule check of all 128 LM cells (and the 32 it skips) and the
    codec's DP cell on both production meshes.  Every kernel row gets
    ``launches_dist``: the launches of the ranks' checked epochs.
+   tp (``phase_tp``): the LM train step through the launcher's mesh path,
+   minicpm-2b at full width cut to 8 of 40 layers (``depth_cut``), 3
+   steps at lr 1e-4, in world ``tp`` (one NCCL rank): the launcher twice
+   without a process group (the plain route and its repeat), then with
+   ``--mesh 1x1`` in the group, every leaf a ``DTensor`` on a (data,
+   model) mesh; the params bitwise the plain route's, or else losses
+   within rtol 1e-4 and params within rtol = atol = 2e-3 (the max abs
+   errors printed, and the plain repeat's beside them: how far two plain
+   runs differ); each route's step ms and peak memory; no kernel
+   launched.  pp (``phase_pp``): minicpm-2b's block stack at full width,
+   8 layers (4 a stage), f32, as a 2-stage GPipe pipeline
+   (``dist.pipeline_parallel``) of M = 4 microbatches of 2 x 128 tokens
+   on two gloo ranks sharing ``cuda:0`` (each hop copied through the
+   host), against this process's stack forward of the same layers at
+   rtol = atol = 2e-4, the ranks' outputs bitwise equal; the bubble
+   fraction, ms a tick and the host copies' share of the ticks.  Both
+   print ``not_shown``: NCCL collectives across cards.
 9. timing: each kernel, its plain version and, where one exists, one
    PyTorch call computing the same function (cuDNN ``nn.LSTM`` for
    ``lstm_scan``, one ``torch.einsum`` over the whole chain for
@@ -443,6 +460,20 @@ DIST_TIMEOUT = 240                  # seconds a world may take, start-up include
 DIST_LEAF = (2048, 1024)            # the leaf dist.b restores
 DIST_CELLS = (128, 32)              # the dry-run sweep's cells kept and skipped
 TRAIN_KERNELS = ("lstm_scan", "lstm_scan_bwd", "tt_contract", "tt_contract_bwd")
+TP_LAYERS = 8                       # tp's depth cut of minicpm-2b's 40 layers (widths kept)
+TP_STEPS = 3
+TP_LOSS_RTOL = 1e-4                 # tests/test_spmd.py's loss bound, where not bitwise
+# where not bitwise, params within half an Adam step at TRAIN_LR: a step
+# moves an element by about TRAIN_LR whatever its gradient, so only the
+# gradients (TP_GRAD_REL of each leaf's largest) and the losses tell a
+# wrong gradient from a right one; a zero or sign-flipped one reads >= lr
+TP_PARAM_TOL = dict(rtol=0.0, atol=0.5 * TRAIN_LR)
+TP_GRAD_REL = 1e-5
+TP_GRAD_BATCH = (8, 128)            # the launcher's default batch x seq
+PP_LAYERS, PP_STAGES, PP_MICROBATCHES = 8, 2, 4   # pp: 4 layers a stage
+PP_MICROBATCH = (2, 128)            # sequences x tokens a microbatch: 8 x 128 in all
+PP_TOL = 2e-4                       # rtol = atol, tests/test_spmd.py's pipeline bound
+PP_TIMED = 3                        # timed pipeline runs after the checked one
 EMBED_EPOCHS = 1                    # the reference's default is 150
 EMBED_LOOKUP = (8, 128)
 
@@ -3949,15 +3980,20 @@ def dist_restore(torch, mesh, workdir) -> dict:
     return {"restore": json.dumps(checked)}
 
 
-def run_world(name: str, world: int, backend: str, device_type: str, workdir: str) -> list:
-    """Spawn ``world`` ranks of ``dist_rank``; each must exit 0 within
-    DIST_TIMEOUT.  Returns each rank's results."""
+def run_world(name: str, world: int, backend: str, device_type: str, workdir: str,
+              target=None) -> list:
+    """Spawn ``world`` ranks of ``target`` (``dist_rank`` unless given),
+    each called as ``target(rank, world, backend, device_type, workdir,
+    name)``; each must exit 0 within DIST_TIMEOUT, and a rank's non-zero
+    exit ends the world at once.  Returns each rank's results, the
+    ``workdir/dist/<name><rank>.npz`` it wrote."""
     import multiprocessing
 
     import numpy as np
 
     ctx = multiprocessing.get_context("spawn")
-    procs = [ctx.Process(target=dist_rank, args=(r, world, backend, device_type, workdir, name))
+    procs = [ctx.Process(target=target or dist_rank,
+                         args=(r, world, backend, device_type, workdir, name))
              for r in range(world)]
     for p in procs:
         p.start()
@@ -4066,6 +4102,337 @@ def phase_dist(torch, device, smi, workdir) -> dict:
           "not_shown": "NCCL collectives across cards: one card holds world a's one rank "
                        "and world b's two gloo ranks"})
     return launches
+
+
+def _join_group(torch, rank: int, world: int, backend: str, device_type: str, workdir: str,
+                name: str):
+    """This spawned rank's device, in a process group of ``world`` joined
+    through a FileStore in ``workdir/dist``."""
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device(device_type, 0)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    store = dist.FileStore(os.path.join(workdir, "dist", f"store_{name}"), world)
+    kwargs = {"device_id": device} if backend == "nccl" else {}
+    dist.init_process_group(backend, store=store, rank=rank, world_size=world, **kwargs)
+    return device
+
+
+def _peak_reset(torch, device) -> None:
+    if device.type == "cuda":
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _peak(torch, device) -> int:
+    return torch.cuda.max_memory_allocated() if device.type == "cuda" else 0
+
+
+def tp_grads(torch, device, mesh) -> dict:
+    """The gradients minicpm-2b's train step (cut to TP_LAYERS) hands its
+    optimizer at the launcher's init on a TP_GRAD_BATCH batch from SEED,
+    on one device and on ``mesh`` (its ``grad_transform`` hook): bitwise,
+    the largest per-leaf difference over the leaf's largest magnitude, and
+    both ``grad_norm``."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.dist import sharding
+    from repro_torch.models import model
+    from repro_torch.optim import optimizers
+    from repro_torch.train import step as step_lib
+
+    rules = sharding.BASE_RULES
+    with depth_cut(configs, TP_LAYERS):
+        cfg = configs.get(TRAIN_ARCH)
+    tokens = torch.as_tensor(np.random.default_rng(SEED).integers(0, cfg.vocab, TP_GRAD_BATCH),
+                             device=device)
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, 1)}
+    opt = optimizers.adamw(TRAIN_LR, weight_decay=0.1, max_grad_norm=1.0)
+
+    def grads(shardings=None):
+        seen = {}
+
+        def capture(g):  # whole copies: the update clips the gradients in place
+            seen.update(sharding.keyed_leaves(optimizers.tree_map(
+                lambda x: (x.full_tensor() if sharding.is_dtensor(x) else x).clone(), g)))
+            return g
+
+        params = model.init_params(cfg, 0, device, shardings and shardings["params"])
+        state, b = opt.init(params), batch
+        ctx = contextlib.nullcontext()
+        if shardings:
+            state = sharding.device_put(state, shardings["opt"])
+            b = sharding.device_put(batch, step_lib.batch_shardings(mesh, cfg, batch, rules))
+            ctx = sharding.sharding_ctx(mesh, rules)
+        with ctx:
+            _, _, metrics = step_lib.make_train_step(cfg, opt, capture)(params, state, b)
+        return seen, float(metrics["grad_norm"])
+
+    want, norm_plain = grads()
+    got, norm_mesh = grads({"params": step_lib.param_shardings(mesh, cfg, rules),
+                            "opt": step_lib.opt_shardings(mesh, cfg, rules)})
+    rel = {k: float((got[k] - want[k]).abs().max()) / max(float(want[k].abs().max()), 1e-30)
+           for k in want}
+    return {"grads_bitwise": all(torch.equal(got[k], want[k]) for k in want),
+            "grad_max_rel_err": max(rel.values()), "grad_max_rel_err_leaf": max(rel, key=rel.get),
+            "grad_norm_mesh": norm_mesh, "grad_norm_plain": norm_plain}
+
+
+def tp_rank(rank: int, world: int, backend: str, device_type: str, workdir: str,
+            name: str) -> None:
+    """World ``tp``'s rank: ``launch.train.run`` of minicpm-2b cut to
+    TP_LAYERS, twice without a process group (the plain route, and its
+    repeat: how far two plain runs differ), then in a group of one rank on
+    a 1 x 1 (data, model) mesh; writes the routes' losses, step times,
+    peak memory and the params' largest differences."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.dist import sharding
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    argv = ["--arch", TRAIN_ARCH, "--steps", str(TP_STEPS), "--lr", str(TRAIN_LR),
+            "--log-every", "1", "--device", device_type]
+    device = torch.device(device_type, 0)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    routes = {}
+
+    def route(label: str, extra: list):
+        _peak_reset(torch, device)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with depth_cut(configs, TP_LAYERS):
+            run = train.run(argv + extra)
+        seconds = time.perf_counter() - t0
+        routes[label] = {"losses": run.losses, "step_ms": [t * 1e3 for t in run.step_seconds],
+                         "step_ms_median_after_first": float(np.median(run.step_seconds[1:]))
+                         * 1e3, "seconds": seconds, "peak_bytes": _peak(torch, device),
+                         "launches": ops.launch_counts()}
+        return run
+
+    def max_err(a: dict, b: dict) -> tuple[float, str]:
+        errs = {k: float((a[k] - b[k]).abs().max()) for k in b}
+        return max(errs.values()), max(errs, key=errs.get)
+
+    want = sharding.keyed_leaves(route("plain", []).params)
+    repeat = sharding.keyed_leaves(route("plain_repeat", []).params)
+    repeat_err = max_err(repeat, want)
+    del repeat
+    _join_group(torch, rank, world, backend, device_type, workdir, name)
+    try:
+        run = route("mesh", ["--mesh", "1x1"])
+        leaves = sharding.keyed_leaves(run.params)
+        require(all(sharding.is_dtensor(v) for v in leaves.values()),
+                "the mesh route's params are not DTensors")
+        mesh = next(iter(leaves.values())).device_mesh
+        got = {k: v.full_tensor() for k, v in leaves.items()}
+        del run, leaves
+        bitwise = all(torch.equal(got[k], want[k]) for k in want)
+        err, err_leaf = max_err(got, want)
+        close = all(torch.allclose(got[k], want[k], **TP_PARAM_TOL) for k in want)
+        del got, want
+        _peak_reset(torch, device)
+        meta = {**tp_grads(torch, device, mesh), "backend": dist.get_backend(), "world": dist.get_world_size(),
+                "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+                "device_name": torch.cuda.get_device_name(device)
+                if device.type == "cuda" else "cpu", "routes": routes,
+                "params_bitwise": bitwise, "params_close": close,
+                "max_abs_err": err, "max_abs_err_leaf": err_leaf,
+                "plain_repeat_max_abs_err": repeat_err[0],
+                "plain_repeat_max_abs_err_leaf": repeat_err[1]}
+        np.savez(os.path.join(workdir, "dist", f"{name}{rank}.npz"),
+                 meta=np.array(json.dumps(meta)))
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_tp(torch, device, smi, workdir) -> None:
+    """minicpm-2b's train step through the launcher's mesh path: one NCCL
+    rank, a 1 x 1 (data, model) mesh, full width cut to TP_LAYERS layers,
+    against the launcher without a process group in the same rank."""
+    from repro_torch import configs
+
+    t0 = time.perf_counter()
+    os.makedirs(os.path.join(workdir, "dist"), exist_ok=True)
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    (res,) = run_world("tp", 1, backend, device.type, workdir, target=tp_rank)
+    meta = res["meta"]
+    plain, mesh = meta["routes"]["plain"], meta["routes"]["mesh"]
+    repeat = meta["routes"]["plain_repeat"]
+    for label, r in meta["routes"].items():
+        require(len(r["losses"]) == TP_STEPS and all(math.isfinite(v) for v in r["losses"]),
+                f"tp.{label}: losses {r['losses']}")
+        require(not any(r["launches"].values()),
+                f"tp.{label} launched {r['launches']}; training attention is the oracle")
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(mesh["losses"], plain["losses"]))
+    norm_rel = abs(meta["grad_norm_mesh"] - meta["grad_norm_plain"]) / meta["grad_norm_plain"]
+    require(meta["grads_bitwise"] or (meta["grad_max_rel_err"] <= TP_GRAD_REL
+                                      and norm_rel <= TP_LOSS_RTOL),
+            f"tp: the mesh step's gradients differ by {meta['grad_max_rel_err']} of a leaf's "
+            f"largest ({meta['grad_max_rel_err_leaf']}), grad_norm {meta['grad_norm_mesh']} vs "
+            f"{meta['grad_norm_plain']}")
+    require(meta["params_bitwise"] or (loss_rel <= TP_LOSS_RTOL and meta["params_close"]),
+            f"tp: the mesh route's losses {mesh['losses']} vs {plain['losses']} (rel "
+            f"{loss_rel}), params max abs err {meta['max_abs_err']} "
+            f"({meta['max_abs_err_leaf']})")
+    cfg = configs.get(TRAIN_ARCH)
+    emit({"phase": "tp", "arch": TRAIN_ARCH, "layers": TP_LAYERS, "d_model": cfg.d_model,
+          "n_heads": cfg.n_heads, "vocab": cfg.vocab, "steps": TP_STEPS,
+          "reduced": [f"n_layers {cfg.n_layers} -> {TP_LAYERS} (every width kept)"],
+          "backend": meta["backend"], "world": meta["world"], "mesh": meta["mesh"],
+          "losses_mesh": mesh["losses"], "losses_plain": plain["losses"],
+          "losses_plain_repeat": repeat["losses"],
+          "max_rel_loss_diff": loss_rel, "params_bitwise": meta["params_bitwise"],
+          "max_abs_err": meta["max_abs_err"], "max_abs_err_leaf": meta["max_abs_err_leaf"],
+          "plain_repeat_max_abs_err": meta["plain_repeat_max_abs_err"],
+          "plain_repeat_max_abs_err_leaf": meta["plain_repeat_max_abs_err_leaf"],
+          "grads_bitwise": meta["grads_bitwise"], "grad_max_rel_err": meta["grad_max_rel_err"],
+          "grad_max_rel_err_leaf": meta["grad_max_rel_err_leaf"],
+          "grad_norm_mesh": meta["grad_norm_mesh"], "grad_norm_plain": meta["grad_norm_plain"],
+          "tol_if_not_bitwise": {"loss_rtol": TP_LOSS_RTOL, "grad_rel": TP_GRAD_REL,
+                                 "grad_norm_rtol": TP_LOSS_RTOL, **TP_PARAM_TOL},
+          "step_ms_mesh": mesh["step_ms"], "step_ms_plain": plain["step_ms"],
+          "step_ms_median_after_first_mesh": mesh["step_ms_median_after_first"],
+          "step_ms_median_after_first_plain": plain["step_ms_median_after_first"],
+          "step_ms_median_after_first_plain_repeat": repeat["step_ms_median_after_first"],
+          "peak_bytes_mesh": mesh["peak_bytes"], "peak_bytes_plain": plain["peak_bytes"],
+          "seconds": time.perf_counter() - t0,
+          "not_shown": "NCCL collectives across cards", "name_power_limit": smi})
+
+
+def pp_setup(torch, device):
+    """(cfg, the blocks' params, microbatches [M, mb, S, d]) of phase pp:
+    minicpm-2b at full width, PP_LAYERS layers, f32 compute, the inputs
+    the embedding of random tokens (seed SEED)."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.models import layers, model
+
+    cfg = dataclasses.replace(configs.get(TRAIN_ARCH), n_layers=PP_LAYERS,
+                              compute_dtype="float32")
+    params = model.init_params(cfg, SEED, device)
+    mb, seq = PP_MICROBATCH
+    tokens = np.random.default_rng(SEED).integers(0, cfg.vocab, (PP_MICROBATCHES * mb, seq))
+    with torch.no_grad():
+        x = layers.embed_lookup(params["tok"], torch.as_tensor(tokens, device=device),
+                                torch.float32)
+    return cfg, params["blocks"], x.reshape(PP_MICROBATCHES, mb, seq, cfg.d_model)
+
+
+def pp_stack(cfg):
+    """``fn(stage_params, x)``: the blocks of a stage applied in turn."""
+    from repro_torch.dist.sharding import leaves
+    from repro_torch.models import transformer
+
+    def fn(blocks, x):
+        n = leaves(blocks)[0].shape[0]
+        for bp in transformer._unstack(blocks, n):
+            x, _ = transformer.apply_block(bp, x, cfg, None, None, "full")
+        return x
+
+    return fn
+
+
+def pp_rank(rank: int, world: int, backend: str, device_type: str, workdir: str,
+            name: str) -> None:
+    """World ``pp``'s rank: its stage of minicpm-2b's block stack (its
+    slice of every leaf, a ``DTensor`` sharded over ``pod``), run through
+    ``pipeline_forward`` once checked and PP_TIMED times with its stats;
+    writes the output and the timings."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.dist import pipeline_parallel as pp
+    from repro_torch.dist.sharding import NamedSharding, PartitionSpec, device_put, leaves
+    from repro_torch.kernels import ops
+
+    device = _join_group(torch, rank, world, backend, device_type, workdir, name)
+    try:
+        mesh = init_device_mesh(device.type, (world,), mesh_dim_names=("pod",))
+        cfg, blocks, x = pp_setup(torch, device)
+        stages = device_put(pp.split_stages(blocks, world),
+                            NamedSharding(mesh, PartitionSpec("pod")))
+        del blocks
+        fn = pp_stack(cfg)
+        sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+        ops.reset_launch_counts()
+        with torch.no_grad():
+            out = pp.pipeline_forward(fn, stages, x, mesh, axis="pod")
+            runs = []
+            for _ in range(PP_TIMED):
+                stats = {}
+                sync()
+                t0 = time.perf_counter()
+                pp.pipeline_forward(fn, stages, x, mesh, axis="pod", stats=stats)
+                sync()
+                stats["seconds"] = time.perf_counter() - t0
+                runs.append(stats)
+        ticks = [t for r in runs for t in r["tick_seconds"]]
+        tick_s = sum(ticks)
+        meta = {"backend": dist.get_backend(), "world": dist.get_world_size(), "rank": rank,
+                "device": str(x.device), "stage": mesh.get_local_rank("pod"),
+                "stage_leaf_local_shape": list(leaves(stages)[0].to_local().shape),
+                "launches": ops.launch_counts(),
+                "ticks": runs[0]["ticks"], "bubble_fraction": runs[0]["bubble_fraction"],
+                "run_ms": [r["seconds"] * 1e3 for r in runs],
+                "ms_per_tick_median": float(np.median(ticks)) * 1e3,
+                "staging_share": sum(r["staging_seconds"] for r in runs) / tick_s,
+                "compute_share": sum(r["compute_seconds"] for r in runs) / tick_s}
+        np.savez(os.path.join(workdir, "dist", f"{name}{rank}.npz"), out=out.cpu().numpy(),
+                 meta=np.array(json.dumps(meta)))
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_pp(torch, device, smi, workdir) -> None:
+    """minicpm-2b's block stack as a PP_STAGES-stage GPipe pipeline on two
+    gloo ranks sharing the card (hops staged through the host), against
+    this process's stack forward of the same layers."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    os.makedirs(os.path.join(workdir, "dist"), exist_ok=True)
+    cfg, blocks, x = pp_setup(torch, device)
+    with torch.no_grad():
+        want = pp_stack(cfg)(blocks, x.reshape(-1, *x.shape[2:])).reshape(x.shape)
+    want = want.cpu().numpy()
+    del blocks, x
+    ranks = run_world("pp", PP_STAGES, "gloo", device.type, workdir, target=pp_rank)
+    got = ranks[0]["out"]
+    for r, res in enumerate(ranks[1:], 1):
+        require(np.array_equal(res["out"], got), f"pp: rank {r}'s output differs from rank 0's")
+    err = float(np.abs(got - want).max())
+    require(np.allclose(got, want, rtol=PP_TOL, atol=PP_TOL),
+            f"pp: the pipeline's output is {err} from the stack forward's")
+    metas = [r["meta"] for r in ranks]
+    for m in metas:
+        require(not any(m["launches"].values()),
+                f"pp rank {m['rank']} launched {m['launches']}; its attention is the oracle")
+    emit({"phase": "pp", "arch": TRAIN_ARCH, "layers": PP_LAYERS, "stages": PP_STAGES,
+          "microbatches": PP_MICROBATCHES, "microbatch": list(PP_MICROBATCH),
+          "d_model": cfg.d_model, "compute_dtype": cfg.compute_dtype,
+          "reduced": [f"n_layers 40 -> {PP_LAYERS} (every width kept)"],
+          "max_abs_err": err, "max_abs_want": float(np.abs(want).max()), "tol": PP_TOL,
+          "bubble_fraction": metas[0]["bubble_fraction"], "ranks": metas,
+          "seconds": time.perf_counter() - t0,
+          "not_shown": "NCCL collectives across cards: two gloo ranks share one card, "
+                       "each hop copied through the host",
+          "name_power_limit": smi})
 
 
 FIT_STEP_SHAPE = (8192, 10, 18, 10)  # B, T (PEMS-SF's d'), H, R of the MEDIUM fit
@@ -4209,6 +4576,8 @@ def main() -> int:
         family_launches = phase_families(torch, device)
         train_launches = phase_train_all(torch, device, smi, workdir)
         dist_launches = phase_dist(torch, device, smi, workdir)
+        phase_tp(torch, device, smi, workdir)
+        phase_pp(torch, device, smi, workdir)
         simt_lstm = lstm_simt_timing(torch, device, lstm_simt_launches, errs)
         from repro_torch.kernels import lstm as _lstm
         from repro_torch.kernels import tt_contract as _tt

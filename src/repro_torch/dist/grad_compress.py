@@ -15,6 +15,11 @@ Per leaf the arithmetic is the reference's: ``torch.round`` rounds half to
 even as ``jnp.round`` does, and ``TopK`` keeps every entry at least as
 large as the k-th magnitude (``torch.topk``'s k-th value is
 ``lax.top_k``'s), so ties keep more than k entries in both packages.
+
+On ``DTensor`` leaves (a mesh) the int8 scale is ``max|g|`` of the whole
+leaf, reduced over its shards, and top-k's threshold is over the whole
+leaf: DTensor has no ``topk`` over a sharded dim, so the leaf's
+magnitudes are replicated before it (an all-gather of each leaf).
 """
 from __future__ import annotations
 
@@ -22,13 +27,14 @@ import math
 
 import torch
 
+from repro_torch.dist.sharding import replicate
 from repro_torch.optim.optimizers import tree_map
 
 F32 = torch.float32
 
 
 def _zeros_like_f32(tree):
-    return tree_map(lambda p: torch.zeros(p.shape, dtype=F32, device=p.device), tree)
+    return tree_map(lambda p: torch.zeros_like(p, dtype=F32), tree)
 
 
 def _map_unzip(fn, grads, state):
@@ -51,7 +57,7 @@ class ErrorFeedbackInt8:
     @staticmethod
     def _leaf(g, e):
         acc = g.to(F32) + e
-        scale = torch.max(torch.abs(acc)) / 127.0
+        scale = replicate(torch.max(torch.abs(acc))) / 127.0
         q = torch.round(acc / torch.where(scale > 0, scale, torch.ones_like(scale)))
         q = torch.clamp(q, -127, 127).to(torch.int8)
         deq = (q.to(F32) * scale).to(g.dtype)
@@ -77,7 +83,7 @@ class TopK:
     def _leaf(self, g, e):
         acc = g.to(F32) + e
         k = max(1, math.ceil(acc.numel() * self.fraction))
-        thresh = torch.topk(torch.abs(acc).reshape(-1), k).values[-1]
+        thresh = torch.topk(replicate(torch.abs(acc)).reshape(-1), k).values[-1]
         kept = torch.where(torch.abs(acc) >= thresh, acc, torch.zeros_like(acc)).to(g.dtype)
         return kept, acc - kept.to(F32)
 

@@ -28,7 +28,14 @@ splits major to minor in the mesh's order, so a tuple in another order
 raises.
 
 ``shard`` is an identity outside a ``sharding_ctx``; inside one it
-redistributes a ``DTensor`` to the resolved placements.
+redistributes a ``DTensor`` to the resolved placements.  A context on a
+``DeviceMesh`` also treats the plain tensors that code inside it makes
+(positions, masks, the optimizer's scalars) as replicated, DTensor's
+``implicit_replication``: the models run unchanged on ``DTensor`` params.
+
+``device_put`` is JAX's ``device_put(tree, shardings)``: a tree of tensors
+and a matching tree of ``NamedSharding`` become ``DTensor``s on their
+mesh and placements.
 
 ``materialize`` turns a spec tree into tensors on one device, each leaf
 drawn from its own ``torch.Generator`` seeded from ``(seed,
@@ -40,6 +47,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import math
+import sys
 import threading
 import zlib
 from typing import Any, Callable
@@ -298,17 +306,102 @@ _CTX = threading.local()
 
 @contextlib.contextmanager
 def sharding_ctx(mesh, rules: dict):
-    """Bind (mesh, rules) for the ``shard`` constraints run inside."""
+    """Bind (mesh, rules) for the ``shard`` constraints run inside; on a
+    ``DeviceMesh``, plain tensors meeting ``DTensor``s count as replicated."""
     prev = getattr(_CTX, "val", None)
     _CTX.val = (mesh, dict(rules))
     try:
-        yield
+        with contextlib.ExitStack() as stack:
+            if hasattr(mesh, "mesh_dim_names"):
+                from torch.distributed.tensor.experimental import implicit_replication
+
+                stack.enter_context(implicit_replication())
+            yield
     finally:
         _CTX.val = prev
 
 
 def current_ctx() -> tuple[Any, dict] | None:
     return getattr(_CTX, "val", None)
+
+
+def is_dtensor(x) -> bool:
+    """True for a ``DTensor``.  None exists before DTensor's module is
+    imported, so the one-device path (every model layer asks) neither
+    imports it nor pays more than a dict lookup."""
+    dtensor = sys.modules.get("torch.distributed.tensor")
+    return dtensor is not None and isinstance(x, dtensor.DTensor)
+
+
+def replicate(x: torch.Tensor) -> torch.Tensor:
+    """A ``DTensor`` redistributed whole onto every rank of its mesh (still
+    a ``DTensor``); a plain tensor as it is."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate
+
+    return x.redistribute(x.device_mesh, [Replicate()] * x.device_mesh.ndim)
+
+
+class Shards:
+    """Per-shard work on ``DTensor``s whose mesh dims split only dims that
+    the work keeps apart (the batch of per-sequence work, or the heads of
+    attention), written on plain tensors: DTensor's own rules for such
+    work (gathers, scatters, padding, einsums over several split dims)
+    differ between torch releases and fail on some.
+
+    ``split`` is, per mesh dim of ``mesh``, the tensor dim it splits or
+    None.  ``local(t, dims)`` is this rank's shard of ``t``: ``dims`` maps
+    a dim of ``split`` to ``t``'s dim (identity where absent), or to None
+    where ``t`` lacks it, and every other mesh dim is replicated.  A ``t``
+    whole along a split mesh dim (a weight) gets a gradient summed over it,
+    each rank having seen only its shard of the work.  ``mesh_tensor``
+    wraps a shard back, ``weight`` is a whole ``t`` (all dims mapped to
+    None).  All three are differentiable."""
+
+    def __init__(self, mesh, split: tuple[int | None, ...]):
+        self.mesh, self.split = mesh, tuple(split)
+
+    def _placements(self, dims: dict | None, grad: bool = False) -> list:
+        from torch.distributed.tensor import Partial, Replicate, Shard
+
+        out = []
+        for d in self.split:
+            td = None if d is None else (dims or {}).get(d, d)
+            out.append(Shard(td) if td is not None
+                       else Partial() if d is not None and grad else Replicate())
+        return out
+
+    def local(self, t: torch.Tensor, dims: dict | None = None) -> torch.Tensor:
+        return t.redistribute(self.mesh, self._placements(dims)).to_local(
+            grad_placements=self._placements(dims, grad=True))
+
+    def mesh_tensor(self, t: torch.Tensor, dims: dict | None = None) -> torch.Tensor:
+        from torch.distributed.tensor import DTensor
+
+        return DTensor.from_local(t.contiguous(), self.mesh, self._placements(dims),
+                                  run_check=False)
+
+    def weight(self, w: torch.Tensor) -> torch.Tensor:
+        return self.local(w, {d: None for d in self.split if d is not None})
+
+
+def batch_shards(x: torch.Tensor) -> Shards | None:
+    """The ``Shards`` of ``x``'s batch (dim 0) split, or None for a plain
+    tensor."""
+    if not is_dtensor(x):
+        return None
+    return Shards(x.device_mesh, tuple(0 if p.is_shard(0) else None for p in x.placements))
+
+
+def on_batch_shards(fn, x: torch.Tensor, *weights: torch.Tensor) -> torch.Tensor:
+    """``fn(x, *weights)``, per-sequence work whose output keeps ``x``'s
+    batch dim, on each rank's batch shard of a ``DTensor`` ``x`` (a plain
+    ``x``: ``fn`` itself)."""
+    shards = batch_shards(x)
+    if shards is None:
+        return fn(x, *weights)
+    return shards.mesh_tensor(fn(shards.local(x), *(shards.weight(w) for w in weights)))
 
 
 def shard(x: torch.Tensor, *axes: str | None) -> torch.Tensor:
@@ -337,6 +430,34 @@ def shard(x: torch.Tensor, *axes: str | None) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # spec-tree operations
 # ---------------------------------------------------------------------------
+def distribute(t: torch.Tensor, target: NamedSharding) -> torch.Tensor:
+    """``t``, the same whole tensor on every rank, as a ``DTensor`` on
+    ``target``'s mesh and placements: each rank keeps its own chunk, with
+    no communication.  A ``DTensor`` is redistributed instead."""
+    from torch.distributed.tensor import distribute_tensor
+
+    mesh = target.mesh
+    if is_dtensor(t):
+        return t.redistribute(mesh, target.placements)
+    return distribute_tensor(t.to(mesh.device_type), mesh, target.placements,
+                             src_data_rank=None)
+
+
+def device_put(tree, shardings):
+    """JAX's ``device_put(tree, shardings)``: every leaf of a tree of dicts
+    and NamedTuples laid out by the ``NamedSharding`` at its place in
+    ``shardings`` (same structure), or by ``shardings`` itself where it is
+    one ``NamedSharding``.  Each rank must hold the same whole leaves, as
+    ``materialize`` from one seed gives them."""
+    one = isinstance(shardings, NamedSharding)
+    if isinstance(tree, dict):
+        return {k: device_put(v, shardings if one else shardings[k]) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(device_put(getattr(tree, f), shardings if one
+                                       else getattr(shardings, f)) for f in tree._fields))
+    return distribute(tree, shardings)
+
+
 def tree_shardings(mesh, specs, rules: dict):
     """ParamSpec tree -> ``NamedSharding`` tree (divisibility-checked)."""
     return map_with_path(
@@ -396,15 +517,22 @@ def _leaf_seed(seed: int, path: str) -> int:
     return ((seed & 0xFFFFFFFF) << 32) | zlib.crc32(path.encode())
 
 
-def materialize(seed: int, specs, dtype: torch.dtype, device: torch.device):
+def materialize(seed: int, specs, dtype: torch.dtype, device: torch.device,
+                shardings=None):
     """ParamSpec tree -> real weights on ``device``, each leaf built in its
-    final dtype there (no host copy of the tree)."""
+    final dtype there (no host copy of the tree).  Given ``shardings`` (a
+    ``NamedSharding`` tree of the same structure), each leaf is laid out on
+    its mesh as soon as it is drawn (``distribute``): every rank draws the
+    same whole leaf from the seed and keeps its own chunk, one leaf at a
+    time."""
     device = torch.device(device)
+    targets = None if shardings is None else keyed_leaves(shardings)
 
     def init_at(path: str, spec: ParamSpec):
         gen = None
         if spec.init not in ("zeros", "ones"):
             gen = torch.Generator(device=device).manual_seed(_leaf_seed(seed, path))
-        return _init_leaf(gen, spec, spec.dtype or dtype, device)
+        leaf = _init_leaf(gen, spec, spec.dtype or dtype, device)
+        return leaf if targets is None else distribute(leaf, targets[path])
 
     return map_with_path(init_at, specs)

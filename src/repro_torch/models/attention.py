@@ -12,7 +12,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.dist.sharding import ParamSpec
+from repro_torch.dist.sharding import ParamSpec, Shards, is_dtensor, shard
 from repro_torch.kernels import ops
 from repro_torch.models import layers
 
@@ -45,6 +45,28 @@ def _out(o: torch.Tensor, wo: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
     return o.reshape(*o.shape[:-2], h * k) @ wo.to(dt).reshape(h * k, d)
 
 
+def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, impl: str,
+            **kw) -> torch.Tensor:
+    """``ops.attention``; on ``DTensor``s (a mesh), on each rank's shard.
+
+    Attention is independent per sequence and per head, so a mesh dim that
+    splits the batch, or the heads, of q, k and v alike keeps its split;
+    every other one is replicated first (the sequence: its causal mask
+    needs the whole of k).  Equal splits of q's and the KV heads keep each
+    q head beside its KV head.  DTensor cannot run the oracle's einsum on
+    its own where batch and heads are both split (it would flatten two
+    sharded dims into one); ``kv_len`` (decode) keeps the batch whole.
+    """
+    if not is_dtensor(q):
+        return ops.attention(q, k, v, impl=impl, **kw)
+    kept = (0, 2) if kw.get("kv_len") is None else (2,)
+    shards = Shards(q.device_mesh, tuple(
+        pq.dim if pq == pk == pv and pq.is_shard() and pq.dim in kept else None
+        for pq, pk, pv in zip(q.placements, k.placements, v.placements)))
+    out = ops.attention(shards.local(q), shards.local(k), shards.local(v), impl=impl, **kw)
+    return shards.mesh_tensor(out)
+
+
 def _qkv(p: dict, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor, dt):
     q = _proj(x, p["wq"], dt)
     k = _proj(x, p["wk"], dt)
@@ -55,6 +77,11 @@ def _qkv(p: dict, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor, dt
         v = v + p["bv"].to(dt)
     q = layers.rope(q, positions, cfg.rope_theta)
     k = layers.rope(k, positions, cfg.rope_theta)
+    # 'seq_attn' is None by default; rules map it to 'model' for archs
+    # whose head count cannot take the TP axis (context-parallel attention)
+    q = shard(q, "batch", "seq_attn", "heads", "head_dim")
+    k = shard(k, "batch", "seq", "kv_heads", "head_dim")
+    v = shard(v, "batch", "seq", "kv_heads", "head_dim")
     return q, k, v
 
 
@@ -63,7 +90,8 @@ def self_attention(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     dt = x.dtype
     positions = torch.arange(x.shape[1], device=x.device)
     q, k, v = _qkv(p, x, cfg, positions, dt)
-    out = ops.attention(q, k, v, causal=True, impl=cfg.attn_impl)
+    out = _attend(q, k, v, cfg.attn_impl, causal=True)
+    out = shard(out, "batch", "seq_attn", "heads", "head_dim")
     return _out(out, p["wo"], dt)
 
 
@@ -76,9 +104,10 @@ def prefill_attention(
     s = x.shape[1]
     positions = torch.arange(s, device=x.device)
     q, k, v = _qkv(p, x, cfg, positions, dt)
-    out = ops.attention(q, k, v, causal=True, impl=cfg.attn_impl)
+    out = _attend(q, k, v, cfg.attn_impl, causal=True)
     cache["k"][:, :s] = k
     cache["v"][:, :s] = v
+    out = shard(out, "batch", "seq", "heads", "head_dim")
     return _out(out, p["wo"], dt), cache
 
 
@@ -96,10 +125,9 @@ def decode_attention(
     cache["k"][:, cache_len : cache_len + 1] = k
     cache["v"][:, cache_len : cache_len + 1] = v
     kv_len = torch.full((x.shape[0],), cache_len + 1, dtype=torch.int32, device=x.device)
-    out = ops.attention(
-        q, cache["k"].to(dt), cache["v"].to(dt), causal=False, kv_len=kv_len,
-        impl="ref",  # single-query path: the oracle, as in the reference
-    )
+    # single-query path: the oracle, as in the reference
+    out = _attend(q, cache["k"].to(dt), cache["v"].to(dt), "ref", causal=False, kv_len=kv_len)
+    out = shard(out, "batch", "seq", "heads", "head_dim")
     return _out(out, p["wo"], dt), cache
 
 

@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.dist.sharding import ParamSpec
+from repro_torch.dist.sharding import ParamSpec, Shards, is_dtensor, shard
 
 F32 = torch.float32
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
@@ -65,7 +65,8 @@ def mlp_specs(d: int, f: int, stacked: tuple[int, ...] = ()) -> dict:
 def mlp(p: dict, x: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
     h = x @ p["w_gate"].to(compute_dtype)
     u = x @ p["w_up"].to(compute_dtype)
-    return (torch.nn.functional.silu(h) * u) @ p["w_down"].to(compute_dtype)
+    h = shard(torch.nn.functional.silu(h) * u, "batch", "seq", "mlp")
+    return h @ p["w_down"].to(compute_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -89,7 +90,29 @@ def embed_specs(vocab: int, d: int, tie: bool) -> dict:
 def embed_lookup(p: dict, tokens: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
     # gather the rows, then cast them: the same values as casting the whole
     # [vocab, d] table first, as the reference does
+    if is_dtensor(p["embed"]):
+        return _embed_lookup_on_mesh(p["embed"], tokens).to(compute_dtype)
     return p["embed"][tokens].to(compute_dtype)
+
+
+def _embed_lookup_on_mesh(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """The gather from a vocab-sharded ``DTensor`` table.  DTensor's own
+    rules fail here: a gather from the sharded table makes a MaskPartial
+    whose backward fails, and from a replicated table the gradient's
+    ``index_put`` has no working rule on every torch release.  So the table
+    is replicated (an all-gather of it, and a reduce-scatter of its
+    gradient: the simplest exact route; a masked local gather plus an
+    all-reduce would move only the rows) and each rank gathers its own
+    tokens' rows (``dist.sharding.Shards``): the rows keep the tokens'
+    split, and the table's gradient sums over it."""
+    mesh = table.device_mesh
+    if is_dtensor(tokens):
+        split = tuple(p.dim if p.is_shard() else None for p in tokens.placements)
+        tokens = tokens.to_local()
+    else:  # a plain tensor under a mesh is the same on every rank
+        split = (None,) * mesh.ndim
+    shards = Shards(mesh, split)
+    return shards.mesh_tensor(shards.weight(table)[tokens])
 
 
 def unembed(p: dict, x: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
@@ -97,7 +120,7 @@ def unembed(p: dict, x: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tenso
         w = p["unembed"].to(compute_dtype)
     else:
         w = p["embed"].to(compute_dtype).T
-    return x @ w
+    return shard(x @ w, "batch", "seq", "vocab")
 
 
 # ---------------------------------------------------------------------------
@@ -113,5 +136,12 @@ def softmax_xent(
         mask = torch.arange(logits.shape[-1], device=logits.device) < valid_vocab
         logits = torch.where(mask, logits, -1e30)
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    if is_dtensor(logits):
+        # vocab-sharded logits: DTensor's gather over the sharded dim fails
+        # as the embedding's does; the one-hot sum picks the same value
+        # (every other term is 0) and reduces over the shards exactly
+        hit = torch.arange(logits.shape[-1], device=logits.device) == labels[..., None]
+        gold = torch.where(hit, logits, 0.0).sum(-1)
+    else:
+        gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
     return (logz - gold).mean()

@@ -22,7 +22,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.dist.sharding import ParamSpec
+from repro_torch.dist.sharding import (ParamSpec, Shards, batch_shards, is_dtensor,
+                                       on_batch_shards, shard)
 from repro_torch.models import layers
 
 F32 = torch.float32
@@ -91,7 +92,7 @@ def _ssd_chunked(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Chunked SSD.  Returns (y [B,S,H,P], final state [B,H,P,N] f32)."""
     bs, s_in, nh, hp = x.shape
-    g = cfg.ssm_groups
+    g = b.shape[2]
     q = min(cfg.ssm_chunk, s_in)
     pad = (-s_in) % q
     if pad:
@@ -149,8 +150,31 @@ def _ssd_chunked(
     return y.to(x.dtype), h
 
 
+def _ssd_on_shards(x, dt, a, b, c, cfg: ModelConfig):
+    """``_ssd_chunked`` of ``DTensor`` operands on each rank's shard: the
+    SSD is independent per sequence and per head, so the mesh dims that
+    split x's batch or heads keep their split (dt and a alike; each
+    group's B and C repeated over its heads, then split alike) and every
+    other one is replicated.  DTensor's own rules for the chunked einsums
+    fail on some torch releases."""
+    shards = Shards(x.device_mesh, tuple(p.dim if p.is_shard() and p.dim in (0, 2) else None
+                                         for p in x.placements))
+    rows = batch_shards(b)
+    rep = x.shape[2] // b.shape[2]
+
+    def per_head(t):  # [B, S, G, N] -> this rank's [B, S, H, N] shard
+        return shards.local(rows.mesh_tensor(rows.local(t).repeat_interleave(rep, dim=2)))
+
+    y, h = _ssd_chunked(shards.local(x), shards.local(dt), shards.local(a, {0: None, 2: 0}),
+                        per_head(b), per_head(c), cfg)
+    return shards.mesh_tensor(y), shards.mesh_tensor(h, {2: 1})
+
+
 def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Depthwise causal conv over [B, S, C] with kernel [K, C]."""
+    """Depthwise causal conv over [B, S, C] with kernel [K, C]; a
+    ``DTensor`` xbc on each rank's batch shard."""
+    if is_dtensor(xbc):
+        return on_batch_shards(_causal_conv, xbc, w, b)
     k, s = w.shape[0], xbc.shape[1]
     pad = F.pad(xbc, (0, 0, k - 1, 0))
     out = sum(pad[:, i : i + s, :] * w[i] for i in range(k))
@@ -158,7 +182,10 @@ def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.T
 
 
 def _conv_tail(xbc: torch.Tensor, k: int) -> torch.Tensor:
-    """The last k-1 conv inputs of [B, S, C], zeros before the first."""
+    """The last k-1 conv inputs of [B, S, C], zeros before the first; a
+    ``DTensor`` xbc on each rank's batch shard."""
+    if is_dtensor(xbc):
+        return on_batch_shards(lambda t: _conv_tail(t, k), xbc)
     s = xbc.shape[1]
     if s < k - 1:
         xbc = F.pad(xbc, (0, 0, k - 1 - s, 0))
@@ -184,11 +211,13 @@ def mamba_forward(
         s = xin.shape[1]
         conv_out = _causal_conv(xbc, p["conv_w"].to(dt_c), p["conv_b"].to(dt_c))
         x, b, c = _split_xbc(conv_out, cfg)
-        x = x.reshape(bs, s, d["n_heads"], cfg.ssm_head_dim)
+        x = shard(x.reshape(bs, s, d["n_heads"], cfg.ssm_head_dim),
+                  "batch", "seq", "ssm_heads", "ssm_head_dim")
         b = b.reshape(bs, s, cfg.ssm_groups, cfg.ssm_state)
         c = c.reshape(bs, s, cfg.ssm_groups, cfg.ssm_state)
         dt = F.softplus(dt_raw.to(F32) + p["dt_bias"].to(F32))
-        y, h_final = _ssd_chunked(x, dt, a, b, c, cfg)
+        ssd = _ssd_on_shards if is_dtensor(x) else _ssd_chunked
+        y, h_final = ssd(x, dt, a, b, c, cfg)
         y = y + x * p["d_skip"].to(dt_c)[:, None]
         y = y.reshape(bs, s, d["d_in"])
         new_state = {"conv": _conv_tail(xbc, cfg.ssm_conv).to(dt_c), "ssm": h_final}

@@ -30,12 +30,14 @@ def param_specs(cfg: ModelConfig) -> dict:
     return transformer.param_specs(cfg)
 
 
-def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
+def init_params(cfg: ModelConfig, seed: int = 0, device=None, shardings=None) -> dict:
     """Random weights from ``seed``, each leaf built in ``cfg.param_dtype``
-    on ``device`` (CUDA unless given)."""
+    on ``device`` (CUDA unless given); given ``shardings`` (the
+    ``train.step.param_shardings`` tree), each leaf a ``DTensor`` laid out
+    by them, the same values as on one device."""
     return sharding.materialize(
-        seed, param_specs(cfg), layers.dtype_of(cfg.param_dtype), resolve_device(device)
-    )
+        seed, param_specs(cfg), layers.dtype_of(cfg.param_dtype), resolve_device(device),
+        shardings)
 
 
 def abstract_params(cfg: ModelConfig) -> dict:
@@ -67,8 +69,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, long_ctx: bool = Fals
 def _embed_in(params, cfg: ModelConfig, tokens, embeds):
     dt = layers.dtype_of(cfg.compute_dtype)
     if embeds is not None:
-        return embeds.to(dt)
-    return layers.embed_lookup(params["tok"], tokens, dt)
+        x = embeds.to(dt)
+    else:
+        x = layers.embed_lookup(params["tok"], tokens, dt)
+    return sharding.shard(x, "batch", "seq", "act_embed")
 
 
 def forward(params, cfg: ModelConfig, tokens=None, embeds=None):

@@ -23,7 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.dist.sharding import ParamSpec
+from repro_torch.dist.sharding import ParamSpec, batch_shards, shard
 
 
 def moe_specs(cfg: ModelConfig, stacked: tuple[int, ...] = ()) -> dict:
@@ -91,39 +91,71 @@ def dispatch(gate_idx: torch.Tensor, cap: int, e: int):
     return order, tok_s, slot, in_cap
 
 
+def _shard_experts(t: torch.Tensor, g: int, last: str) -> torch.Tensor:
+    """The reference's constraint on its [G, E, C, X] expert tensors, with
+    the same four logical axes, on the port's [E, G*C, X] layout of them
+    (seen as [E, G, C, X], a view without a transpose)."""
+    e, gc, x = t.shape
+    return shard(t.reshape(e, g, gc // g, x),
+                 "experts", "moe_group", "capacity", last).reshape(e, gc, x)
+
+
 def moe_ffn(p: dict, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
-    """x: [B, S, d] -> (y: [B, S, d], aux_loss scalar f32)."""
+    """x: [B, S, d] -> (y: [B, S, d], aux_loss scalar f32).
+
+    Under a mesh (``DTensor`` x) the routing, dispatch and combine, which
+    are per group, run on each rank's batch shard (``dist.sharding.Shards``;
+    DTensor's own scatter and gather rules fail on some torch releases);
+    the expert products run on ``DTensor``s under the reference's
+    constraints."""
     dt = x.dtype
     b, s, d = x.shape
     e, k = cfg.moe_experts, cfg.moe_top_k
     g = b                       # one group per sequence
     cap = group_capacity(s, cfg)
+    shards = batch_shards(x)
+    router = p["router"]
+    if shards is not None:
+        x, router = shards.local(x), shards.weight(router)
+    g_l = x.shape[0]            # this rank's groups
 
-    probs, gate_vals, gate_idx = route(p, x, cfg)
+    probs, gate_vals, gate_idx = route({"router": router}, x, cfg)
 
     # ---- load-balance auxiliary loss (Switch: the first choice only) -----------
-    me = probs.mean(dim=(0, 1))
-    ce = F.one_hot(gate_idx[..., 0], e).to(torch.float32).mean(dim=(0, 1))
-    aux = e * torch.sum(me * ce)
+    first = F.one_hot(gate_idx[..., 0], e).to(torch.float32)
+    if shards is not None:  # the means are over every rank's tokens
+        probs, first = shards.mesh_tensor(probs), shards.mesh_tensor(first)
+    aux = e * torch.sum(probs.mean(dim=(0, 1)) * first.mean(dim=(0, 1)))
 
     # ---- grouped sort-based dispatch ----------------------------------------------
     order, tok_s, slot, in_cap = dispatch(gate_idx, cap, e)
-    gates_s = gate_vals.reshape(g, s * k).gather(1, order)
-    gidx = torch.arange(g, device=x.device)[:, None]
+    gates_s = gate_vals.reshape(g_l, s * k).gather(1, order)
+    gidx = torch.arange(g_l, device=x.device)[:, None]
     xs = x[gidx, tok_s]                                        # [G, Tg, d]
     # one spare row past the buffer takes every dropped slot, then goes
-    buf = x.new_zeros((g, e * cap + 1, d)).index_put((gidx, slot), xs)
-    xe = buf[:, : e * cap].reshape(g, e, cap, d).transpose(0, 1).reshape(e, g * cap, d)
+    buf = x.new_zeros((g_l, e * cap + 1, d)).index_put((gidx, slot), xs)
+    xe = buf[:, : e * cap].reshape(g_l, e, cap, d).transpose(0, 1).reshape(e, g_l * cap, d)
+    if shards is not None:
+        xe = shards.mesh_tensor(xe, {0: 1})
+    # under EP rules this constraint is the token all-to-all: xe leaves the
+    # moe_group sharding and lands expert-sharded
+    xe = _shard_experts(xe, g, "expert_in")
 
     # ---- expert SwiGLU: products batched over the experts ----------------------------
     h = torch.bmm(xe, p["w_gate"].to(dt))
     u = torch.bmm(xe, p["w_up"].to(dt))
-    ye = torch.bmm(F.silu(h) * u, p["w_down"].to(dt))          # [E, G*C, d]
-    ye = ye.reshape(e, g, cap, d).transpose(0, 1).reshape(g, e * cap, d)
+    h = _shard_experts(F.silu(h) * u, g, "expert_mlp")
+    ye = _shard_experts(torch.bmm(h, p["w_down"].to(dt)), g, "expert_in")  # [E, G*C, d]
+    if shards is not None:
+        ye = shards.local(ye, {0: 1})
+    ye = ye.reshape(e, g_l, cap, d).transpose(0, 1).reshape(g_l, e * cap, d)
 
     # ---- combine (un-sort + gate-weighted sum over the k slots) ----------------
     y_s = ye[gidx, torch.clamp_max(slot, e * cap - 1)]
     y_s = y_s * (gates_s * in_cap)[:, :, None].to(dt)
     flat = (gidx * s + tok_s).reshape(-1)
-    y = x.new_zeros((g * s, d)).index_add(0, flat, y_s.reshape(-1, d))
-    return y.reshape(b, s, d), aux
+    y = x.new_zeros((g_l * s, d)).index_add(0, flat, y_s.reshape(-1, d))
+    y = y.reshape(g_l, s, d)
+    if shards is not None:
+        y = shards.mesh_tensor(y)
+    return shard(y, "batch", "seq", "act_embed"), aux

@@ -38,7 +38,7 @@ import torch
 import torch.utils.checkpoint as torch_checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.dist.sharding import ParamSpec
+from repro_torch.dist.sharding import ParamSpec, shard
 from repro_torch.models import attention, layers, mamba, moe
 
 
@@ -164,7 +164,7 @@ def apply_block(
                 for name, leaf in st.items():
                     leaf.copy_(nst[name])
         idx[mixer] += 1
-        x = x + y
+        x = shard(x + y, "batch", "seq", "act_embed")
 
         if ffn:
             h = layers.rmsnorm(x, bp["ffn_norm"][idx["mlp"] + idx["moe"]], eps)
@@ -174,7 +174,7 @@ def apply_block(
                 y, a = moe.moe_ffn(_tree_index(bp["moe"], idx["moe"]), h, cfg)
                 aux = a if aux is None else aux + a
             idx[ffn] += 1
-            x = x + y
+            x = shard(x + y, "batch", "seq", "act_embed")
     return x, aux
 
 

@@ -13,6 +13,11 @@ is not used.  Each elementwise operation runs over all leaves at once
 (``torch._foreach_*``, the same f32 operation on each leaf), so an update
 costs a few launches rather than a few per leaf: the reference's jitted
 update is one XLA program.
+
+Under a mesh the leaves are ``DTensor``s (``dist.sharding.device_put``)
+and every operation above runs on them shard by shard: the moments take
+their params' placements, and the clip's norm is over whole leaves, each
+leaf's sum of squares reduced to a replicated scalar.
 """
 from __future__ import annotations
 
@@ -20,6 +25,8 @@ import dataclasses
 from typing import Any, Callable, NamedTuple
 
 import torch
+
+from repro_torch.dist.sharding import replicate
 
 F32 = torch.float32
 #: leaves updated together by ``apply_``; a larger leaf is a group alone
@@ -67,7 +74,7 @@ class Optimizer:
 
 
 def global_norm(tree) -> torch.Tensor:
-    leaves = [torch.sum(torch.square(x.to(F32))) for x in tree_leaves(tree)]
+    leaves = [replicate(torch.sum(torch.square(x.to(F32)))) for x in tree_leaves(tree)]
     return torch.sqrt(torch.sum(torch.stack(leaves)))
 
 
@@ -127,8 +134,8 @@ def adamw(
         device = tree_leaves(params)[0].device
         return AdamState(
             step=torch.zeros((), dtype=torch.int32, device=device),
-            mu=tree_map(lambda p: torch.zeros(p.shape, dtype=F32, device=p.device), params),
-            nu=tree_map(lambda p: torch.zeros(p.shape, dtype=F32, device=p.device), params),
+            mu=tree_map(lambda p: torch.zeros_like(p, dtype=F32), params),
+            nu=tree_map(lambda p: torch.zeros_like(p, dtype=F32), params),
         )
 
     def bias_scales(step: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

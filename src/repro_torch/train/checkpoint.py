@@ -41,6 +41,8 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.dist import sharding
+
 #: numpy's view of a bf16 leaf: what ``np.save`` writes for ml_dtypes' bfloat16
 _BF16_NP = np.dtype("V2")
 
@@ -82,12 +84,6 @@ def _unflatten_into(template, values: dict):
     return build(template, ())
 
 
-def _is_dtensor(leaf) -> bool:
-    from torch.distributed.tensor import DTensor
-
-    return isinstance(leaf, DTensor)
-
-
 def to_host(leaf) -> np.ndarray:
     """A leaf as the numpy array the reference would save (bf16: its bits
     as two-byte void elements), in memory of its own: a tensor on the CPU
@@ -95,7 +91,7 @@ def to_host(leaf) -> np.ndarray:
     ``DTensor`` is gathered whole first (a collective)."""
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach()
-        if _is_dtensor(t):
+        if sharding.is_dtensor(t):
             t = t.full_tensor()
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).to("cpu", copy=True).numpy().view(_BF16_NP)
@@ -140,7 +136,7 @@ class Checkpointer:
         # tree in place as soon as this returns
         flat = _flatten(tree)
         host = [(k, to_host(v), dtype_name(v)) for k, v in flat]
-        if any(_is_dtensor(v) for _, v in flat) and torch.distributed.get_rank() != 0:
+        if any(sharding.is_dtensor(v) for _, v in flat) and torch.distributed.get_rank() != 0:
             return  # rank 0 writes the gathered leaves
         if self.async_save:
             self._thread = threading.Thread(
@@ -222,18 +218,8 @@ class Checkpointer:
             if target is None:
                 values[key] = from_host(arr, meta["dtype"], devices[key])
             else:
-                values[key] = _distribute(from_host(arr, meta["dtype"], "cpu"), target)
+                values[key] = sharding.distribute(from_host(arr, meta["dtype"], "cpu"), target)
         return _unflatten_into(template, values), manifest
-
-
-def _distribute(t: torch.Tensor, target) -> torch.Tensor:
-    """``t``, whole on every rank, as a ``DTensor`` on ``target``'s mesh and
-    placements: each rank keeps its own chunk, with no communication."""
-    from torch.distributed.tensor import distribute_tensor
-
-    mesh = target.mesh
-    return distribute_tensor(t.to(mesh.device_type), mesh, target.placements,
-                             src_data_rank=None)
 
 
 def auto_resume(ckpt: Checkpointer, template, shardings=None):

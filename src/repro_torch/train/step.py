@@ -19,9 +19,19 @@ reference has no backward attention kernel.
 The sharding trees (``effective_rules``, ``batch_shardings``,
 ``param_shardings``, ``opt_shardings``, ``cache_shardings``) are the
 reference's, ``NamedSharding`` trees on a ``MeshShape`` or a
-``DeviceMesh``; the dry-run's rule check resolves them.  The steps above
-run on one device, every leaf whole: the tensor-parallel step that would
-run under those trees waits for ROADMAP A.9.
+``DeviceMesh``; the dry-run's rule check resolves them.
+
+The same steps run tensor- and data-parallel: inside
+``sharding_ctx(mesh, rules)`` on a ``DeviceMesh``, with the params and
+optimizer state laid out by ``param_shardings``/``opt_shardings`` and the
+batch by ``batch_shardings`` (``dist.sharding.device_put``), every leaf is
+a ``DTensor`` and DTensor's sharding rules run each operation on the
+shards; the models' ``shard`` constraints lay out the activations as the
+reference's do.  Gradients come back with their masters' placements and
+the metrics replicated.  Where DTensor has no rule the code redistributes
+in plain sight: the embedding table is replicated before its gather and
+the loss picks the gold logit by a one-hot sum (``models.layers``), and
+top-k compression replicates a leaf's magnitudes (``dist.grad_compress``).
 """
 from __future__ import annotations
 
@@ -80,7 +90,7 @@ def make_train_step(cfg: ModelConfig, opt, grad_transform=None):
         # before the update: the in-place update clips the grads it is given
         metrics["grad_norm"] = optimizers.global_norm(grads)
         opt_state = opt.apply_(grads, opt_state, params)
-        return params, opt_state, metrics
+        return params, opt_state, {k: sharding.replicate(v) for k, v in metrics.items()}
 
     return train_step
 

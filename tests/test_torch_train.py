@@ -432,10 +432,62 @@ def test_launcher_mmap_data(tmp_path):
     assert len(losses) == 3 and all(np.isfinite(losses))
 
 
-def test_launcher_refuses_a_mesh_and_a_missing_card(monkeypatch):
-    with pytest.raises(NotImplementedError, match="A.9"):
+def test_launcher_refuses_a_mesh_and_a_missing_card(monkeypatch, tmp_path):
+    import torch.distributed as dist
+
+    # outside a process group: one device only
+    with pytest.raises(ValueError, match="process group"):
         tlaunch.main(SMOKE + ["--steps", "1", "--mesh", "2x2"])
+    # inside one: the mesh must be the group's size
+    dist.init_process_group("gloo", store=dist.FileStore(str(tmp_path / "store"), 1),
+                            rank=0, world_size=1)
+    try:
+        with pytest.raises(ValueError, match="has 4 devices; the process group has 1"):
+            tlaunch.main(SMOKE + ["--steps", "1", "--mesh", "2x2"])
+    finally:
+        dist.destroy_process_group()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     argv = [a for a in SMOKE if a not in ("--device", "cpu")]
     with pytest.raises(RuntimeError, match="CUDA"):
         tlaunch.main(argv + ["--steps", "1"])
+
+
+MESH_BODY = """
+from repro_torch.launch import train as launcher
+from repro_torch.optim import optimizers
+
+
+def main():
+    run = launcher.run(ARGV)
+    full = optimizers.tree_map(lambda x: x.full_tensor(), run.params)
+    if RANK == 0:
+        np.savez(os.path.join(OUT, "mesh.npz"), losses=np.array(run.losses), **flatten(full))
+"""
+
+
+def test_launcher_mesh_2x2_matches_one_device(tmp_path):
+    """``--mesh 2x2`` in a 4-rank gloo world: the losses of the one-device
+    launcher over 3 steps (rtol 1e-4; the second and third read the
+    updated params), its params (atol 5e-4: a step at lr 3e-3 moves an
+    element by about 3e-3 whatever its gradient, so a zero or flipped
+    gradient reads more), and checkpoints of whole leaves that one device
+    restores."""
+    from torch_ranks import run_ranks
+
+    from repro_torch.train import checkpoint as ckpt_lib
+
+    ck = str(tmp_path / "ck")
+    argv = SMOKE + ["--steps", "3", "--lr", "3e-3"]
+    run_ranks(tmp_path, 4, f"ARGV = {argv + ['--mesh', '2x2', '--ckpt-dir', ck]!r}\n"
+              + MESH_BODY)
+    got = dict(np.load(tmp_path / "mesh.npz"))
+    want = tlaunch.run(argv)
+    np.testing.assert_allclose(got.pop("losses"), want.losses, rtol=1e-4)
+    flat = dict(ckpt_lib._flatten(want.params))
+    assert sorted(got) == sorted(flat)
+    for k, v in flat.items():
+        np.testing.assert_allclose(got[k], v.numpy(), rtol=0, atol=5e-4, err_msg=k)
+    restored, manifest = ckpt_lib.Checkpointer(ck).restore(None, {"params": want.params})
+    assert manifest["step"] == 3
+    for k, v in ckpt_lib._flatten(restored["params"]):
+        np.testing.assert_array_equal(v.numpy(), got[k], err_msg=k)
