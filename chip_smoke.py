@@ -294,6 +294,24 @@ Phases, each printing JSON lines:
    rtol = atol = 2e-4, the ranks' outputs bitwise equal; the bubble
    fraction, ms a tick and the host copies' share of the ticks.  Both
    print ``not_shown``: NCCL collectives across cards.
+   dryrun (``phase_dryrun``): the dry-run's cost pass held against the
+   card.  A spawned process (``dryrun_fake``, this process joins no
+   group) runs the cost passes in fake process groups: the ``tp``
+   configuration (minicpm-2b, full width, TP_LAYERS layers, batch 8 x 128)
+   on a 1 x 1 mesh, the codec's step at the MEDIUM widths with 8192
+   entries a device (impl "ref", the PEMS-SF replica's shape),
+   ``dryrun_codec.run`` on both production meshes at its defaults and
+   ``run_cell("mamba2-1.3b", "decode_32k", "single")``.  Meanwhile world
+   ``dryrun`` (one NCCL rank, a 1 x 1 mesh) runs the ``tp`` step for real
+   on ``DTensor``s: ``FlopCounterMode`` over it and
+   ``torch.cuda.max_memory_allocated`` over it, the arguments included.
+   The predicted FLOPs must be within 1 % of the counted, the predicted
+   peak within 25 % of the card's, the codec step's FLOPs within 1 % of
+   one real "ref" step on the card, and every cost cell ``ok``.
+   examples (``phase_examples``): the four port examples
+   (``examples/torch_*.py``) at their default sizes on the card, as
+   subprocesses started together; each must exit 0, and their printed
+   lines are recorded.
 9. timing: each kernel, its plain version and, where one exists, one
    PyTorch call computing the same function (cuDNN ``nn.LSTM`` for
    ``lstm_scan``, one ``torch.einsum`` over the whole chain for
@@ -4435,6 +4453,216 @@ def phase_pp(torch, device, smi, workdir) -> None:
           "name_power_limit": smi})
 
 
+DRYRUN_FLOPS_RTOL = 0.01            # the cost pass's FLOPs against the card's count
+DRYRUN_PEAK_RTOL = 0.25             # its peak against torch.cuda.max_memory_allocated
+DRYRUN_CODEC = dict(rank=10, hidden=18, entries=8192)  # MEDIUM widths, entries a step
+DRYRUN_SINGLE_DP = 16               # the single mesh's data-parallel ranks
+EXAMPLES = ("torch_quickstart.py", "torch_serve_llm.py", "torch_train_lm.py",
+            "torch_compressed_checkpoint.py")
+EXAMPLE_TIMEOUT = 420               # seconds an example may take, start-up included
+
+
+def dryrun_fake(workdir: str) -> None:
+    """Phase dryrun's cost passes, in fake process groups of this spawned
+    process; writes ``workdir/dist/dryrun_fake.json``."""
+    from repro_torch import configs
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun, dryrun_codec
+    from repro_torch.launch import mesh as mesh_lib
+
+    out = {}
+    t0 = time.perf_counter()
+    dryrun.fake_world(1)
+    with depth_cut(configs, TP_LAYERS):
+        cfg = configs.get(TRAIN_ARCH)
+    shape = ShapeConfig("tp", TP_GRAD_BATCH[1], TP_GRAD_BATCH[0], "train")
+    out["tp"] = dryrun.cost_cell(TRAIN_ARCH, shape, mesh_lib.make_debug_mesh(1, 1, device="cpu"),
+                                 "base", cfg=cfg)
+    out["tp"]["seconds"] = time.perf_counter() - t0
+    c = DRYRUN_CODEC
+    out["codec_step"] = dryrun_codec.run("single", "ref", c["entries"] * DRYRUN_SINGLE_DP, 1,
+                                         c["rank"], c["hidden"], PEMS_SHAPE, verbose=False)
+    for mesh in ("single", "multi"):
+        t0 = time.perf_counter()
+        out[f"codec_{mesh}"] = dryrun_codec.run(mesh, "ref", 1 << 20, 4, 8, 16, verbose=False)
+        out[f"codec_{mesh}"]["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["mamba"] = dryrun.run_cell("mamba2-1.3b", "decode_32k", "single", verbose=False)
+    out["mamba"]["seconds"] = time.perf_counter() - t0
+    with open(os.path.join(workdir, "dist", "dryrun_fake.json"), "w") as f:
+        json.dump(out, f)
+
+
+def dryrun_rank(rank: int, world: int, backend: str, device_type: str, workdir: str,
+                name: str) -> None:
+    """World ``dryrun``'s rank: phase tp's step (minicpm-2b cut to
+    TP_LAYERS, a TP_GRAD_BATCH batch) on ``DTensor``s of a 1 x 1 mesh,
+    once to warm up and once under ``FlopCounterMode`` with the peak
+    memory reset before it; writes the count and the peak."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch import configs
+    from repro_torch.dist import sharding
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import model
+    from repro_torch.optim import optimizers
+    from repro_torch.train import step as step_lib
+
+    device = _join_group(torch, rank, world, backend, device_type, workdir, name)
+    try:
+        mesh = mesh_lib.make_debug_mesh(1, 1, device=device_type)
+        rules = sharding.BASE_RULES
+        with depth_cut(configs, TP_LAYERS):
+            cfg = configs.get(TRAIN_ARCH)
+        tokens = torch.as_tensor(np.random.default_rng(SEED).integers(0, cfg.vocab,
+                                                                      TP_GRAD_BATCH),
+                                 dtype=torch.int32, device=device)
+        batch = sharding.device_put({"tokens": tokens, "labels": torch.roll(tokens, -1, 1)},
+                                    step_lib.batch_shardings(mesh, cfg, {"tokens": 0,
+                                                                         "labels": 0}, rules))
+        params = model.init_params(cfg, SEED, device, step_lib.param_shardings(mesh, cfg, rules))
+        opt = optimizers.adamw(TRAIN_LR, weight_decay=0.1, max_grad_norm=1.0)
+        state = sharding.device_put(opt.init(params), step_lib.opt_shardings(mesh, cfg, rules))
+        step = step_lib.make_train_step(cfg, opt)
+        with sharding.sharding_ctx(mesh, rules):
+            step(params, state, batch)
+            _peak_reset(torch, device)
+            before = torch.cuda.memory_allocated() if device.type == "cuda" else 0
+            with FlopCounterMode(display=False) as counter:
+                step(params, state, batch)
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+        meta = {"flops": counter.get_total_flops(), "peak_bytes": _peak(torch, device),
+                "allocated_before_bytes": before, "world": dist.get_world_size(),
+                "backend": dist.get_backend()}
+        np.savez(os.path.join(workdir, "dist", f"{name}{rank}.npz"),
+                 meta=np.array(json.dumps(meta)))
+    finally:
+        dist.destroy_process_group()
+
+
+def codec_step_flops(torch, device) -> int:
+    """``FlopCounterMode``'s count over one real "ref" step of the NTTD fit
+    at the MEDIUM widths, DRYRUN_CODEC's entries of the PEMS-SF shape."""
+    import numpy as np
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.core import codec as codec_lib
+    from repro_torch.core import nttd
+    from repro_torch.core.folding import make_folding_spec
+    from repro_torch.optim import optimizers
+
+    c = DRYRUN_CODEC
+    spec = make_folding_spec(PEMS_SHAPE)
+    cfg = nttd.NTTDConfig(rank=c["rank"], hidden=c["hidden"], kernel_impl="ref")
+    params = nttd.init_params(torch.Generator().manual_seed(SEED), spec, cfg, device)
+    opt = optimizers.adam(1e-2)
+    rng = np.random.default_rng(SEED)
+    pos = torch.as_tensor(np.stack([rng.integers(0, s, c["entries"]) for s in PEMS_SHAPE], 1),
+                          device=device)
+    vals = torch.as_tensor(rng.random(c["entries"]), dtype=torch.float32, device=device)
+    with FlopCounterMode(display=False) as counter:
+        codec_lib._make_train_step(spec, cfg, opt)(params, opt.init(params), pos, vals)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    return counter.get_total_flops()
+
+
+def phase_dryrun(torch, device, smi, workdir) -> None:
+    """The cost pass's FLOPs and peak against the card's readings (world
+    ``dryrun``), the codec step's FLOPs against a real step, and the cost
+    cells of ``dryrun_fake``, which runs beside the world."""
+    import multiprocessing
+
+    t0 = time.perf_counter()
+    os.makedirs(os.path.join(workdir, "dist"), exist_ok=True)
+    fake = multiprocessing.get_context("spawn").Process(target=dryrun_fake, args=(workdir,))
+    fake.start()
+    try:
+        backend = "nccl" if device.type == "cuda" else "gloo"
+        (res,) = run_world("dryrun", 1, backend, device.type, workdir, target=dryrun_rank)
+        codec_flops = codec_step_flops(torch, device)
+        fake.join(DIST_TIMEOUT)
+    finally:
+        if fake.is_alive():
+            fake.kill()
+            fake.join()
+    require(fake.exitcode == 0, f"dryrun: the cost passes' process exited {fake.exitcode}")
+    with open(os.path.join(workdir, "dist", "dryrun_fake.json")) as f:
+        pred = json.load(f)
+    real = res["meta"]
+    tp = pred["tp"]
+    flops_rel = abs(tp["flops_per_device"] - real["flops"]) / real["flops"]
+    peak = tp["memory"]["peak_per_device"]
+    peak_rel = abs(peak - real["peak_bytes"]) / max(real["peak_bytes"], 1)
+    codec_rel = abs(pred["codec_step"]["flops_per_device"] - codec_flops) / codec_flops
+    cells = {k: pred[k]["status"] for k in ("codec_single", "codec_multi", "mamba")}
+    emit({"phase": "dryrun", "arch": TRAIN_ARCH, "layers": TP_LAYERS, "batch": TP_GRAD_BATCH,
+          "mesh": "1x1", "backend": real["backend"],
+          "flops_predicted": tp["flops_per_device"], "flops_card": real["flops"],
+          "flops_rel_err": flops_rel, "peak_predicted_bytes": peak,
+          "peak_card_bytes": real["peak_bytes"], "peak_rel_err": peak_rel,
+          "allocated_before_step_bytes": real["allocated_before_bytes"],
+          "predicted_memory": tp["memory"], "cost_pass_seconds": tp["seconds"],
+          "codec_step": {**DRYRUN_CODEC, "shape": list(PEMS_SHAPE),
+                         "flops_predicted": pred["codec_step"]["flops_per_device"],
+                         "flops_card": codec_flops, "flops_rel_err": codec_rel},
+          "codec_cells": {m: {k: pred[f"codec_{m}"][k] for k in (
+              "status", "flops_per_device", "hlo_bytes_per_device",
+              "collective_bytes_per_device", "memory", "roofline", "seconds")}
+              for m in ("single", "multi")},
+          "mamba2_decode_32k_single": {k: pred["mamba"][k] for k in (
+              "status", "seconds", "seconds_lower", "seconds_cost_passes", "flops_per_device",
+              "hlo_bytes_per_device", "memory", "roofline")},
+          "tol": {"flops_rtol": DRYRUN_FLOPS_RTOL, "peak_rtol": DRYRUN_PEAK_RTOL},
+          "seconds": time.perf_counter() - t0, "name_power_limit": smi})
+    require(flops_rel <= DRYRUN_FLOPS_RTOL,
+            f"dryrun: predicted FLOPs {tp['flops_per_device']} vs the card's {real['flops']}")
+    require(peak_rel <= DRYRUN_PEAK_RTOL,
+            f"dryrun: predicted peak {peak} vs the card's {real['peak_bytes']}")
+    require(codec_rel <= DRYRUN_FLOPS_RTOL,
+            f"dryrun: the codec step's predicted FLOPs {pred['codec_step']['flops_per_device']} "
+            f"vs the card's {codec_flops}")
+    require(all(v == "ok" for v in cells.values()), f"dryrun: cost cells {cells}")
+
+
+def phase_examples(smi, workdir) -> None:
+    """The four port examples on the card at their default sizes, started
+    together as subprocesses (temporary files in ``workdir``); each must
+    exit 0 within EXAMPLE_TIMEOUT."""
+    t0 = time.perf_counter()
+    env = {**os.environ, "PYTHONPATH": SRC, "OMP_NUM_THREADS": "2", "TMPDIR": workdir}
+    procs = {name: subprocess.Popen([sys.executable, os.path.join(ROOT, "examples", name)],
+                                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                    text=True, env=env, cwd=workdir)
+             for name in EXAMPLES}
+    started = time.perf_counter()
+    runs = {}
+    try:
+        for name, p in procs.items():
+            left = max(1.0, EXAMPLE_TIMEOUT - (time.perf_counter() - started))
+            try:
+                text, _ = p.communicate(timeout=left)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                text, _ = p.communicate()
+            runs[name] = {"rc": p.returncode,
+                          "finished_within_s": time.perf_counter() - started,
+                          "lines": text.splitlines()[-24:]}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    emit({"phase": "examples", "examples": runs, "seconds": time.perf_counter() - t0,
+          "name_power_limit": smi})
+    failed = {k: v["rc"] for k, v in runs.items() if v["rc"] != 0}
+    require(not failed, f"examples: exit codes {failed}")
+
+
 FIT_STEP_SHAPE = (8192, 10, 18, 10)  # B, T (PEMS-SF's d'), H, R of the MEDIUM fit
 
 
@@ -4578,6 +4806,8 @@ def main() -> int:
         dist_launches = phase_dist(torch, device, smi, workdir)
         phase_tp(torch, device, smi, workdir)
         phase_pp(torch, device, smi, workdir)
+        phase_dryrun(torch, device, smi, workdir)
+        phase_examples(smi, workdir)
         simt_lstm = lstm_simt_timing(torch, device, lstm_simt_launches, errs)
         from repro_torch.kernels import lstm as _lstm
         from repro_torch.kernels import tt_contract as _tt

@@ -170,10 +170,10 @@ class CompressionLog:
 
 
 def training_impl(kernel_impl: str) -> str:
-    """The impl the training forward runs: "ref" stays the plain route;
-    every kernel impl trains through the unfused kernels ("cuda"), the one
-    route with backward kernels."""
-    return "ref" if kernel_impl == "ref" else "cuda"
+    """The impl the training forward runs: "ref" and "ref_unrolled" stay
+    the plain routes; every kernel impl trains through the unfused kernels
+    ("cuda"), the one route with backward kernels."""
+    return kernel_impl if kernel_impl in ("ref", "ref_unrolled") else "cuda"
 
 
 def check_training_widths(config: CodecConfig, spec: FoldingSpec, device: torch.device) -> None:
@@ -234,7 +234,9 @@ def _make_train_epoch(spec: FoldingSpec, cfg: nttd.NTTDConfig, opt, mesh=None):
     shardings of ``launch/dryrun_codec.py``: P is the product of the
     mesh's ``pod`` and ``data`` axes, and every rank, given the whole
     positions and values, takes its contiguous 1/P block of each step's
-    batch (its block under ``(None, ('pod', 'data'))``), runs the step's
+    batch (its block under ``(None, ('pod', 'data'))``; ``DTensor``s
+    already laid out so, as the dry-run's arguments are, give their local
+    blocks), runs the step's
     forward and backward on it, and all-reduces the SUM of the gradients
     and of the loss (the loss is a sum) in one flat buffer, one
     all-reduce per dp axis a step.  Adam then runs the same on every rank,
@@ -275,6 +277,12 @@ def _make_dp_train_step(spec: FoldingSpec, cfg: nttd.NTTDConfig, opt, mesh):
         n_blocks, block = n_blocks * size, block * size + coord[a]
 
     def local_block(x: torch.Tensor) -> torch.Tensor:
+        if sharding.is_dtensor(x):
+            want = sharding.NamedSharding(mesh, sharding.PartitionSpec(None, axes)).placements
+            if tuple(x.placements) != want:
+                raise ValueError(f"data-parallel epoch: a DTensor argument must be laid out as "
+                                 f"{want}, not {tuple(x.placements)}")
+            return x.to_local()
         if x.shape[1] % n_blocks:
             raise ValueError(f"data-parallel epoch: batch {x.shape[1]} does not divide over "
                              f"{n_blocks} ranks of the mesh's {axes} axes")

@@ -167,3 +167,18 @@ def _fill(shapes, buf: io.BytesIO, dtype, param_dtype: torch.dtype, device):
 
 def _spec_from_factors(shape, factors: np.ndarray) -> FoldingSpec:
     return spec_from_factors(shape, factors)
+
+
+def save_file(path: str, ct: codec_mod.CompressedTensor, dtype=np.float32) -> int:
+    """Write ``ct``'s v2 body to ``path``; returns its byte count."""
+    data = save_bytes(ct, dtype)
+    with open(path, "wb") as f:
+        f.write(data)
+    return len(data)
+
+
+def load_file(path: str, device: str | torch.device | None = None) -> codec_mod.CompressedTensor:
+    """Read a v2 body from ``path``, its params on ``device`` (CUDA unless
+    given)."""
+    with open(path, "rb") as f:
+        return load_bytes(f.read(), device=device)

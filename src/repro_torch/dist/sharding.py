@@ -404,6 +404,49 @@ def on_batch_shards(fn, x: torch.Tensor, *weights: torch.Tensor) -> torch.Tensor
     return shards.mesh_tensor(fn(shards.local(x), *(shards.weight(w) for w in weights)))
 
 
+def leading_shards(x: torch.Tensor) -> Shards:
+    """The ``Shards`` of a ``DTensor`` x's splits of its leading dims (all
+    but the last, the features a product contracts)."""
+    return Shards(x.device_mesh, tuple(p.dim if p.is_shard() and p.dim < x.dim() - 1 else None
+                                       for p in x.placements))
+
+
+class _ForwardLayoutGrad(torch.autograd.Function):
+    """Identity on a ``DTensor`` whose gradient is laid out as the tensor
+    was in the forward pass (replicated where the tensor was a partial
+    sum)."""
+
+    @staticmethod
+    def forward(ctx, y):
+        from torch.distributed.tensor import Replicate
+
+        ctx.mesh = y.device_mesh
+        ctx.placements = [Replicate() if p.is_partial() else p for p in y.placements]
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.redistribute(ctx.mesh, ctx.placements)
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` for activations x [..., d] and a weight w [d, k].  The
+    product flattens x's leading dims into one, which DTensor cannot
+    express for two split dims, and refuses.  So a ``DTensor`` x split on
+    more than one leading dim (the batch and, where the rules put the
+    sequence on a mesh axis, the sequence) runs on each rank's shard
+    (``Shards``) against the whole weight, gathered over the mesh, its
+    gradient reduced back; on any other ``DTensor`` x the product's
+    gradient comes back in the product's forward layout, not in a layout
+    with two split leading dims that a later constraint left on it."""
+    if not is_dtensor(x):
+        return x @ w
+    shards = leading_shards(x)
+    if len({d for d in shards.split if d is not None}) > 1:
+        return shards.mesh_tensor(shards.local(x) @ shards.weight(w))
+    return _ForwardLayoutGrad.apply(x @ w)
+
+
 def shard(x: torch.Tensor, *axes: str | None) -> torch.Tensor:
     """Lay ``x`` out on its logical axes under the active ``sharding_ctx``.
 

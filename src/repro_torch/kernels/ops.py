@@ -4,13 +4,17 @@
   * "ref"     — the plain PyTorch oracle (``ref.py``), on whatever device
                 the tensors are on.  ``chip_smoke.py`` holds the kernels
                 against it on the card this way.
+  * "ref_unrolled" — ``lstm_scan`` and ``tt_contract`` only: the oracles
+                with their loops unrolled (``ref.lstm_unrolled``,
+                ``ref.tt_contract_unrolled``), the same computation as "ref"
+                in eager PyTorch.
   * "chunked" — ``attention`` only: the q-chunked oracle.
   * "cuda"    — the kernel (the reference's unfused "pallas" path).
   * "fused"   — the kernel; for ``nttd_decode_tile`` the one-launch decode.
   * "auto"    — the kernel.
-Every name but "ref" and "chunked" goes to the kernel's wrapper, which
-launches the kernel on a CUDA tensor or raises, and runs the plain version
-on a CPU tensor.  So "auto" and "fused" resolve by the tensors' device.
+Every name but "ref", "ref_unrolled" and "chunked" goes to the kernel's
+wrapper, which launches the kernel on a CUDA tensor or raises, and runs
+the plain version on a CPU tensor.  So "auto" and "fused" resolve by the tensors' device.
 No path falls back from the kernel to the plain version: ``attention``
 pads any length to the kernel's tile instead.
 
@@ -38,6 +42,8 @@ from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import tt_contract as _tt
 
 IMPLS = ("ref", "cuda", "fused", "auto")
+#: the impls of the unfused route's two kernels
+SCAN_IMPLS = IMPLS + ("ref_unrolled",)
 _KERNELS = {"decode_tile": _dt, "lstm_scan": _lstm, "tt_contract": _tt,
             "flash_attention": _attention}
 
@@ -67,9 +73,11 @@ def reset_launch_counts() -> None:
 def tt_contract(
     first: torch.Tensor, mid: torch.Tensor, last: torch.Tensor, *, impl: str = "auto"
 ) -> torch.Tensor:
-    _check_impl(impl)
+    _check_impl(impl, SCAN_IMPLS)
     if impl == "ref":
         return _ref.tt_contract(first, mid, last)
+    if impl == "ref_unrolled":
+        return _ref.tt_contract_unrolled(first, mid, last)
     if mid.shape[1] == 0:
         # degenerate 2-core chain: no mid tensor for the kernel; the
         # contraction is a plain row dot
@@ -85,9 +93,11 @@ def lstm_scan(
     *,
     impl: str = "auto",
 ) -> torch.Tensor:
-    _check_impl(impl)
+    _check_impl(impl, SCAN_IMPLS)
     if impl == "ref":
         return _ref.lstm_scan(x, wi, wh, b)
+    if impl == "ref_unrolled":
+        return _ref.lstm_unrolled(x, wi, wh, b)
     return _lstm.lstm_scan(x, wi, wh, b)
 
 

@@ -33,6 +33,16 @@ def tt_contract(first: torch.Tensor, mid: torch.Tensor, last: torch.Tensor) -> t
     return (v * last.to(F32)).sum(-1).to(first.dtype)
 
 
+def tt_contract_unrolled(first: torch.Tensor, mid: torch.Tensor,
+                         last: torch.Tensor) -> torch.Tensor:
+    """``tt_contract`` with the K loop unrolled, the route of
+    ``impl="ref_unrolled"``.  The reference unrolls it so that XLA fuses
+    the chain instead of running a while loop; eager PyTorch already runs
+    the loop in Python, so the two plain versions are the same
+    computation."""
+    return tt_contract(first, mid, last)
+
+
 def lstm_scan(
     x: torch.Tensor, wi: torch.Tensor, wh: torch.Tensor, b: torch.Tensor
 ) -> torch.Tensor:
@@ -56,6 +66,15 @@ def lstm_scan(
     if not outs:
         return torch.empty((bsz, 0, hid), dtype=x.dtype, device=x.device)
     return torch.stack(outs, dim=1).to(x.dtype)
+
+
+def lstm_unrolled(
+    x: torch.Tensor, wi: torch.Tensor, wh: torch.Tensor, b: torch.Tensor
+) -> torch.Tensor:
+    """``lstm_scan`` with the time loop unrolled, the route of
+    ``impl="ref_unrolled"``: as ``tt_contract_unrolled``, the same
+    computation as the plain version, whose loop is already Python's."""
+    return lstm_scan(x, wi, wh, b)
 
 
 def _grad_of(fn, inputs: tuple[torch.Tensor, ...], dout: torch.Tensor):

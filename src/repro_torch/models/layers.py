@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.dist.sharding import ParamSpec, Shards, is_dtensor, shard
+from repro_torch.dist.sharding import ParamSpec, Shards, is_dtensor, matmul, shard
 
 F32 = torch.float32
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
@@ -63,10 +63,10 @@ def mlp_specs(d: int, f: int, stacked: tuple[int, ...] = ()) -> dict:
 
 
 def mlp(p: dict, x: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
-    h = x @ p["w_gate"].to(compute_dtype)
-    u = x @ p["w_up"].to(compute_dtype)
+    h = matmul(x, p["w_gate"].to(compute_dtype))
+    u = matmul(x, p["w_up"].to(compute_dtype))
     h = shard(torch.nn.functional.silu(h) * u, "batch", "seq", "mlp")
-    return h @ p["w_down"].to(compute_dtype)
+    return matmul(h, p["w_down"].to(compute_dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -120,7 +120,7 @@ def unembed(p: dict, x: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tenso
         w = p["unembed"].to(compute_dtype)
     else:
         w = p["embed"].to(compute_dtype).T
-    return shard(x @ w, "batch", "seq", "vocab")
+    return shard(matmul(x, w), "batch", "seq", "vocab")
 
 
 # ---------------------------------------------------------------------------

@@ -22,7 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.dist.sharding import (ParamSpec, Shards, batch_shards, is_dtensor,
+from repro_torch.dist.sharding import (ParamSpec, Shards, batch_shards, is_dtensor, matmul,
                                        on_batch_shards, shard)
 from repro_torch.models import layers
 
@@ -170,6 +170,17 @@ def _ssd_on_shards(x, dt, a, b, c, cfg: ModelConfig):
     return shards.mesh_tensor(y), shards.mesh_tensor(h, {2: 1})
 
 
+def _readout(h: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """The decode's y [B, H, P] = h [B, H, P, N] . c [B, H, N]; ``DTensor``s
+    on each rank's shard of the batch and heads (the product flattens
+    both, which DTensor refuses where both are split)."""
+    if not is_dtensor(h):
+        return (h @ c[:, :, :, None])[..., 0]
+    shards = Shards(h.device_mesh, tuple(p.dim if p.is_shard() and p.dim in (0, 1) else None
+                                         for p in h.placements))
+    return shards.mesh_tensor(_readout(shards.local(h), shards.local(c)))
+
+
 def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Depthwise causal conv over [B, S, C] with kernel [K, C]; a
     ``DTensor`` xbc on each rank's batch shard."""
@@ -202,7 +213,7 @@ def mamba_forward(
     single-step decode (state given, S must be 1).  Returns (out, new state)."""
     dt_c = xin.dtype
     d = dims(cfg)
-    proj = xin @ p["in_proj"].to(dt_c)
+    proj = matmul(xin, p["in_proj"].to(dt_c))
     z, xbc, dt_raw = _split_proj(proj, cfg)
     a = -torch.exp(p["a_log"].to(F32))
     bs = xin.shape[0]
@@ -236,14 +247,14 @@ def mamba_forward(
         decay = torch.exp(dt * a)                                       # [B,H]
         h = state["ssm"] * decay[:, :, None, None] + (
             (x * dt[:, :, None])[:, :, :, None] * bh[:, :, None, :])
-        y = (h @ ch[:, :, :, None])[..., 0]                             # [B,H,P]
+        y = _readout(h, ch)                                             # [B,H,P]
         y = y + x * p["d_skip"].to(F32)[:, None]
         y = y.reshape(bs, 1, d["d_in"]).to(dt_c)
         new_state = {"conv": conv_in[:, 1:, :].to(dt_c), "ssm": h}
 
     # gated RMSNorm + out_proj
     y = layers.rmsnorm(y * F.silu(z), p["norm_w"], cfg.norm_eps)
-    return y @ p["out_proj"].to(dt_c), new_state
+    return matmul(y, p["out_proj"].to(dt_c)), new_state
 
 
 def state_specs(cfg: ModelConfig, batch: int, stacked: tuple[int, ...] = ()) -> dict:

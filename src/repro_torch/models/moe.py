@@ -23,7 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.dist.sharding import ParamSpec, batch_shards, shard
+from repro_torch.dist.sharding import ParamSpec, batch_shards, matmul, shard
 
 
 def moe_specs(cfg: ModelConfig, stacked: tuple[int, ...] = ()) -> dict:
@@ -62,7 +62,7 @@ def top_k(probs: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
 def route(p: dict, x: torch.Tensor, cfg: ModelConfig):
     """The router: (probs [B,S,E] f32, gate values [B,S,K] normalised,
     expert ids [B,S,K])."""
-    logits = (x @ p["router"].to(x.dtype)).float()
+    logits = matmul(x, p["router"].to(x.dtype)).float()
     probs = torch.softmax(logits, dim=-1)
     gate_vals, gate_idx = top_k(probs, cfg.moe_top_k)
     gate_vals = gate_vals / torch.clamp_min(gate_vals.sum(-1, keepdim=True), 1e-9)

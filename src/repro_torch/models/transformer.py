@@ -120,6 +120,11 @@ def cache_specs(cfg: ModelConfig, batch: int, max_len: int, long_ctx: bool = Fal
     return out
 
 
+def cache_max_len(cache) -> int:
+    """Static max length from an (abstract or real) attn cache tree."""
+    return cache["attn"]["k"].shape[-3]
+
+
 # ---------------------------------------------------------------------------
 # block application
 # ---------------------------------------------------------------------------

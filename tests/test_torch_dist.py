@@ -174,7 +174,10 @@ def test_production_meshes():
     assert (single.sizes, single.axis_names, single.size) == ((16, 16), ("data", "model"), 256)
     assert multi.shape == {"pod": 2, "data": 16, "model": 16} and multi.size == 512
     assert sharding.mesh_axes(multi) == {"pod": 2, "data": 16, "model": 16}
-    assert not hasattr(mesh_lib, "PEAK_FLOPS_BF16")
+    # the roofline constants are an H100's, never the reference's TPU v5e figures
+    assert (mesh_lib.PEAK_FLOPS_BF16, mesh_lib.HBM_BW, mesh_lib.LINK_BW) == (989e12, 3.35e12,
+                                                                             50e9)
+    assert not hasattr(mesh_lib, "ICI_BW")
 
 
 # -------------------------------------------------------------- spawned worlds

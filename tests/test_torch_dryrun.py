@@ -163,12 +163,12 @@ def test_codec_dp_cell_matches_reference(mesh):
 
 
 def test_dryrun_cli_prints_a_line_per_cell(capsys):
-    assert dryrun.main(["--arch", "mamba2-1.3b", "--shape", "long_500k", "--mesh", "both",
-                        "--rules", "fsdp"]) == 0
+    assert dryrun.main(["--check", "--arch", "mamba2-1.3b", "--shape", "long_500k", "--mesh",
+                        "both", "--rules", "fsdp"]) == 0
     lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
     assert [(x["mesh"], x["status"], x["rules"]) for x in lines] == [
         ("single", "ok", "fsdp"), ("multi", "ok", "fsdp")]
     assert all(x["leaves"]["cache"] > 0 and "specs" not in x for x in lines)
-    assert dryrun_codec.main(["--mesh", "multi"]) == 0
+    assert dryrun_codec.main(["--check", "--mesh", "multi"]) == 0
     assert json.loads(capsys.readouterr().out)["bytes_per_device"]["positions"] == (
         4 * (1 << 20) * 3 * 4 // 32)

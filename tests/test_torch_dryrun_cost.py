@@ -1,0 +1,306 @@
+"""The port's dry-run cost pass (``launch.dryrun.run_cell``,
+``launch.dryrun_codec.run``), on the CPU.
+
+Against the reference: the analytic ``model_flops`` of every arch and
+shape, and the codec cell's argument bytes and ``model_flops``, exactly.
+Against the plain step: a 1 x 1 fake world counts the FLOPs that
+``FlopCounterMode`` counts over the plain step, a data-only 4 x 1 world the
+plain step's at a quarter of the batch, and a 2 x 2 world's argument bytes
+are the rule check's tree bytes.  Against a real world: four gloo ranks
+run the step on a 2 x 2 mesh, and the collectives rank 0's
+``CommDebugMode`` sees (kinds and counts; bytes from the same counter the
+cost pass uses) equal what the fake pass predicts.  Every fake process
+group lives in a subprocess of its own, so none leaks into another test.
+"""
+import json
+import os
+import subprocess
+import sys
+import textwrap
+
+import pytest
+from repro_torch import configs
+from repro_torch.configs.base import SHAPES
+from repro_torch.launch import dryrun
+from torch_ranks import run_ranks
+
+from repro import configs as jconfigs
+from repro.configs.base import SHAPES as JSHAPES
+
+ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
+SRC = os.path.join(ROOT, "src")
+TIMEOUT = 300
+REFERENCE_KEYS = {
+    "arch", "shape", "mesh", "rules", "status", "n_devices", "n_blocks", "seconds_lower",
+    "seconds_compile", "seconds_cost_passes", "remat", "seq_shard", "memory",
+    "flops_per_device", "hlo_bytes_per_device", "collective_bytes_per_device", "model_flops",
+    "hlo_flops_total", "useful_flops_ratio", "roofline"}
+ROOFLINE_KEYS = {"compute_s", "memory_s", "collective_s", "dominant", "bound_s",
+                 "ideal_compute_s", "ideal_memory_s", "ideal_s", "roofline_fraction"}
+MEMORY_KEYS = {"argument_bytes", "output_bytes", "temp_bytes", "alias_bytes", "code_bytes",
+               "peak_per_device"}
+
+
+def _import_reference(module: str):
+    """The reference's dry-run modules set ``XLA_FLAGS`` (512 host devices)
+    when imported; keep this process's setting."""
+    import importlib
+
+    saved = os.environ.get("XLA_FLAGS")
+    try:
+        return importlib.import_module(module)
+    finally:
+        if saved is None:
+            os.environ.pop("XLA_FLAGS", None)
+        else:
+            os.environ["XLA_FLAGS"] = saved
+
+
+def _python(code: str, timeout: float = TIMEOUT, **env) -> subprocess.CompletedProcess:
+    env = {**os.environ, "PYTHONPATH": SRC, "OMP_NUM_THREADS": "2", **env}
+    return subprocess.run([sys.executable, "-c", textwrap.dedent(code)], env=env, cwd=ROOT,
+                          capture_output=True, text=True, timeout=timeout)
+
+
+def _json_lines(out: str) -> list[dict]:
+    return [json.loads(x) for x in out.splitlines() if x.startswith("{")]
+
+
+@pytest.mark.parametrize("arch", configs.ARCH_IDS)
+@pytest.mark.parametrize("shape", list(SHAPES))
+def test_model_flops_matches_reference(arch, shape):
+    jdryrun = _import_reference("repro.launch.dryrun")
+    assert dryrun.model_flops(configs.get(arch), SHAPES[shape]) == jdryrun.model_flops(
+        jconfigs.get(arch), JSHAPES[shape])
+
+
+@pytest.mark.parametrize("mesh", ["single", "multi"])
+def test_codec_cell_matches_reference(mesh):
+    """At the defaults (batch 2^20, 4 steps, rank 8, hidden 16): the
+    argument bytes and ``model_flops`` are the reference's exactly; the
+    port's step all-reduces its flat buffer of gradients and loss once a
+    DP axis, so the all-reduce moves 2 x its bytes per axis."""
+    ref = _python(f"""
+        import json
+        from repro.launch import dryrun_codec
+        r = dryrun_codec.run({mesh!r}, "ref", 1 << 20, 4, 8, 16, verbose=False)
+        print(json.dumps({{"argument_bytes": r["memory"]["argument_bytes"],
+                          "model_flops": r["model_flops"]}}))
+    """)
+    assert ref.returncode == 0, ref.stderr[-3000:]
+    port = _python(f"""
+        import json
+        from repro_torch.launch import dryrun_codec
+        print(json.dumps(dryrun_codec.run({mesh!r}, "ref", 1 << 20, 4, 8, 16, verbose=False)))
+    """)
+    assert port.returncode == 0, port.stderr[-3000:]
+    (want,), (got,) = _json_lines(ref.stdout), _json_lines(port.stdout)
+    assert got["status"] == "ok" and got["memory"]["argument_bytes"] == want["argument_bytes"]
+    assert got["model_flops"] == want["model_flops"]
+    if mesh == "single":
+        assert want["argument_bytes"] == 4_238_660
+        assert want["model_flops"] == 185_220_464_640
+    # 3,696 f32 gradients and the loss, all-reduced once a DP axis a step
+    axes = 1 if mesh == "single" else 2
+    assert got["collective_ops"] == {"c10d.allreduce_": axes}
+    coll = got["collective_bytes_per_device"]
+    assert coll["all-reduce"] == coll["total"] == axes * 2 * 4 * (3_696 + 1)
+    assert {*MEMORY_KEYS} - {"code_bytes"} <= set(got["memory"]) and set(
+        got["roofline"]) >= ROOFLINE_KEYS - {"ideal_compute_s", "ideal_memory_s"}
+
+
+@pytest.fixture(scope="module")
+def small_worlds():
+    """minicpm-2b's smoke config, batch 8 x 32, on fake worlds of 1 x 1,
+    4 x 1 and 2 x 2, and the plain step's ``FlopCounterMode`` count at
+    batch 8 and 2."""
+    res = _python("""
+        import json, torch
+        from torch.utils.flop_counter import FlopCounterMode
+        from repro_torch import configs
+        from repro_torch.configs.base import ShapeConfig
+        from repro_torch.dist import sharding
+        from repro_torch.launch import dryrun, mesh as mesh_lib
+        from repro_torch.models import model
+        from repro_torch.optim import optimizers
+        from repro_torch.train import step as step_lib
+
+        cfg = configs.get_smoke("minicpm-2b")
+        out = {}
+        for (d, m), batch in (((1, 1), 8), ((4, 1), 8), ((2, 2), 8)):
+            dryrun.fake_world(d * m)
+            mesh = mesh_lib.make_debug_mesh(d, m, device="cpu")
+            shape = ShapeConfig("smoke", 32, batch, "train")
+            r = dryrun.cost_cell("minicpm-2b", shape, mesh, "base", cfg=cfg)
+            _, _, rules = dryrun._cell_config("minicpm-2b", shape, "base", mesh, cfg)
+            trees = dryrun._cell_trees(cfg, shape, mesh, rules)
+            r["tree_bytes"] = sum(
+                dryrun.tree_bytes_per_device(sharding.keyed_leaves(s), sharding.keyed_leaves(a))
+                for s, a in trees.values())
+            out[f"{d}x{m}"] = r
+        for batch in (8, 2):
+            params = model.init_params(cfg, seed=0, device="cpu")
+            opt = optimizers.adamw(1e-4, weight_decay=0.1, max_grad_norm=1.0)
+            step = step_lib.make_train_step(cfg, opt)
+            tokens = torch.randint(0, cfg.vocab, (batch, 32), dtype=torch.int32)
+            with FlopCounterMode(display=False) as fc:
+                step(params, opt.init(params), {"tokens": tokens, "labels": tokens})
+            out[f"plain{batch}"] = fc.get_total_flops()
+        print(json.dumps(out))
+    """)
+    assert res.returncode == 0, res.stderr[-3000:]
+    return _json_lines(res.stdout)[0]
+
+
+def test_one_device_world_counts_the_plain_steps_flops(small_worlds):
+    got = small_worlds["1x1"]
+    assert got["flops_per_device"] == small_worlds["plain8"] > 0
+    assert got["collective_bytes_per_device"]["total"] == 0
+    assert got["memory"]["peak_per_device"] >= got["memory"]["argument_bytes"] > 0
+    assert got["memory"]["alias_bytes"] > 0  # params and Adam's moments updated in place
+
+
+def test_data_parallel_world_counts_a_quarter_batch(small_worlds):
+    got = small_worlds["4x1"]
+    assert got["flops_per_device"] == small_worlds["plain2"] > 0
+    assert got["collective_bytes_per_device"]["all-reduce"] > 0  # the gradients' sum
+
+
+def test_two_by_two_world(small_worlds):
+    got = small_worlds["2x2"]
+    assert 0 < got["useful_flops_ratio"] <= 1
+    assert got["memory"]["argument_bytes"] == got["tree_bytes"]
+    assert got["n_devices"] == 4 and got["hlo_flops_total"] == 4 * got["flops_per_device"]
+
+
+REAL_WORLD = """
+from torch.distributed.tensor.debug import CommDebugMode
+
+from repro_torch import configs
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.core import codec
+from repro_torch.core.folding import make_folding_spec
+from repro_torch.core import nttd
+from repro_torch.dist import sharding
+from repro_torch.launch import dryrun, mesh as mesh_lib
+from repro_torch.models import model
+from repro_torch.optim import optimizers
+from repro_torch.train import step as step_lib
+
+
+def main():
+    import json
+
+    mesh = mesh_lib.make_debug_mesh(2, 2, device="cpu")
+    cfg = configs.get_smoke("minicpm-2b")
+    shape = ShapeConfig("smoke", 32, 8, "train")
+    _, _, rules = dryrun._cell_config("minicpm-2b", shape, "base", mesh, cfg)
+    params = model.init_params(cfg, seed=0, device="cpu",
+                               shardings=step_lib.param_shardings(mesh, cfg, rules))
+    opt = optimizers.adamw(1e-4, weight_decay=0.1, max_grad_norm=1.0)
+    tokens = torch.randint(0, cfg.vocab, (8, 32), dtype=torch.int32,
+                           generator=torch.Generator().manual_seed(0))
+    batch = sharding.device_put({"tokens": tokens, "labels": tokens},
+                                step_lib.batch_shardings(mesh, cfg, {"tokens": 0, "labels": 0},
+                                                         rules))
+    step = step_lib.make_train_step(cfg, opt)
+    state = opt.init(params)
+    counter = dryrun.CostCounter()
+    with CommDebugMode() as comm, counter, sharding.sharding_ctx(mesh, rules):
+        step(params, state, batch)
+    seen = {}
+    for op, n in comm.get_comm_counts().items():
+        kind = dryrun._collective_kind(op)
+        seen[kind] = seen.get(kind, 0) + n
+    # the data-parallel codec epoch takes positions laid out as the dry-run lays them
+    spec = make_folding_spec((6, 5, 4))
+    ep = codec._make_dp_train_step(spec, nttd.NTTDConfig(rank=2, hidden=4), optimizers.adam(1e-2),
+                                   mesh)
+    whole = torch.arange(2 * 8 * 3, dtype=torch.int32).reshape(2, 8, 3)
+    laid = sharding.distribute(whole, sharding.NamedSharding(
+        mesh, sharding.PartitionSpec(None, sharding.dp_axes(mesh))))
+    if RANK == 0:
+        print(json.dumps({
+            "comm_counts": seen,
+            "bytes": dryrun.collective_bytes_per_device(counter.collectives),
+            "local_block_equal": bool(torch.equal(ep.local_block(laid), ep.local_block(whole)))}))
+"""
+
+
+@pytest.fixture(scope="module")
+def real_and_fake(tmp_path_factory):
+    out = tmp_path_factory.mktemp("real_world")
+    real = _json_lines(run_ranks(out, 4, REAL_WORLD, timeout=240)[0])[0]
+    fake = _python("""
+        import json
+        from repro_torch import configs
+        from repro_torch.configs.base import ShapeConfig
+        from repro_torch.launch import dryrun, mesh as mesh_lib
+        dryrun.fake_world(4)
+        mesh = mesh_lib.make_debug_mesh(2, 2, device="cpu")
+        print(json.dumps(dryrun.cost_cell("minicpm-2b", ShapeConfig("smoke", 32, 8, "train"),
+                                          mesh, "base", cfg=configs.get_smoke("minicpm-2b"))))
+    """)
+    assert fake.returncode == 0, fake.stderr[-3000:]
+    return real, _json_lines(fake.stdout)[0]
+
+
+def test_real_world_collectives_equal_the_fake_pass(real_and_fake):
+    real, fake = real_and_fake
+    predicted = {}
+    for op, n in fake["collective_ops"].items():
+        kind = dryrun._collective_kind(op)
+        predicted[kind] = predicted.get(kind, 0) + n
+    assert real["comm_counts"] == predicted
+    assert set(predicted) >= {"all-reduce", "all-gather"}
+    assert real["bytes"] == fake["collective_bytes_per_device"]
+    assert fake["collective_bytes_per_device"]["total"] > 0
+
+
+def test_dp_epoch_takes_laid_out_positions(real_and_fake):
+    assert real_and_fake[0]["local_block_equal"]
+
+
+def test_full_width_cell_cli(tmp_path):
+    """mamba2-1.3b x decode_32k on the 16 x 16 mesh at full width and
+    depth: one line with every reference key, its roofline over the H100
+    constants; ``--out`` writes ``cell_path``'s file."""
+    res = _python(f"""
+        from repro_torch.launch import dryrun
+        raise SystemExit(dryrun.main(["--arch", "mamba2-1.3b", "--shape", "decode_32k",
+                                      "--mesh", "single", "--out", {str(tmp_path)!r}]))
+    """)
+    assert res.returncode == 0, res.stderr[-3000:]
+    (got,) = _json_lines(res.stdout)
+    assert got["status"] == "ok" and REFERENCE_KEYS <= set(got), set(got) ^ REFERENCE_KEYS
+    assert set(got["memory"]) == MEMORY_KEYS and set(got["roofline"]) == ROOFLINE_KEYS
+    assert (got["n_devices"], got["n_blocks"], got["rules"]) == (256, 48, "auto")
+    r = got["roofline"]
+    assert r["compute_s"] == got["flops_per_device"] / 989e12
+    assert r["memory_s"] == got["hlo_bytes_per_device"] / 3.35e12
+    assert r["collective_s"] == got["collective_bytes_per_device"]["total"] / 50e9
+    assert r["bound_s"] == max(r["compute_s"], r["memory_s"], r["collective_s"]) > 0
+    assert got["memory"]["peak_per_device"] >= got["memory"]["argument_bytes"] > 0
+    assert got["memory"]["alias_bytes"] > 0  # the cache is written in place
+    with open(tmp_path / "mamba2-1.3b__decode_32k__single__auto.json") as f:
+        assert json.load(f) == got
+
+
+def test_cli_reports_errors_and_skips(tmp_path):
+    """A cell that raises prints ``status: error`` and the run exits 1; a
+    ``should_skip`` cell prints ``status: skip``."""
+    res = _python("""
+        from repro_torch.launch import dryrun
+        def boom(*args, **kwargs):
+            raise RuntimeError("no rule for this cell")
+        dryrun.cost_cell = boom
+        code = dryrun.main(["--arch", "minicpm-2b", "--shape", "long_500k", "--mesh", "both"])
+        assert code == 0, code
+        raise SystemExit(dryrun.main(["--arch", "minicpm-2b", "--shape", "train_4k",
+                                      "--mesh", "both"]))
+    """)
+    assert res.returncode == 1, res.stderr[-3000:]
+    lines = _json_lines(res.stdout)
+    assert [(x["mesh"], x["status"]) for x in lines] == [
+        ("single", "skip"), ("multi", "skip"), ("single", "error"), ("multi", "error")]
+    assert lines[-1]["error"] == "RuntimeError: no rule for this cell"

@@ -187,6 +187,20 @@ def test_training_impl_is_the_unfused_route():
     assert tcodec.CodecConfig().kernel_impl == "auto"
 
 
+def test_compress_ref_unrolled_is_the_ref_fit():
+    """``kernel_impl="ref_unrolled"`` trains and predicts through the
+    unrolled plain versions, the same computation as "ref" in eager
+    PyTorch: the two fits are bitwise alike."""
+    x = np.random.default_rng(4).random((6, 5, 4)).astype(np.float32)
+    logs = {}
+    for impl in ("ref", "ref_unrolled"):
+        assert tcodec.training_impl(impl) == impl
+        ct, logs[impl] = tcodec.compress(x, tcodec.CodecConfig(
+            rank=2, hidden=4, epochs=2, batch_size=64, kernel_impl=impl), device="cpu")
+        assert ct.cfg.kernel_impl == impl
+    assert logs["ref"].fitness_history == logs["ref_unrolled"].fitness_history
+
+
 @pytest.mark.parametrize("width,match", [
     (dict(hidden=300), "lstm_scan backward: hidden 300 outside 1..256"),
     (dict(rank=129), "tt_contract backward: rank 129 outside 1..128"),

@@ -22,6 +22,19 @@ def _port_files():
             if name.endswith(".py"):
                 yield os.path.join(dirpath, name)
     yield os.path.join(ROOT, "chip_smoke.py")
+    yield from _port_examples()
+
+
+def _port_examples():
+    examples = os.path.join(ROOT, "examples")
+    return [os.path.join(examples, n) for n in sorted(os.listdir(examples))
+            if n.startswith("torch_") and n.endswith(".py")]
+
+
+def test_port_examples_are_scanned():
+    assert [os.path.basename(p) for p in _port_examples()] == [
+        "torch_compressed_checkpoint.py", "torch_quickstart.py", "torch_serve_llm.py",
+        "torch_train_lm.py"]
 
 
 def _forbidden(module: str) -> bool:

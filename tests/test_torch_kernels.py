@@ -24,6 +24,8 @@ TOL = {"float32": 1e-5, "bfloat16": 0.1}
 _J_DECODE = jax.jit(jref.nttd_decode_tile)
 _J_LSTM = jax.jit(jref.lstm_scan)
 _J_TT = jax.jit(jref.tt_contract)
+_J_LSTM_UNROLLED = jax.jit(jref.lstm_unrolled)
+_J_TT_UNROLLED = jax.jit(jref.tt_contract_unrolled)
 
 
 def _pair(arr: np.ndarray, dt: str):
@@ -147,6 +149,23 @@ def test_tt_contract_matches_jax(b, k, r, dt):
         _close(tops.tt_contract(tf, tm, tl, impl=impl), want, dt)
 
 
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,k,r", [(32, 0, 4), (64, 5, 8), (7, 3, 8), (33, 1, 4), (8, 2, 128)])
+def test_tt_contract_unrolled_matches_jax(b, k, r, dt):
+    """``impl="ref_unrolled"`` against the reference's unrolled oracle (in
+    bf16 run in f32 on the same bf16 inputs, as above)."""
+    rng = np.random.default_rng(10 * k + r + 1)
+    jf, tf = _pair(rng.normal(size=(b, r)), dt)
+    jm, tm = _pair(rng.normal(size=(b, k, r, r)) * (0.5 / np.sqrt(r)), dt)
+    jl, tl = _pair(rng.normal(size=(b, r)), dt)
+    f32 = jnp.float32
+    want = _J_TT_UNROLLED(jf.astype(f32), jm.astype(f32), jl.astype(f32)).astype(jf.dtype)
+    got = tops.tt_contract(tf, tm, tl, impl="ref_unrolled")
+    assert got.dtype == DTYPES[dt][1]
+    _close(got, want, dt)
+    _close(tref.tt_contract_unrolled(tf, tm, tl), want, dt)
+
+
 def test_tt_contract_empty_batch():
     for impl in ("ref", "cuda"):
         out = tops.tt_contract(
@@ -176,6 +195,29 @@ def test_lstm_scan_matches_jax(b, t, h, dt):
     assert got.dtype == DTYPES[dt][1] and got.shape == (b, t, h)
     _close(got, want, dt)
     assert torch.equal(tops.lstm_scan(tx, twi, twh, tb, impl="cuda"), got)
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,t,h", [(16, 6, 8), (50, 9, 16), (8, 3, 64), (0, 3, 16), (9, 4, 68)])
+def test_lstm_unrolled_matches_jax(b, t, h, dt):
+    """``impl="ref_unrolled"`` against the reference's unrolled oracle."""
+    (jx, tx), (jwi, twi), (jwh, twh), (jb, tb) = (_pair(a, dt) for a in
+                                                  _lstm_args(b, t, h, b + t + h + 1))
+    want = _J_LSTM_UNROLLED(jx, jwi, jwh, jb)
+    got = tops.lstm_scan(tx, twi, twh, tb, impl="ref_unrolled")
+    assert got.dtype == DTYPES[dt][1] and got.shape == (b, t, h)
+    _close(got, want, dt)
+    assert torch.equal(tref.lstm_unrolled(tx, twi, twh, tb), got)
+
+
+def test_ref_unrolled_is_the_unfused_route_only():
+    """"ref_unrolled" names the two unfused kernels' plain route; the fused
+    decode and attention refuse it, as they refuse any unknown impl."""
+    with pytest.raises(ValueError, match="unknown kernel impl"):
+        tops.nttd_decode_tile(torch.zeros((2, 3), dtype=torch.int32), *(torch.zeros(1),) * 10,
+                              impl="ref_unrolled")
+    with pytest.raises(ValueError, match="unknown kernel impl"):
+        tops.attention(*(torch.zeros((1, 4, 2, 8)),) * 3, impl="ref_unrolled")
 
 
 def test_lstm_scan_matches_pallas_interpret():

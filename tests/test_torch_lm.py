@@ -172,6 +172,17 @@ def _caches_close(arch, tcache, jcache) -> None:
         _close_model(arch, leaf, want[key])
 
 
+@pytest.mark.parametrize("arch", [a for a in configs.ARCH_IDS if a != "mamba2-1.3b"])
+def test_cache_max_len_matches_jax(arch):
+    """``transformer.cache_max_len`` of an abstract cache, as the reference's."""
+    from repro.models import transformer as jtransformer
+    from repro_torch.models import transformer
+
+    cfg, jcfg = configs.get_smoke(arch), jconfigs.get_smoke(arch)
+    got = transformer.cache_max_len(tmodel.abstract_cache(cfg, 2, 48))
+    assert got == jtransformer.cache_max_len(jmodel.abstract_cache(jcfg, 2, 48)) == 48
+
+
 def test_bf16_serving_params_carry_over_exactly():
     """A bf16 JAX tree (ml_dtypes leaves) and an f32 tree cast with
     ``dtype=`` give the same bf16 tensors, and the model runs on them."""

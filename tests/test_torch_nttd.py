@@ -89,6 +89,24 @@ def test_apply_matches_reference(shape, rank, hidden, d_prime):
             np.testing.assert_allclose(got.numpy(), want[ref_impl], rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("shape,rank,hidden,d_prime",
+                         [((20, 18, 12), 6, 12, None), ((4, 3), 3, 8, 2), ((6, 5, 4), 34, 68, 3)])
+def test_apply_ref_unrolled_matches_reference(shape, rank, hidden, d_prime):
+    """``kernel_impl="ref_unrolled"`` through ``nttd.apply`` against the
+    reference's ``nttd.apply`` with the same impl."""
+    jspec, jcfg, jparams = _jax_params(shape, rank, hidden, d_prime=d_prime)
+    tspec = tfolding.make_folding_spec(shape, d_prime)
+    tparams = convert.params_from_numpy(jax.tree.map(np.asarray, jparams), "cpu")
+    rng = np.random.default_rng(6)
+    pos = np.stack([rng.integers(0, s, 129) for s in shape], axis=1)
+    want = np.asarray(jnttd.make_predict(
+        jspec, jnttd.NTTDConfig(rank=rank, hidden=hidden, kernel_impl="ref_unrolled")
+    )(jparams, jnp.asarray(pos, jnp.int32)))
+    cfg = tnttd.NTTDConfig(rank=rank, hidden=hidden, kernel_impl="ref_unrolled")
+    got = tnttd.apply_at_positions(tparams, torch.from_numpy(pos), tspec, cfg)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
 def test_generate_tensor_matches_reference():
     jspec, jcfg, jparams = _jax_params((6, 5, 4), 3, 6)
     tspec = tfolding.make_folding_spec((6, 5, 4))

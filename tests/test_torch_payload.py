@@ -105,6 +105,23 @@ def test_each_package_loads_the_others_bytes(fitted):
         assert tcodecs.save_bytes(back) == ref.save()
 
 
+@pytest.mark.parametrize("dtype", [np.float32, np.float16])
+def test_serialization_files_cross_both_ways(fitted, tmp_path, dtype):
+    """``core.serialization.save_file``/``load_file``: a v2 body either
+    package writes to a file, the other reads, byte for byte."""
+    _, ref = fitted
+    port = _port_from_reference(ref)
+    tpath, jpath = str(tmp_path / "port.bin"), str(tmp_path / "ref.bin")
+    n = tser.save_file(tpath, port.ct, dtype)
+    assert n == jser.save_file(jpath, ref.ct, dtype) == os.path.getsize(tpath)
+    assert _read(tpath) == _read(jpath)
+    back = jser.load_file(tpath)  # the JAX package reads the port's file
+    assert jser.save_bytes(back, dtype) == _read(jpath)
+    got = tser.load_file(jpath, device="cpu")  # and the port reads the reference's
+    assert got.params["lstm"]["wi"].device.type == "cpu"
+    assert tser.save_bytes(got, dtype) == _read(jpath)
+
+
 def test_fp16_and_fp64_bodies_load(fitted):
     _, ref = fitted
     idx = NPZ["indices"] % np.array(ref.shape)
