@@ -292,8 +292,18 @@ Phases, each printing JSON lines:
    on two gloo ranks sharing ``cuda:0`` (each hop copied through the
    host), against this process's stack forward of the same layers at
    rtol = atol = 2e-4, the ranks' outputs bitwise equal; the bubble
-   fraction, ms a tick and the host copies' share of the ticks.  Both
-   print ``not_shown``: NCCL collectives across cards.
+   fraction, ms a tick and the host copies' share of the ticks.  decode
+   (``phase_decode``, between tp and pp): qwen1.5-4b at full width cut to
+   4 of 40 layers, f32, batch 4, a 256-token prompt (prefill through the
+   flash kernel, once a layer) and 8 greedy tokens, on two gloo ranks on
+   ``cuda:0`` over a 1-D (data) mesh, the cache laid out by
+   ``cache_shardings`` twice: ``batch`` (its rows split) and ``long`` (the
+   long-context rules: its length split, each rank attending its piece and
+   the pieces combined by all-reduces of their log-sum-exps); against this
+   process's decode on one device: the tokens equal, the logits within
+   1e-4 of their largest magnitude, the cache still in its layout; each
+   layout's prefill ms, decode ms a token and peak memory a rank.  All
+   three print ``not_shown``: NCCL collectives across cards.
    dryrun (``phase_dryrun``): the dry-run's cost pass held against the
    card.  A spawned process (``dryrun_fake``, this process joins no
    group) runs the cost passes in fake process groups: the ``tp``
@@ -301,7 +311,9 @@ Phases, each printing JSON lines:
    on a 1 x 1 mesh, the codec's step at the MEDIUM widths with 8192
    entries a device (impl "ref", the PEMS-SF replica's shape),
    ``dryrun_codec.run`` on both production meshes at its defaults and
-   ``run_cell("mamba2-1.3b", "decode_32k", "single")``.  Meanwhile world
+   ``run_cell("mamba2-1.3b", "decode_32k", "single")`` and
+   ``run_cell("qwen1.5-4b", "decode_32k", "single", "auto")``, whose
+   predicted peak must fit one 80 GB card.  Meanwhile world
    ``dryrun`` (one NCCL rank, a 1 x 1 mesh) runs the ``tp`` step for real
    on ``DTensor``s: ``FlopCounterMode`` over it and
    ``torch.cuda.max_memory_allocated`` over it, the arguments included.
@@ -4330,6 +4342,194 @@ def phase_tp(torch, device, smi, workdir) -> None:
           "not_shown": "NCCL collectives across cards", "name_power_limit": smi})
 
 
+DECODE_ARCH = "qwen1.5-4b"
+DECODE_LAYERS = 4                   # of qwen1.5-4b's 40 (every width kept)
+DECODE_BATCH, DECODE_PROMPT, DECODE_NEW = 4, 256, 8
+DECODE_RANKS = 2
+DECODE_REL_TOL = 1e-4               # logits, of their largest magnitude
+DECODE_LAYOUTS = ("batch", "long")  # the batch on 'data'; the cache's length on 'data'
+
+
+def decode_setup(torch, device):
+    """(cfg, params, prompts) of phase decode: qwen1.5-4b at full width cut
+    to DECODE_LAYERS layers, f32, prefill through the flash kernel
+    (``attn_impl`` "auto"), random weights and prompts from SEED."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.models import model
+
+    cfg = dataclasses.replace(configs.get(DECODE_ARCH), n_layers=DECODE_LAYERS,
+                              compute_dtype="float32", param_dtype="float32", attn_impl="auto")
+    prompts = np.random.default_rng(SEED).integers(0, cfg.vocab, (DECODE_BATCH, DECODE_PROMPT))
+    return cfg, model.init_params(cfg, SEED, device), torch.as_tensor(prompts, device=device)
+
+
+def decode_greedy(torch, cfg, params, cache, prompts, put, sync) -> dict:
+    """Prefill ``prompts`` then DECODE_NEW greedy tokens through
+    ``train.step``'s steps; ``put(tokens)`` lays out a block of tokens (on a
+    mesh: this rank's rows, as ``prompts`` are), and each step's logits
+    are read from this rank's shard of them.  Returns the last position's
+    logits of every step and the tokens (this rank's rows), the times and
+    the cache."""
+    from repro_torch.dist.sharding import is_dtensor
+    from repro_torch.train import step as step_lib
+
+    def local(t):
+        return t.to_local() if is_dtensor(t) else t
+
+    prefill, decode = step_lib.make_prefill_step(cfg), step_lib.make_decode_step(cfg)
+    sync()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, cache, {"tokens": put(prompts)})
+    out = [local(logits)[:, -1]]
+    sync()
+    prefill_ms, t0 = (time.perf_counter() - t0) * 1e3, time.perf_counter()
+    tokens = []
+    for i in range(DECODE_NEW):
+        tokens.append(out[-1].argmax(-1)[:, None])
+        logits, cache = decode(params, cache, {"tokens": put(tokens[-1])}, DECODE_PROMPT + i)
+        out.append(local(logits)[:, -1])
+    sync()
+    return {"logits": torch.stack(out).cpu().numpy(), "tokens": torch.cat(tokens, 1).cpu().numpy(),
+            "prefill_ms": prefill_ms,
+            "decode_ms_per_token": (time.perf_counter() - t0) * 1e3 / DECODE_NEW,
+            "cache": cache}
+
+
+def decode_rank(rank: int, world: int, backend: str, device_type: str, workdir: str,
+                name: str) -> None:
+    """World ``decode``'s rank: qwen1.5-4b's prefill and greedy decode
+    (``decode_setup``) on a 1-D (data) mesh of the world's ranks, the
+    params replicated and the cache laid out by ``cache_shardings`` under
+    each of DECODE_LAYOUTS' rules: ``batch``, the serving rules at the
+    batch (its rows split over ``data``), and ``long``, the long-context
+    rules ``effective_rules`` gives a batch of 1 (the batch whole, the
+    cache's length split over ``data``: each rank attends its piece, the
+    pieces combined by all-reduces, which gloo takes on CUDA tensors).
+    Writes this rank's logits and tokens, times, peak memory, launches,
+    collectives (``CommDebugMode``'s counts) and the cache's placements
+    after the last token."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.dist import sharding
+    from repro_torch.kernels import ops
+    from repro_torch.models import model
+    from repro_torch.train import step as step_lib
+
+    device = _join_group(torch, rank, world, backend, device_type, workdir, name)
+    try:
+        mesh = init_device_mesh(device.type, (world,), mesh_dim_names=("data",))
+        cfg, whole, prompts = decode_setup(torch, device)
+        sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+        max_len = DECODE_PROMPT + DECODE_NEW
+        res, meta = {}, {"rank": rank, "backend": dist.get_backend(), "world": world,
+                         "layouts": {}}
+        for label in DECODE_LAYOUTS:
+            rules = step_lib.effective_rules(mesh, ShapeConfig(
+                label, max_len, DECODE_BATCH if label == "batch" else 1, "decode"),
+                sharding.BASE_RULES, cfg)
+            long_ctx = rules["batch"] is None
+            params = sharding.device_put(whole, step_lib.param_shardings(mesh, cfg, rules))
+            layout = step_lib.cache_shardings(mesh, cfg, DECODE_BATCH, max_len, long_ctx, rules)
+            cache = sharding.device_put(model.init_cache(cfg, DECODE_BATCH, max_len, long_ctx,
+                                                         device), layout)
+            placements = step_lib.batch_shardings(mesh, cfg, {"tokens": 0}, rules)[
+                "tokens"].placements
+            split = placements[0].is_shard()
+            _peak_reset(torch, device)
+            ops.reset_launch_counts()
+            with CommDebugMode() as comm, sharding.sharding_ctx(mesh, rules):
+                run = decode_greedy(torch, cfg, params, cache,
+                                    prompts.chunk(world)[rank] if split else prompts,
+                                    lambda t: DTensor.from_local(t, mesh, placements,
+                                                                 run_check=False), sync)
+            cache = run.pop("cache")
+            res[f"{label}/logits"], res[f"{label}/tokens"] = run.pop("logits"), run.pop("tokens")
+            meta["layouts"][label] = {
+                **run, "peak_bytes": _peak(torch, device), "launches": ops.launch_counts(),
+                "collectives": {str(k): v for k, v in comm.get_comm_counts().items()},
+                "rows": list(range(rank * DECODE_BATCH // world, (rank + 1) * DECODE_BATCH
+                                   // world)) if split else list(range(DECODE_BATCH)),
+                "cache_placements": [str(p) for p in cache["attn"]["k"].placements],
+                "cache_layout": [str(p) for p in layout["attn"]["k"].placements],
+                "cache_local_shape": list(cache["attn"]["k"].to_local().shape)}
+            del params, cache
+        np.savez(os.path.join(workdir, "dist", f"{name}{rank}.npz"),
+                 meta=np.array(json.dumps(meta)), **res)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_decode(torch, device, smi, workdir) -> None:
+    """qwen1.5-4b's sharded decode (``decode_rank``) on DECODE_RANKS gloo
+    ranks sharing ``cuda:0``, against this process's decode of the same
+    layers on one device: the greedy tokens equal and the logits within
+    DECODE_REL_TOL of their largest magnitude under each layout, the cache
+    still in its layout after the last token."""
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import model
+
+    t0 = time.perf_counter()
+    os.makedirs(os.path.join(workdir, "dist"), exist_ok=True)
+    cfg, params, prompts = decode_setup(torch, device)
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    _peak_reset(torch, device)
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        want = decode_greedy(torch, cfg, params, model.init_cache(
+            cfg, DECODE_BATCH, DECODE_PROMPT + DECODE_NEW, device=device), prompts,
+            lambda t: t, sync)
+    want.pop("cache")
+    one = {"prefill_ms": want["prefill_ms"], "decode_ms_per_token": want["decode_ms_per_token"],
+           "peak_bytes": _peak(torch, device), "launches": ops.launch_counts()}
+    del params
+    ranks = run_world("decode", DECODE_RANKS, "gloo", device.type, workdir, target=decode_rank)
+    top = float(np.abs(want["logits"]).max())
+    report = {}
+    for label in DECODE_LAYOUTS:
+        metas = [r["meta"]["layouts"][label] for r in ranks]
+        logits = np.zeros_like(want["logits"])
+        tokens = np.zeros_like(want["tokens"])
+        for res, m in zip(ranks, metas):
+            logits[:, m["rows"]] = res[f"{label}/logits"]
+            tokens[m["rows"]] = res[f"{label}/tokens"]
+        err = float(np.abs(logits - want["logits"]).max())
+        report[label] = {"max_abs_err": err, "max_abs_err_rel": err / top,
+                         "tokens_equal": bool(np.array_equal(tokens, want["tokens"])),
+                         "ranks": metas}
+        require(report[label]["tokens_equal"],
+                f"decode.{label}: greedy tokens {tokens.tolist()} vs {want['tokens'].tolist()}")
+        require(err <= DECODE_REL_TOL * top,
+                f"decode.{label}: logits differ by {err} (largest {top})")
+        for m in metas:
+            require(m["cache_placements"] == m["cache_layout"],
+                    f"decode.{label}: the cache left its layout: {m['cache_placements']} vs "
+                    f"{m['cache_layout']}")
+            require(m["launches"]["flash_attention"] == DECODE_LAYERS,
+                    f"decode.{label}: flash launches {m['launches']}; the prefill runs it once "
+                    "a layer")
+    emit({"phase": "decode", "arch": DECODE_ARCH, "layers": DECODE_LAYERS,
+          "d_model": cfg.d_model, "vocab": cfg.vocab, "compute_dtype": cfg.compute_dtype,
+          "batch": DECODE_BATCH, "prompt": DECODE_PROMPT, "new_tokens": DECODE_NEW,
+          "reduced": [f"n_layers 40 -> {DECODE_LAYERS} (every width kept)"],
+          "world": DECODE_RANKS, "backend": "gloo", "mesh": {"data": DECODE_RANKS},
+          "tol_rel": DECODE_REL_TOL, "max_abs_logit": top, "one_device": one,
+          "tokens": want["tokens"].tolist(), "layouts": report,
+          "seconds": time.perf_counter() - t0,
+          "not_shown": "NCCL collectives across cards: two gloo ranks share one card, "
+                       "each all-reduce copied through the host",
+          "name_power_limit": smi})
+
+
 def pp_setup(torch, device):
     """(cfg, the blocks' params, microbatches [M, mb, S, d]) of phase pp:
     minicpm-2b at full width, PP_LAYERS layers, f32 compute, the inputs
@@ -4457,6 +4657,8 @@ DRYRUN_FLOPS_RTOL = 0.01            # the cost pass's FLOPs against the card's c
 DRYRUN_PEAK_RTOL = 0.25             # its peak against torch.cuda.max_memory_allocated
 DRYRUN_CODEC = dict(rank=10, hidden=18, entries=8192)  # MEDIUM widths, entries a step
 DRYRUN_SINGLE_DP = 16               # the single mesh's data-parallel ranks
+DRYRUN_DECODE_CELL = ("qwen1.5-4b", "decode_32k", "single", "auto")
+DRYRUN_CARD_BYTES = 80e9            # one card: the decode cell's predicted peak must fit
 EXAMPLES = ("torch_quickstart.py", "torch_serve_llm.py", "torch_train_lm.py",
             "torch_compressed_checkpoint.py")
 EXAMPLE_TIMEOUT = 420               # seconds an example may take, start-up included
@@ -4489,6 +4691,9 @@ def dryrun_fake(workdir: str) -> None:
     t0 = time.perf_counter()
     out["mamba"] = dryrun.run_cell("mamba2-1.3b", "decode_32k", "single", verbose=False)
     out["mamba"]["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["qwen_decode"] = dryrun.run_cell(*DRYRUN_DECODE_CELL, verbose=False)
+    out["qwen_decode"]["seconds"] = time.perf_counter() - t0
     with open(os.path.join(workdir, "dist", "dryrun_fake.json"), "w") as f:
         json.dump(out, f)
 
@@ -4599,7 +4804,9 @@ def phase_dryrun(torch, device, smi, workdir) -> None:
     peak = tp["memory"]["peak_per_device"]
     peak_rel = abs(peak - real["peak_bytes"]) / max(real["peak_bytes"], 1)
     codec_rel = abs(pred["codec_step"]["flops_per_device"] - codec_flops) / codec_flops
-    cells = {k: pred[k]["status"] for k in ("codec_single", "codec_multi", "mamba")}
+    cells = {k: pred[k]["status"] for k in ("codec_single", "codec_multi", "mamba",
+                                            "qwen_decode")}
+    qwen = pred["qwen_decode"]
     emit({"phase": "dryrun", "arch": TRAIN_ARCH, "layers": TP_LAYERS, "batch": TP_GRAD_BATCH,
           "mesh": "1x1", "backend": real["backend"],
           "flops_predicted": tp["flops_per_device"], "flops_card": real["flops"],
@@ -4617,7 +4824,12 @@ def phase_dryrun(torch, device, smi, workdir) -> None:
           "mamba2_decode_32k_single": {k: pred["mamba"][k] for k in (
               "status", "seconds", "seconds_lower", "seconds_cost_passes", "flops_per_device",
               "hlo_bytes_per_device", "memory", "roofline")},
-          "tol": {"flops_rtol": DRYRUN_FLOPS_RTOL, "peak_rtol": DRYRUN_PEAK_RTOL},
+          "qwen1.5-4b_decode_32k_single": {k: qwen.get(k) for k in (
+              "status", "rules", "seconds", "seconds_cost_passes", "flops_per_device",
+              "hlo_bytes_per_device", "collective_bytes_per_device", "collective_ops",
+              "memory", "roofline")},
+          "tol": {"flops_rtol": DRYRUN_FLOPS_RTOL, "peak_rtol": DRYRUN_PEAK_RTOL,
+                  "decode_cell_peak_bytes_below": DRYRUN_CARD_BYTES},
           "seconds": time.perf_counter() - t0, "name_power_limit": smi})
     require(flops_rel <= DRYRUN_FLOPS_RTOL,
             f"dryrun: predicted FLOPs {tp['flops_per_device']} vs the card's {real['flops']}")
@@ -4627,6 +4839,9 @@ def phase_dryrun(torch, device, smi, workdir) -> None:
             f"dryrun: the codec step's predicted FLOPs {pred['codec_step']['flops_per_device']} "
             f"vs the card's {codec_flops}")
     require(all(v == "ok" for v in cells.values()), f"dryrun: cost cells {cells}")
+    require(qwen["memory"]["peak_per_device"] < DRYRUN_CARD_BYTES,
+            f"dryrun: {DRYRUN_DECODE_CELL} peaks at {qwen['memory']['peak_per_device']} bytes "
+            "a card")
 
 
 def phase_examples(smi, workdir) -> None:
@@ -4805,6 +5020,7 @@ def main() -> int:
         train_launches = phase_train_all(torch, device, smi, workdir)
         dist_launches = phase_dist(torch, device, smi, workdir)
         phase_tp(torch, device, smi, workdir)
+        phase_decode(torch, device, smi, workdir)
         phase_pp(torch, device, smi, workdir)
         phase_dryrun(torch, device, smi, workdir)
         phase_examples(smi, workdir)

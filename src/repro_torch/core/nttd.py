@@ -299,6 +299,12 @@ def make_predict(spec: FoldingSpec, cfg: NTTDConfig):
     return predict
 
 
+# canonical home is repro_torch.codecs.indexing; re-exported here, as the
+# reference does, for callers that import it from nttd (imported after the
+# definitions above: the codecs package imports this module)
+from repro_torch.codecs.indexing import flat_to_multi  # noqa: E402, F401
+
+
 def generate_flat(
     params: Params,
     spec: FoldingSpec,

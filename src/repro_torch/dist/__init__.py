@@ -7,3 +7,4 @@ compressors, on whole or ``DTensor`` leaves) and ``pipeline_parallel``
 ``shard`` constraints, the tensor- and data-parallel LM train step of
 ``train.step`` and ``launch.train --mesh``, the dry-runs' rule check, the
 data-parallel NTTD epoch (``core.codec``) and elastic checkpoint restore."""
+from repro_torch.dist import sharding  # noqa: F401  (the load-bearing module)

@@ -357,7 +357,13 @@ class Shards:
     whole along a split mesh dim (a weight) gets a gradient summed over it,
     each rank having seen only its shard of the work.  ``mesh_tensor``
     wraps a shard back, ``weight`` is a whole ``t`` (all dims mapped to
-    None).  All three are differentiable."""
+    None).  All three are differentiable.
+
+    Work that reduces over a split dim (a softmax over a split vocabulary
+    or kv sequence) combines the shards itself: ``start`` is where this
+    rank's shard begins along a split dim, and ``all_reduce`` reduces a
+    plain tensor in place over the mesh dims that split one (``c10d``
+    all-reduces, which every backend takes, CUDA tensors on gloo too)."""
 
     def __init__(self, mesh, split: tuple[int | None, ...]):
         self.mesh, self.split = mesh, tuple(split)
@@ -384,6 +390,31 @@ class Shards:
 
     def weight(self, w: torch.Tensor) -> torch.Tensor:
         return self.local(w, {d: None for d in self.split if d is not None})
+
+    def mesh_dims(self, d: int) -> list[int]:
+        """The mesh dims (of more than one rank) that split tensor dim
+        ``d``, major to minor."""
+        return [i for i, s in enumerate(self.split) if s == d and self.mesh.size(i) > 1]
+
+    def start(self, d: int, size: int) -> int:
+        """The global index at which this rank's shard of tensor dim ``d``
+        (of ``size`` in all) begins: DTensor splits a dim on several mesh
+        dims major to minor, into even pieces."""
+        coord = self.mesh.get_coordinate()
+        index, count = 0, 1
+        for i in self.mesh_dims(d):
+            n = self.mesh.size(i)
+            index, count = index * n + coord[i], count * n
+        return index * (size // count)
+
+    def all_reduce(self, t: torch.Tensor, op, d: int) -> torch.Tensor:
+        """``t`` (plain) reduced in place by ``op`` (a ``ReduceOp``) over
+        every mesh dim that splits tensor dim ``d``; not differentiable."""
+        import torch.distributed as dist
+
+        for i in self.mesh_dims(d):
+            dist.all_reduce(t, op=op, group=self.mesh.get_group(i))
+        return t
 
 
 def batch_shards(x: torch.Tensor) -> Shards | None:

@@ -174,7 +174,8 @@ def attention(
     q_offset: int = 0,
     kv_len: torch.Tensor | None = None,
     impl: str = "auto",
-) -> torch.Tensor:
+    return_lse: bool = False,
+) -> torch.Tensor | tuple[torch.Tensor, torch.Tensor]:
     """Causal GQA attention, q: [B, Sq, Hq, D]; k, v: [B, Skv, Hkv, D].
 
     "ref"/"chunked" and any call with ``kv_len`` (decode) run the oracle,
@@ -182,8 +183,17 @@ def attention(
     impl pads q and kv to the kernel's 128 tile, masks the padded kv
     columns with ``kv_valid``, runs the flash kernel's wrapper and slices
     the padded rows off.
+
+    ``return_lse`` (with ``kv_len`` only) returns the oracle's ``(out,
+    lse)``: ``out`` in f32 and each row's log-sum-exp, -inf where ``kv_len``
+    leaves no position (``ref.mha_attention``).
     """
     _check_impl(impl, IMPLS + ("chunked",))
+    if return_lse:
+        if kv_len is None:
+            raise ValueError("attention: return_lse needs kv_len (the decode route)")
+        return _ref.mha_attention(q, k, v, causal=causal, q_offset=q_offset, kv_len=kv_len,
+                                  return_lse=True)
     if impl in ("ref", "chunked") or kv_len is not None:
         if kv_len is None and (impl == "chunked" or q.shape[1] >= CHUNKED_THRESHOLD):
             return _ref.mha_attention_chunked(q, k, v, causal=causal, q_offset=q_offset)

@@ -169,7 +169,8 @@ def mha_attention(
     causal: bool = True,
     q_offset: int = 0,
     kv_len: torch.Tensor | None = None,
-) -> torch.Tensor:
+    return_lse: bool = False,
+) -> torch.Tensor | tuple[torch.Tensor, torch.Tensor]:
     """Grouped-query attention oracle.
 
     q: [B, Sq, Hq, D]; k, v: [B, Skv, Hkv, D] with Hq % Hkv == 0.
@@ -177,6 +178,14 @@ def mha_attention(
     ``kv_len``: optional [B] valid kv lengths (entries beyond are masked).
     Softmax in f32; masked logits are f32's lowest value, so a fully
     masked row is a uniform softmax.  Output in ``q.dtype``.
+
+    ``return_lse=True`` returns ``(out, lse)`` instead, for combining the
+    attention of several pieces of one kv sequence (flash-decode): ``out``
+    in f32, not cast, and ``lse`` [B, Sq, Hq], the log-sum-exp of each
+    row's scaled, unmasked scores.  A row with no unmasked position has
+    ``lse = -inf`` and an output of 0, so it weighs nothing in the
+    combination.  Every other row's output is the same as without the
+    flag, before the cast.
     """
     bq, sq, hq, dim = q.shape
     skv, hkv = k.shape[1], k.shape[2]
@@ -197,7 +206,15 @@ def mha_attention(
         logits = torch.where(mask, logits, torch.finfo(F32).min)
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v.to(F32))
-    return out.reshape(bq, sq, hq, dim).to(q.dtype)
+    if not return_lse:
+        return out.reshape(bq, sq, hq, dim).to(q.dtype)
+    lse = torch.logsumexp(logits, dim=-1)  # [B, Hkv, G, Sq]
+    if mask is not None:
+        empty = ~mask.expand(bq, 1, 1, sq, skv).any(-1)  # [B, 1, 1, Sq]
+        lse = lse.masked_fill(empty, -torch.inf)
+        out = out.masked_fill(empty.permute(0, 3, 1, 2)[..., None], 0.0)
+    return (out.reshape(bq, sq, hq, dim),
+            lse.permute(0, 3, 1, 2).reshape(bq, sq, hq))
 
 
 def mha_attention_chunked(

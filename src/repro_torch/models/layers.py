@@ -130,18 +130,92 @@ def softmax_xent(
     logits: torch.Tensor, labels: torch.Tensor, valid_vocab: int | None = None
 ) -> torch.Tensor:
     """Mean token cross-entropy; logits promoted to f32.  ``valid_vocab``
-    masks padded vocabulary columns out of the partition function."""
+    masks padded vocabulary columns out of the partition function.
+    ``DTensor`` logits run vocab-parallel (``_xent_on_mesh``)."""
+    if is_dtensor(logits):
+        return _xent_on_mesh(logits, labels, valid_vocab)
     logits = logits.to(F32)
     if valid_vocab is not None and valid_vocab < logits.shape[-1]:
         mask = torch.arange(logits.shape[-1], device=logits.device) < valid_vocab
         logits = torch.where(mask, logits, -1e30)
     logz = torch.logsumexp(logits, dim=-1)
-    if is_dtensor(logits):
-        # vocab-sharded logits: DTensor's gather over the sharded dim fails
-        # as the embedding's does; the one-hot sum picks the same value
-        # (every other term is 0) and reduces over the shards exactly
-        hit = torch.arange(logits.shape[-1], device=logits.device) == labels[..., None]
-        gold = torch.where(hit, logits, 0.0).sum(-1)
-    else:
-        gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
     return (logz - gold).mean()
+
+
+def _xent_on_mesh(logits: torch.Tensor, labels: torch.Tensor,
+                  valid_vocab: int | None) -> torch.Tensor:
+    """``softmax_xent`` of ``DTensor`` logits [B, S, V], on each rank's
+    plain shard (``Shards``; DTensor's own rules clone a vocab-wide
+    gradient in the backward): Megatron's vocab-parallel cross-entropy.
+    The labels are laid out as the logits' batch and sequence.  The loss
+    comes back replicated."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    mesh = logits.device_mesh
+    logits = logits.redistribute(mesh, [Replicate() if p.is_partial() else p
+                                        for p in logits.placements])
+    shards = Shards(mesh, tuple(p.dim if p.is_shard() else None for p in logits.placements))
+    if not is_dtensor(labels):  # a plain tensor under a mesh is the same on every rank
+        labels = DTensor.from_local(labels, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    loss = _VocabParallelXent.apply(shards.local(logits), shards.local(labels, {2: None}),
+                                    shards, logits.shape, valid_vocab)
+    return DTensor.from_local(loss, mesh, [Replicate()] * mesh.ndim, run_check=False)
+
+
+class _VocabParallelXent(torch.autograd.Function):
+    """The mean cross-entropy of the [B, S, V] logits of which ``x`` is this
+    rank's shard (``shards``' split), ``labels`` its batch and sequence
+    shard of the labels.  Forward: the local max, then an all-reduce (max)
+    over the mesh dims that split the vocabulary; the local sum of
+    ``exp(x - max)``, then an all-reduce (sum); the gold logit, read on the
+    rank whose columns hold the label, then an all-reduce (sum); the sum of
+    the tokens' losses over the mesh dims that split batch and sequence,
+    over B * S.  Columns from ``valid_vocab`` on (global index) are masked
+    to -1e30 as in the plain path.  Backward: ``(softmax - onehot) / (B *
+    S)`` on the local shard alone, with no collective and no vocab-wide
+    tensor."""
+
+    @staticmethod
+    def forward(ctx, x, labels, shards, shape, valid_vocab):
+        import torch.distributed as dist
+
+        cols, idx, hit = _local_columns(x, labels, shards, shape[-1], valid_vocab)
+        xf = x.to(F32)
+        if cols is not None:
+            xf = torch.where(cols, xf, -1e30)
+        top = shards.all_reduce(xf.amax(-1), dist.ReduceOp.MAX, 2)
+        z = shards.all_reduce(torch.exp(xf - top[..., None]).sum(-1), dist.ReduceOp.SUM, 2)
+        logz = top + torch.log(z)
+        gold = torch.gather(xf, -1, idx[..., None])[..., 0]
+        gold = shards.all_reduce(torch.where(hit, gold, 0.0), dist.ReduceOp.SUM, 2)
+        total = (logz - gold).sum()
+        for d in (0, 1):
+            shards.all_reduce(total, dist.ReduceOp.SUM, d)
+        ctx.save_for_backward(x, labels, logz)
+        ctx.shards, ctx.shape, ctx.valid_vocab = shards, shape, valid_vocab
+        return total / (shape[0] * shape[1])
+
+    @staticmethod
+    def backward(ctx, g):
+        x, labels, logz = ctx.saved_tensors
+        cols, idx, hit = _local_columns(x, labels, ctx.shards, ctx.shape[-1], ctx.valid_vocab)
+        grad = x.to(F32, copy=True).sub_(logz[..., None]).exp_()
+        if cols is not None:
+            grad.masked_fill_(~cols, 0.0)
+        grad.scatter_add_(-1, idx[..., None], -hit.to(F32)[..., None])
+        grad.mul_(g / (ctx.shape[0] * ctx.shape[1]))
+        return grad.to(x.dtype), None, None, None, None
+
+
+def _local_columns(x, labels, shards, vocab: int, valid_vocab: int | None):
+    """(the valid-column mask of the local shard, or None where every column
+    is valid; each label's local column, clamped into the shard; whether the
+    shard holds it)."""
+    start = shards.start(2, vocab)
+    cols = None
+    if valid_vocab is not None and valid_vocab < vocab:
+        cols = torch.arange(start, start + x.shape[-1], device=x.device) < valid_vocab
+    local = labels.long() - start
+    hit = (local >= 0) & (local < x.shape[-1])
+    return cols, local.clamp(0, x.shape[-1] - 1), hit

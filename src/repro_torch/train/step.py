@@ -28,10 +28,12 @@ batch by ``batch_shardings`` (``dist.sharding.device_put``), every leaf is
 a ``DTensor`` and DTensor's sharding rules run each operation on the
 shards; the models' ``shard`` constraints lay out the activations as the
 reference's do.  Gradients come back with their masters' placements and
-the metrics replicated.  Where DTensor has no rule the code redistributes
-in plain sight: the embedding table is replicated before its gather and
-the loss picks the gold logit by a one-hot sum (``models.layers``), and
-top-k compression replicates a leaf's magnitudes (``dist.grad_compress``).
+the metrics replicated.  Where DTensor has no rule, or a costly one, the
+code works on each rank's shard in plain sight: the embedding table is
+replicated before its gather, the cross-entropy is vocab-parallel
+(``models.layers``), decode attends each rank's shard of the KV cache
+(``models.attention``), and top-k compression replicates a leaf's
+magnitudes (``dist.grad_compress``).
 """
 from __future__ import annotations
 

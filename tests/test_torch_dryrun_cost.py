@@ -22,6 +22,7 @@ import pytest
 from repro_torch import configs
 from repro_torch.configs.base import SHAPES
 from repro_torch.launch import dryrun
+from repro_torch.models.layers import padded_vocab
 from torch_ranks import run_ranks
 
 from repro import configs as jconfigs
@@ -30,6 +31,7 @@ from repro.configs.base import SHAPES as JSHAPES
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 SRC = os.path.join(ROOT, "src")
 TIMEOUT = 300
+DECODE_LENS = (32, 64)  # a decode step's cache lengths, L and 2L
 REFERENCE_KEYS = {
     "arch", "shape", "mesh", "rules", "status", "n_devices", "n_blocks", "seconds_lower",
     "seconds_compile", "seconds_cost_passes", "remat", "seq_shard", "memory",
@@ -113,9 +115,13 @@ def test_codec_cell_matches_reference(mesh):
 def small_worlds():
     """minicpm-2b's smoke config, batch 8 x 32, on fake worlds of 1 x 1,
     4 x 1 and 2 x 2, and the plain step's ``FlopCounterMode`` count at
-    batch 8 and 2."""
-    res = _python("""
+    batch 8 and 2; on the 2 x 2 world also the train step's largest
+    storage made in its backward (the step under a ``CostCounter`` that
+    notes the storages it tracks while autograd runs), and decode steps at
+    batch 8 and 1 against caches of DECODE_LENS."""
+    res = _python(f"""
         import json, torch
+        from torch._subclasses.fake_tensor import FakeTensorMode
         from torch.utils.flop_counter import FlopCounterMode
         from repro_torch import configs
         from repro_torch.configs.base import ShapeConfig
@@ -125,8 +131,17 @@ def small_worlds():
         from repro_torch.optim import optimizers
         from repro_torch.train import step as step_lib
 
+        class BackwardLargest(dryrun.CostCounter):
+            largest = 0
+
+            def track(self, tree):
+                super().track(tree)
+                if torch._C._current_graph_task_id() != -1:  # inside a backward pass
+                    self.largest = max([self.largest] + [
+                        t.untyped_storage().nbytes() for t in dryrun._tensors(tree)])
+
         cfg = configs.get_smoke("minicpm-2b")
-        out = {}
+        out = {{}}
         for (d, m), batch in (((1, 1), 8), ((4, 1), 8), ((2, 2), 8)):
             dryrun.fake_world(d * m)
             mesh = mesh_lib.make_debug_mesh(d, m, device="cpu")
@@ -137,15 +152,28 @@ def small_worlds():
             r["tree_bytes"] = sum(
                 dryrun.tree_bytes_per_device(sharding.keyed_leaves(s), sharding.keyed_leaves(a))
                 for s, a in trees.values())
-            out[f"{d}x{m}"] = r
+            out[f"{{d}}x{{m}}"] = r
+        fake_mode = FakeTensorMode(allow_non_fake_inputs=True)
+        fn, args, _, _, rules = dryrun.build_cell("minicpm-2b", shape, mesh, "base", cfg=cfg,
+                                                  fake_mode=fake_mode)
+        counter = BackwardLargest()
+        with fake_mode, counter, sharding.sharding_ctx(mesh, rules):
+            fn(*args)
+        out["2x2"]["backward_largest"] = counter.largest
+        out["2x2"]["vocab"] = cfg.vocab
+        for length in {DECODE_LENS!r}:
+            for batch in (8, 1):
+                out[f"decode/{{batch}}/{{length}}"] = dryrun.cost_cell(
+                    "minicpm-2b", ShapeConfig("smoke", length, batch, "decode"), mesh, "base",
+                    cfg=cfg)
         for batch in (8, 2):
             params = model.init_params(cfg, seed=0, device="cpu")
             opt = optimizers.adamw(1e-4, weight_decay=0.1, max_grad_norm=1.0)
             step = step_lib.make_train_step(cfg, opt)
             tokens = torch.randint(0, cfg.vocab, (batch, 32), dtype=torch.int32)
             with FlopCounterMode(display=False) as fc:
-                step(params, opt.init(params), {"tokens": tokens, "labels": tokens})
-            out[f"plain{batch}"] = fc.get_total_flops()
+                step(params, opt.init(params), {{"tokens": tokens, "labels": tokens}})
+            out[f"plain{{batch}}"] = fc.get_total_flops()
         print(json.dumps(out))
     """)
     assert res.returncode == 0, res.stderr[-3000:]
@@ -171,6 +199,31 @@ def test_two_by_two_world(small_worlds):
     assert 0 < got["useful_flops_ratio"] <= 1
     assert got["memory"]["argument_bytes"] == got["tree_bytes"]
     assert got["n_devices"] == 4 and got["hlo_flops_total"] == 4 * got["flops_per_device"]
+
+
+def test_train_backward_holds_no_more_than_one_vocab_shard(small_worlds):
+    """The vocab-parallel cross-entropy's backward writes the logits'
+    gradient into this rank's shard alone: no storage the backward makes
+    is larger than one vocab shard of the f32 logits, [B/dp, S, V/tp]
+    (batch 8 x 32 on 2 x 2: the whole vocabulary's would be twice it)."""
+    got = small_worlds["2x2"]
+    shard = (8 // 2) * 32 * (padded_vocab(got["vocab"]) // 2) * 4
+    assert 0 < got["backward_largest"] <= shard
+
+
+@pytest.mark.parametrize("batch", [8, 1])
+def test_decode_collectives_do_not_grow_with_the_cache(small_worlds, batch):
+    """A decode step on the 2 x 2 world (the serving rules: the cache's
+    length on ``model``; at batch 1, which ``data`` cannot split, on
+    ``data``) moves the same collective bytes against a cache of L and of
+    2L positions: each rank attends its own piece of the cache and only
+    the pieces' outputs and log-sum-exps are reduced.  The cache's
+    argument bytes double."""
+    short, long = (small_worlds[f"decode/{batch}/{n}"] for n in DECODE_LENS)
+    assert short["collective_bytes_per_device"] == long["collective_bytes_per_device"]
+    assert short["collective_ops"] == long["collective_ops"]
+    assert short["collective_ops"].get("c10d.allreduce_", 0) > 0  # the pieces' combination
+    assert long["memory"]["argument_bytes"] > short["memory"]["argument_bytes"]
 
 
 REAL_WORLD = """
@@ -205,13 +258,18 @@ def main():
                                                          rules))
     step = step_lib.make_train_step(cfg, opt)
     state = opt.init(params)
-    counter = dryrun.CostCounter()
-    with CommDebugMode() as comm, counter, sharding.sharding_ctx(mesh, rules):
-        step(params, state, batch)
-    seen = {}
-    for op, n in comm.get_comm_counts().items():
-        kind = dryrun._collective_kind(op)
-        seen[kind] = seen.get(kind, 0) + n
+    seen = {"train": collectives(mesh, rules, step, params, state, batch)}
+    # a decode step at the end of a 32-position cache, laid out as the dry-run lays it
+    shape = ShapeConfig("smoke", 32, 8, "decode")
+    dcfg, _, drules = dryrun._cell_config("minicpm-2b", shape, "base", mesh, cfg)
+    cache = sharding.device_put(model.init_cache(dcfg, 8, 32, device="cpu"),
+                                step_lib.cache_shardings(mesh, dcfg, 8, 32, False, drules))
+    dparams = model.init_params(dcfg, seed=0, device="cpu",
+                                shardings=step_lib.param_shardings(mesh, dcfg, drules))
+    dbatch = sharding.device_put({"tokens": tokens[:, :1]}, step_lib.batch_shardings(
+        mesh, dcfg, {"tokens": 0}, drules))
+    seen["decode"] = collectives(mesh, drules, step_lib.make_decode_step(dcfg), dparams, cache,
+                                 dbatch, 31)
     # the data-parallel codec epoch takes positions laid out as the dry-run lays them
     spec = make_folding_spec((6, 5, 4))
     ep = codec._make_dp_train_step(spec, nttd.NTTDConfig(rank=2, hidden=4), optimizers.adam(1e-2),
@@ -221,9 +279,23 @@ def main():
         mesh, sharding.PartitionSpec(None, sharding.dp_axes(mesh))))
     if RANK == 0:
         print(json.dumps({
-            "comm_counts": seen,
-            "bytes": dryrun.collective_bytes_per_device(counter.collectives),
+            **seen,
             "local_block_equal": bool(torch.equal(ep.local_block(laid), ep.local_block(whole)))}))
+
+
+def collectives(mesh, rules, step, *args):
+    # the collectives of step(*args) on this rank: their kinds' counts as
+    # CommDebugMode sees them, and their bytes as the cost pass counts them
+    import json
+
+    counter = dryrun.CostCounter()
+    with CommDebugMode() as comm, counter, sharding.sharding_ctx(mesh, rules):
+        step(*args)
+    seen = {}
+    for op, n in comm.get_comm_counts().items():
+        kind = dryrun._collective_kind(op)
+        seen[kind] = seen.get(kind, 0) + n
+    return {"comm_counts": seen, "bytes": dryrun.collective_bytes_per_device(counter.collectives)}
 """
 
 
@@ -238,15 +310,27 @@ def real_and_fake(tmp_path_factory):
         from repro_torch.launch import dryrun, mesh as mesh_lib
         dryrun.fake_world(4)
         mesh = mesh_lib.make_debug_mesh(2, 2, device="cpu")
-        print(json.dumps(dryrun.cost_cell("minicpm-2b", ShapeConfig("smoke", 32, 8, "train"),
-                                          mesh, "base", cfg=configs.get_smoke("minicpm-2b"))))
+        print(json.dumps({kind: dryrun.cost_cell(
+            "minicpm-2b", ShapeConfig("smoke", 32, 8, kind), mesh, "base",
+            cfg=configs.get_smoke("minicpm-2b")) for kind in ("train", "decode")}))
     """)
     assert fake.returncode == 0, fake.stderr[-3000:]
     return real, _json_lines(fake.stdout)[0]
 
 
 def test_real_world_collectives_equal_the_fake_pass(real_and_fake):
-    real, fake = real_and_fake
+    _real_equals_fake(real_and_fake, "train")
+
+
+def test_real_world_decode_collectives_equal_the_fake_pass(real_and_fake):
+    """A decode step at the end of its cache: the same kinds, counts and
+    bytes, among them the ``c10d`` all-reduces that combine the pieces of
+    the cache's length."""
+    _real_equals_fake(real_and_fake, "decode")
+
+
+def _real_equals_fake(real_and_fake, kind: str) -> None:
+    real, fake = real_and_fake[0][kind], real_and_fake[1][kind]
     predicted = {}
     for op, n in fake["collective_ops"].items():
         kind = dryrun._collective_kind(op)
@@ -255,6 +339,8 @@ def test_real_world_collectives_equal_the_fake_pass(real_and_fake):
     assert set(predicted) >= {"all-reduce", "all-gather"}
     assert real["bytes"] == fake["collective_bytes_per_device"]
     assert fake["collective_bytes_per_device"]["total"] > 0
+    if kind == "decode":  # the cache's pieces combined: all-reduces of c10d
+        assert fake["collective_ops"].get("c10d.allreduce_", 0) > 0
 
 
 def test_dp_epoch_takes_laid_out_positions(real_and_fake):

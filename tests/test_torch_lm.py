@@ -129,6 +129,55 @@ def test_softmax_xent_matches_jax():
     _close(got, want)
 
 
+@pytest.mark.parametrize("valid_vocab", [None, 200])
+def test_softmax_xent_grad_matches_jax(valid_vocab):
+    """The logits' gradient, ``jax.grad`` of the reference's loss: the
+    oracle that the mesh route's vocab-parallel backward is held to
+    (``tests/test_torch_tp_worlds.py``)."""
+    rng = np.random.default_rng(6)
+    logits, labels = rng.normal(size=(3, 4, 256)) * 3, rng.integers(0, 200, size=(3, 4))
+    x = _t(logits).requires_grad_()
+    layers.softmax_xent(x, torch.from_numpy(labels), valid_vocab=valid_vocab).backward()
+    want = jax.grad(lambda a: jlayers.softmax_xent(a, jnp.asarray(labels), valid_vocab))(
+        jnp.asarray(logits, jnp.float32))
+    _close(x.grad, want, 1e-6)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_oracle_lse_matches_jax_logsumexp(causal):
+    """``mha_attention(..., return_lse=True)``: the output is the
+    reference's oracle's where a row has a valid position, and the
+    log-sum-exp is ``jax.nn.logsumexp`` of the reference's scaled scores
+    over the valid positions; a row with none (``kv_len`` 0, or the causal
+    mask) gets -inf and an output of 0."""
+    from repro.kernels import ref as jref
+    from repro_torch.kernels import ref as tref
+
+    rng = np.random.default_rng(7)
+    b, sq, skv, hq, hkv, d, offset = 3, 3, 9, 4, 2, 8, 2
+    q, k, v = (rng.normal(size=s) for s in ((b, sq, hq, d), (b, skv, hkv, d), (b, skv, hkv, d)))
+    kv_len = np.array([0, 4, 9], np.int32)
+    out, lse = tref.mha_attention(_t(q), _t(k), _t(v), causal=causal, q_offset=offset,
+                                  kv_len=torch.from_numpy(kv_len), return_lse=True)
+    jq, jk, jv = (jnp.asarray(a, jnp.float32) for a in (q, k, v))
+    scores = jnp.einsum("bqhgd,bkhd->bqhgk", (jq / jnp.sqrt(d)).reshape(b, sq, hkv, hq // hkv, d),
+                        jk).reshape(b, sq, hq, skv)
+    valid = np.arange(skv)[None, None, None, :] < kv_len[:, None, None, None]
+    if causal:
+        valid = valid & (np.arange(sq)[:, None] + offset >= np.arange(skv))[None, :, None, :]
+    valid = np.broadcast_to(valid, scores.shape)
+    want_lse = np.asarray(jax.nn.logsumexp(scores, axis=-1, where=jnp.asarray(valid)))
+    empty = ~valid.any(-1)
+    assert empty[0].all() and not empty[1:].any()  # kv_len 0: nothing valid in any row
+    np.testing.assert_array_equal(np.isneginf(lse.numpy()), empty)
+    np.testing.assert_allclose(lse.numpy()[~empty], want_lse[~empty], rtol=TOL, atol=TOL)
+    want = np.asarray(jref.mha_attention(jq, jk, jv, causal=causal, q_offset=offset,
+                                         kv_len=jnp.asarray(kv_len)))
+    assert out.dtype == torch.float32
+    np.testing.assert_array_equal(out.numpy()[empty], 0.0)
+    np.testing.assert_allclose(out.numpy()[~empty], want[~empty], rtol=TOL, atol=TOL)
+
+
 # ---------------------------------------------------------------------------
 # the model: forward, prefill, decode
 # ---------------------------------------------------------------------------

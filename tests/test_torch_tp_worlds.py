@@ -30,6 +30,22 @@ one device in the same rank:
   is near Adam's eps);
 * a vocab-sharded ``embed_lookup`` and its gradient (the lookup bitwise,
   the gradient to 1e-6);
+* prefill then DECODE_TOKENS greedy tokens of qwen1.5-4b's and minicpm-2b's
+  smoke configs (f32) through ``train.step``'s prefill and decode steps,
+  the cache laid out by ``cache_shardings`` three ways: ``batch`` (the
+  base rules: batch on ``data``, KV heads on ``model``), ``kv_seq`` (the
+  serving rules of ``effective_rules``: the cache's length on ``model``)
+  and ``long`` (the long-context rules at batch 1: the length on ``data``
+  through ``long_kv``, the heads on ``model``): the logits at rtol = atol
+  = 1e-5, the tokens equal, and the cache still in its layout after the
+  last token.  The prompt fills 14 of 32 positions, so on a split length
+  the first tokens find the second piece empty and the later ones in use;
+* decode attention against a cache split over its length, with a
+  ``kv_len`` in each row that leaves the second piece empty (3, 16), or
+  not (17, 32): at 1e-6 of the oracle on one device;
+* ``softmax_xent`` of vocab-split logits [4, 6, 256] with ``valid_vocab``
+  200: the loss and the logits' gradient (in the logits' layout) at
+  rtol = atol = 1e-6 of one device's autograd;
 * ``launch.train --mesh 2x2`` with int8 and top-k gradient compression,
   against the one-device launcher (run here) after 3 steps: the losses at
   rtol 1e-4 (the second and third read the updated params) and the params
@@ -46,6 +62,9 @@ from repro_torch.launch import train as tlaunch
 from repro_torch.optim import optimizers as toptim
 
 LOSS_RTOL, PARAM_ATOL, FWD_REL, GRAD_REL, EMBED_GRAD_TOL = 1e-4, 5e-4, 1e-5, 1e-5, 1e-6
+DECODE_ARCHS, DECODE_LAYOUTS, DECODE_TOL = ("qwen1.5-4b", "minicpm-2b"), ("batch", "kv_seq",
+                                                                         "long"), 1e-5
+EMPTY_TOL, XENT_TOL = 1e-6, 1e-6
 JAMBA, JAMBA_GRAD_REL = "jamba-1.5-large-398b", 5e-5  # f32 sums sensitive to their order
 STEP_ARCHS = ("grok-1-314b", "mamba2-1.3b", "jamba-1.5-large-398b",
               "llama4-maverick-400b-a17b", "musicgen-medium")
@@ -57,13 +76,17 @@ WORLD_BODY = """
 import json
 
 from repro_torch import configs
+from repro_torch.configs.base import ShapeConfig
 from repro_torch.dist import sharding
 from repro_torch.dist.sharding import NamedSharding, PartitionSpec
+from repro_torch.kernels import ops
 from repro_torch.launch import train as launcher
 from repro_torch.launch.mesh import make_debug_mesh
-from repro_torch.models import layers, model
+from repro_torch.models import attention, layers, model
 from repro_torch.optim import optimizers
 from repro_torch.train import step as step_lib
+
+DECODE_TOKENS, DECODE_PROMPT, DECODE_MAX_LEN = 4, 14, 32
 
 
 def inputs(cfg, batch, seq):
@@ -149,6 +172,96 @@ def embed(mesh, rules, res):
                                                 for t in (td, td.grad)]))
 
 
+def decode_layout(mesh, cfg, label):
+    # (rules, batch, long_ctx): "batch" the base rules, "kv_seq" and "long"
+    # the serving rules effective_rules makes at batch 4 and at batch 1
+    # (which the data axis cannot split)
+    if label == "batch":
+        return sharding.BASE_RULES, 4, False
+    batch = 4 if label == "kv_seq" else 1
+    rules = step_lib.effective_rules(mesh, ShapeConfig("decode", DECODE_MAX_LEN, batch, "decode"),
+                                     sharding.BASE_RULES, cfg)
+    return rules, batch, rules["batch"] is None
+
+
+def greedy(cfg, params, cache, tokens, put=lambda t: t, whole=lambda t: t):
+    # prefill, then DECODE_TOKENS greedy tokens: (the last position's logits
+    # of each step [DECODE_TOKENS + 1, B, V], the tokens, the cache)
+    prefill, decode = step_lib.make_prefill_step(cfg), step_lib.make_decode_step(cfg)
+    logits, cache = prefill(params, cache, {"tokens": put(tokens)})
+    out, toks = [whole(logits)[:, -1]], []
+    for i in range(DECODE_TOKENS):
+        toks.append(out[-1].argmax(-1)[:, None])
+        logits, cache = decode(params, cache, {"tokens": put(toks[-1])}, tokens.shape[1] + i)
+        out.append(whole(logits)[:, -1])
+    return torch.stack(out), torch.cat(toks, 1), cache
+
+
+def decode_run(mesh, arch, label, res):
+    cfg = configs.get_smoke(arch)
+    rules, batch, long_ctx = decode_layout(mesh, cfg, label)
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab,
+                                                                (batch, DECODE_PROMPT)))
+    with torch.no_grad():
+        want, want_tok, _ = greedy(cfg, model.init_params(cfg, 0, "cpu"), model.init_cache(
+            cfg, batch, DECODE_MAX_LEN, long_ctx, device="cpu"), tokens)
+    params = model.init_params(cfg, 0, "cpu", step_lib.param_shardings(mesh, cfg, rules))
+    layout = step_lib.cache_shardings(mesh, cfg, batch, DECODE_MAX_LEN, long_ctx, rules)
+    cache = sharding.device_put(model.init_cache(cfg, batch, DECODE_MAX_LEN, long_ctx,
+                                                 device="cpu"), layout)
+    put = step_lib.batch_shardings(mesh, cfg, {"tokens": 0}, rules)["tokens"]
+    with sharding.sharding_ctx(mesh, rules):
+        got, got_tok, cache = greedy(cfg, params, cache, tokens,
+                                     lambda t: sharding.distribute(t, put),
+                                     lambda t: t.full_tensor())
+    key = f"{arch}/{label}"
+    res["decode/" + key] = got.numpy()
+    res["decode_want/" + key] = want.numpy()
+    res["decode_tokens/" + key] = np.array([got_tok.numpy(), want_tok.numpy()])
+    res["decode_layout/" + key] = np.array(json.dumps({
+        name: [[p.dim if p.is_shard() else None for p in cache["attn"][name].placements],
+               [p.dim if p.is_shard() else None for p in layout["attn"][name].placements]]
+        for name in ("k", "v")}))
+
+
+def empty_piece(mesh, res):
+    rng = np.random.default_rng(4)
+    q = torch.from_numpy(rng.standard_normal((4, 1, 4, 8), dtype=np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((4, 32, 2, 8), dtype=np.float32))
+            for _ in "kv")
+    kv_len = torch.tensor([3, 16, 17, 32], dtype=torch.int32)  # pieces [0, 16) and [16, 32)
+    want = ops.attention(q, k, v, impl="ref", causal=False, kv_len=kv_len)
+    layout = NamedSharding(mesh, PartitionSpec(None, "data", "model", None))
+    with sharding.sharding_ctx(mesh, sharding.BASE_RULES):
+        qd = sharding.distribute(q, NamedSharding(mesh, PartitionSpec(None, None, "model", None)))
+        got = attention._attend(qd, sharding.distribute(k, layout),
+                                sharding.distribute(v, layout), "ref", causal=False,
+                                kv_len=kv_len)
+    res["empty"] = got.full_tensor().numpy()
+    res["empty/want"] = want.numpy()
+
+
+def xent(mesh, res):
+    rng = np.random.default_rng(5)
+    logits = torch.from_numpy(rng.standard_normal((4, 6, 256), dtype=np.float32) * 3)
+    labels = torch.from_numpy(rng.integers(0, 200, (4, 6)))
+    l1 = logits.clone().requires_grad_()
+    loss1 = layers.softmax_xent(l1, labels, valid_vocab=200)
+    loss1.backward()
+    ld = sharding.distribute(logits, NamedSharding(mesh, PartitionSpec("data", None, "model")))
+    ld.requires_grad_()
+    with sharding.sharding_ctx(mesh, sharding.BASE_RULES):
+        lab = sharding.distribute(labels, NamedSharding(mesh, PartitionSpec("data", None)))
+        loss2 = layers.softmax_xent(ld, lab, valid_vocab=200)
+        loss2.backward()
+    res["xent"] = np.array([float(loss2.detach().full_tensor()), float(loss1.detach())])
+    res["xent/grad"] = ld.grad.full_tensor().numpy()
+    res["xent/grad_want"] = l1.grad.numpy()
+    res["xent/layouts"] = np.array(json.dumps([[p.dim if p.is_shard() else None
+                                                for p in t.placements]
+                                               for t in (ld.grad, loss2)]))
+
+
 def shard_rules(mesh, rules, res):
     # a None axis, and 'mlp' on 3 rows that 'model' (2) does not divide,
     # resolve to Replicate(); 'batch' on 4 rows to Shard(0) on 'data'
@@ -173,6 +286,11 @@ def main():
     for arch in STEP_ARCHS:
         step(mesh, rules, arch, res)
     embed(mesh, rules, res)
+    empty_piece(mesh, res)
+    xent(mesh, res)
+    for arch in DECODE_ARCHS:
+        for label in DECODE_LAYOUTS:
+            decode_run(mesh, arch, label, res)
     for comp in COMPRESSORS:
         run = launcher.run(LAUNCH + ["--grad-compress", comp, "--mesh", "2x2"])
         res["losses/" + comp] = np.array(run.losses)
@@ -193,7 +311,8 @@ def _flat(tree, prefix=""):
 def world(tmp_path_factory):
     out = tmp_path_factory.mktemp("tp_2x2")
     body = (f"STEP_ARCHS = {STEP_ARCHS!r}\nCOMPRESSORS = {COMPRESSORS!r}\n"
-            f"LAUNCH = {LAUNCH!r}\n" + WORLD_BODY)
+            f"LAUNCH = {LAUNCH!r}\nDECODE_ARCHS = {DECODE_ARCHS!r}\n"
+            f"DECODE_LAYOUTS = {DECODE_LAYOUTS!r}\n" + WORLD_BODY)
     run_ranks(out, 4, body)
     return dict(np.load(out / "world.npz"))
 
@@ -236,6 +355,38 @@ def test_vocab_sharded_embed_lookup_and_grad_match_one_device(world):
                                rtol=EMBED_GRAD_TOL, atol=EMBED_GRAD_TOL)
     # the table and its gradient: vocab (dim 0) on 'model', replicated on 'data'
     assert json.loads(str(world["embed/layouts"])) == [[None, 0], [None, 0]]
+
+
+@pytest.mark.parametrize("label", DECODE_LAYOUTS)
+@pytest.mark.parametrize("arch", DECODE_ARCHS)
+def test_sharded_decode_2x2_matches_one_device(world, arch, label):
+    key = f"{arch}/{label}"
+    got, want = world["decode/" + key], world["decode_want/" + key]
+    assert got.shape == want.shape and np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=DECODE_TOL, atol=DECODE_TOL)
+    tokens, want_tokens = world["decode_tokens/" + key]
+    np.testing.assert_array_equal(tokens, want_tokens)
+    # the cache is still laid out as cache_shardings put it: never replicated
+    for name, (after, laid) in json.loads(str(world["decode_layout/" + key])).items():
+        assert after == laid, (name, after, laid)
+    # stacked [blocks, layers, B, S, KV, hd] over (data, model)
+    assert laid == {"batch": [2, 4], "kv_seq": [2, 3], "long": [3, 4]}[label]
+
+
+def test_decode_attention_with_an_empty_kv_piece_matches_one_device(world):
+    got, want = world["empty"], world["empty/want"]
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=EMPTY_TOL, atol=EMPTY_TOL)
+
+
+def test_vocab_parallel_xent_and_grad_match_one_device(world):
+    loss, want = world["xent"]
+    assert loss == pytest.approx(want, rel=XENT_TOL, abs=XENT_TOL)
+    np.testing.assert_allclose(world["xent/grad"], world["xent/grad_want"], rtol=XENT_TOL,
+                               atol=XENT_TOL)
+    # the gradient in the logits' layout (batch on data, vocab on model), the
+    # loss replicated
+    assert json.loads(str(world["xent/layouts"])) == [[0, 2], [None, None]]
 
 
 @pytest.mark.parametrize("comp", COMPRESSORS)
