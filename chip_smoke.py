@@ -286,7 +286,26 @@ Phases, each printing JSON lines:
    within rtol 1e-4 and params within rtol = atol = 2e-3 (the max abs
    errors printed, and the plain repeat's beside them: how far two plain
    runs differ); each route's step ms and peak memory; no kernel
-   launched.  pp (``phase_pp``): minicpm-2b's block stack at full width,
+   launched.  fsdp (``phase_fsdp``, after tp): the train step under
+   ``FSDP_RULES`` on two gloo ranks sharing ``cuda:0`` over a (data 2,
+   model 1) mesh, minicpm-2b at full width cut to 8 layers (f32 compute)
+   and grok-1's smoke config (the expert leaves), batch 8 x 128, against
+   the same step on one device in each rank: every gradient the optimizer
+   gets in its master's placements and local shape, each within 1e-5 of
+   its leaf's largest magnitude, the loss and grad norm within rtol 1e-4,
+   the params after the step within atol 5e-5; each cell's step run
+   again in bf16 compute under ``layout_trace`` runs each leaf's layout
+   node (``sharding.layout_grad``; a stacked leaf's once a block) once,
+   and a node whose gradient came in as a ``Partial`` sum issues one
+   reduce-scatter or all-reduce, in f32, and any other none
+   (``needed_none`` names those: on torch 2.11 the norms, whose
+   gradients come in split over ``data`` and are gathered); the step's
+   other reductions are listed by the autograd node or source line that
+   issued them (``other_reductions``).  Under gloo, torch 2.11's functional
+   all-gather (DTensor's) crashes on CUDA tensors where
+   ``dist.all_gather_into_tensor`` works: the ranks route the first
+   through the second (``route_all_gather_through_c10d``).
+   pp (``phase_pp``): minicpm-2b's block stack at full width,
    8 layers (4 a stage), f32, as a 2-stage GPipe pipeline
    (``dist.pipeline_parallel``) of M = 4 microbatches of 2 x 128 tokens
    on two gloo ranks sharing ``cuda:0`` (each hop copied through the
@@ -319,7 +338,14 @@ Phases, each printing JSON lines:
    ``torch.cuda.max_memory_allocated`` over it, the arguments included.
    The predicted FLOPs must be within 1 % of the counted, the predicted
    peak within 25 % of the card's, the codec step's FLOPs within 1 % of
-   one real "ref" step on the card, and every cost cell ``ok``.
+   one real "ref" step on the card, and every cost cell ``ok``.  The
+   ``long`` cell (``scripts/torch_long_step.py``: minicpm-2b at full width,
+   4 layers, batch 2 x 4096, remat "dots", the q-chunked oracle) too: its
+   predicted peak within 25 % of the card's, and the largest term at the
+   predicted peak made by the oracle (``kernels/ref.py``) at most one
+   512-row chunk's two f32 score blocks (1.21 GB), and what the oracle
+   holds at once over the step at most those, the chunk's mask and its f32
+   operands (``torch_long_step.oracle_bound``).
    examples (``phase_examples``): the four port examples
    (``examples/torch_*.py``) at their default sizes on the card, as
    subprocesses started together; each must exit 0, and their printed
@@ -382,6 +408,7 @@ import sys
 import tempfile
 import time
 import traceback
+from collections import Counter
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
@@ -4342,6 +4369,310 @@ def phase_tp(torch, device, smi, workdir) -> None:
           "not_shown": "NCCL collectives across cards", "name_power_limit": smi})
 
 
+FSDP_RANKS = 2                      # gloo ranks on cuda:0: a (data 2, model 1) mesh
+FSDP_CELLS = ((TRAIN_ARCH, TP_LAYERS), ("grok-1-314b", None))  # layers; None: smoke config
+FSDP_COUNTED_DTYPE = "bfloat16"     # the compute dtype of the step whose collectives are traced
+FSDP_REDUCTIONS = ("all-reduce", "reduce-scatter")
+
+
+def route_all_gather_through_c10d(torch, device_type: str):
+    """Under gloo, torch 2.11's functional all-gather (the one DTensor's
+    redistributes call) crashes on CUDA tensors, while
+    ``dist.all_gather_into_tensor`` works: this process's functional
+    all-gather of ``device_type`` tensors calls the second.  Returns the
+    registration, which lasts while it is referenced."""
+    import torch.distributed as dist
+    from torch.distributed import distributed_c10d
+
+    def all_gather(x, group_size, group_name):
+        out = x.new_empty((x.shape[0] * group_size, *x.shape[1:]))
+        dist.all_gather_into_tensor(out, x.contiguous(),
+                                    group=distributed_c10d._resolve_process_group(group_name))
+        return out
+
+    lib = torch.library.Library("_c10d_functional", "IMPL")
+    lib.impl("all_gather_into_tensor", all_gather, "CUDA" if device_type == "cuda" else "CPU")
+    return lib
+
+
+@contextlib.contextmanager
+def layout_trace(torch, params):
+    """Trace the collectives of one train step on ``params`` (``DTensor``
+    masters): yields ``(counter, nodes)``.  ``counter``, a ``CostCounter``,
+    records every collective and ``counter.where`` where each was issued:
+    the autograd node it ran in (the backward pass) or the port's source
+    line (the forward).  Each layout node of a master's gradient (one a
+    leaf outside the blocks, one a block's slice of a stacked leaf; made
+    by ``sharding.layout_grad``) appends to ``nodes`` its leaf, its block,
+    the placements its gradient came in with and those it lays it out
+    in, whether it came in as a ``Partial`` sum over a mesh dim of more
+    than one rank, and the indexes in ``counter.collectives`` of what it
+    issued."""
+    from repro_torch.dist import sharding
+    from repro_torch.launch import dryrun
+    from repro_torch.models import transformer
+
+    port = os.path.dirname(os.path.dirname(dryrun.__file__))
+
+    def site() -> str:
+        f = sys._getframe(2)
+        while f is not None:
+            name = f.f_code.co_filename
+            if name.startswith(port) and name != dryrun.__file__:
+                return f"{os.path.relpath(name, port)}:{f.f_lineno} ({f.f_code.co_name})"
+            f = f.f_back
+        return "other"
+
+    class Traced(dryrun.CostCounter):
+        def __init__(self):
+            super().__init__()
+            self.where: list[str] = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = super().__torch_dispatch__(func, types, args, kwargs)
+            if len(self.collectives) > len(self.where):
+                node = torch._C._current_autograd_node()
+                here = node.name() if node is not None else site()
+                self.where += [here] * (len(self.collectives) - len(self.where))
+            return out
+
+    with torch.no_grad():
+        leaf_of = {v.to_local().untyped_storage().data_ptr(): k
+                   for k, v in sharding.keyed_leaves(params).items()}
+    counter, nodes = Traced(), []
+    layout, backward = sharding.layout_grad, sharding._ForwardLayoutGrad.backward
+
+    def named_layout(t):
+        out = layout(t)
+        if out is not t:
+            with torch.no_grad():
+                local = t.to_local()
+            key = leaf_of.get(local.untyped_storage().data_ptr(), "?")
+            block = (local.storage_offset() // max(local.numel(), 1)
+                     if key.startswith("['blocks']") else None)
+            out.grad_fn.layout_leaf = (key, block)
+        return out
+
+    def counted_backward(ctx, g):
+        start = len(counter.collectives)
+        out = backward(ctx, g)
+        if hasattr(ctx, "layout_leaf"):
+            mesh = g.device_mesh
+            nodes.append({"leaf": ctx.layout_leaf[0], "block": ctx.layout_leaf[1],
+                          "came_in": [str(p) for p in g.placements],
+                          "laid_as": [str(p) for p in ctx.placements],
+                          "partial": any(p.is_partial() and mesh.size(i) > 1
+                                         for i, p in enumerate(g.placements)),
+                          "issued": list(range(start, len(counter.collectives)))})
+        return out
+
+    sharding.layout_grad = transformer.layout_grad = named_layout
+    sharding._ForwardLayoutGrad.backward = staticmethod(counted_backward)
+    try:
+        with counter:
+            yield counter, nodes
+    finally:
+        sharding.layout_grad = transformer.layout_grad = layout
+        sharding._ForwardLayoutGrad.backward = staticmethod(backward)
+
+
+def layout_reductions(counter, nodes, masters: dict, n_blocks: int) -> dict:
+    """What ``layout_trace`` saw, checked: each leaf's layout node, a
+    stacked leaf's once a block, ran once (``nodes_wrong``: the (leaf,
+    block)s that ran another number of times); a node whose gradient came
+    in as a ``Partial`` sum issued one reduction (all-reduce or
+    reduce-scatter), in f32, and one that did not issued none
+    (``reductions_wrong``; a gradient that came in whole, split where its
+    master is not, is gathered: no reduction); the leaves that needed no
+    reduction, by name, with their nodes' count, placements and what they
+    issued; and every other reduction of the step by where it was issued,
+    kind and dtype (count, bytes)."""
+    want = Counter({(k, b): 1 for k in masters
+                    for b in (range(n_blocks) if k.startswith("['blocks']") else (None,))})
+    ran = Counter((n["leaf"], n["block"]) for n in nodes)
+    wrong, none = [], {}
+    for n in nodes:
+        issued = [counter.collectives[i] for i in n["issued"]]
+        reduced = [dtype for kind, dtype, _ in issued if kind in FSDP_REDUCTIONS]
+        if reduced != (["torch.float32"] if n["partial"] else []):
+            wrong.append([n["leaf"], n["block"], n["came_in"], n["laid_as"], issued])
+        if not n["partial"]:
+            c = none.setdefault(n["leaf"], {"nodes": 0, "came_in": n["came_in"],
+                                            "laid_as": n["laid_as"], "issued": Counter()})
+            c["nodes"] += 1
+            c["issued"].update(f"{kind} {dtype.replace('torch.', '')}" for kind, dtype, _ in issued)
+    in_nodes = {i for n in nodes for i in n["issued"]}
+    others: dict = {}
+    for i, ((kind, dtype, nbytes), where) in enumerate(zip(counter.collectives, counter.where)):
+        if i not in in_nodes and kind in FSDP_REDUCTIONS:
+            c = others.setdefault(f"{where} {kind} {dtype.replace('torch.', '')}", [0, 0])
+            c[0] += 1
+            c[1] += nbytes
+    return {"layout_nodes": sum(ran.values()), "layout_nodes_expected": sum(want.values()),
+            "nodes_wrong": [[k, b, ran[(k, b)]] for k, b in (want | ran) if ran[(k, b)] != 1],
+            "reductions_wrong": wrong,
+            "gradient_reductions": sum(kind in FSDP_REDUCTIONS for n in nodes
+                                       for kind, _, _ in (counter.collectives[i]
+                                                          for i in n["issued"])),
+            "needed_none": {k: {**v, "issued": dict(v["issued"])} for k, v in none.items()},
+            "other_reductions": dict(sorted(others.items(), key=lambda kv: -kv[1][1]))}
+
+
+def fsdp_config(arch: str, layers: int | None, compute_dtype: str = "float32"):
+    """The fsdp world's config: ``arch`` at full width cut to ``layers``,
+    or its smoke config, in ``compute_dtype`` (f32 for the comparison with
+    one device at f32 tolerances)."""
+    from repro_torch import configs
+
+    if layers is None:
+        cfg = configs.get_smoke(arch)
+    else:
+        with depth_cut(configs, layers):
+            cfg = configs.get(arch)
+    return dataclasses.replace(cfg, compute_dtype=compute_dtype)
+
+
+def fsdp_rank(rank: int, world: int, backend: str, device_type: str, workdir: str,
+              name: str) -> None:
+    """World ``fsdp``'s rank: for each of FSDP_CELLS the train step on one
+    device, then on a (data ``world``, model 1) mesh under ``FSDP_RULES``
+    twice: in FSDP_COUNTED_DTYPE compute under ``layout_trace`` (its
+    collectives), and with a ``grad_transform`` hook that keeps each
+    gradient's local shard and placements; writes the layouts that differ
+    from the masters', each gradient's and param's largest difference from
+    one device's, the metrics and the traced reductions."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.dist import sharding
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import model
+    from repro_torch.optim import optimizers
+    from repro_torch.train import step as step_lib
+
+    device = _join_group(torch, rank, world, backend, device_type, workdir, name)
+    registration = route_all_gather_through_c10d(torch, device.type)
+    try:
+        mesh = mesh_lib.make_debug_mesh(world, 1, device=device.type)
+        rules = sharding.FSDP_RULES
+        meta = {"rank": rank, "backend": dist.get_backend(), "world": world, "cells": {}}
+        for arch, layers in FSDP_CELLS:
+            _peak_reset(torch, device)
+            cfg = fsdp_config(arch, layers)
+            tokens = torch.as_tensor(np.random.default_rng(SEED).integers(
+                0, cfg.vocab, TP_GRAD_BATCH), device=device)
+            batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, 1)}
+            opt = optimizers.adamw(TRAIN_LR, weight_decay=0.1, max_grad_norm=1.0)
+            want = {}
+
+            def whole(g):  # copies: the update clips the gradients in place
+                want.update({k: v.clone() for k, v in sharding.keyed_leaves(g).items()})
+                return g
+
+            params = model.init_params(cfg, SEED, device)
+            params, _, m1 = step_lib.make_train_step(cfg, opt, whole)(params, opt.init(params),
+                                                                     batch)
+            params = sharding.keyed_leaves(params)
+
+            def mesh_step(cfg, hook=None, trace=None):
+                p = model.init_params(cfg, SEED, device, step_lib.param_shardings(mesh, cfg,
+                                                                                  rules))
+                state = sharding.device_put(opt.init(p), step_lib.opt_shardings(mesh, cfg, rules))
+                b = sharding.device_put(batch, step_lib.batch_shardings(mesh, cfg, batch, rules))
+                masters = {k: ([str(x) for x in v.placements], list(v.to_local().shape))
+                           for k, v in sharding.keyed_leaves(p).items()}
+                traced = trace is not None
+                with sharding.sharding_ctx(mesh, rules), (
+                        layout_trace(torch, p) if traced else contextlib.nullcontext()) as t:
+                    p, _, m = step_lib.make_train_step(cfg, opt, hook)(p, state, b)
+                if traced:
+                    trace.update(layout_reductions(*t, masters, cfg.n_blocks))
+                return p, m, masters
+
+            # the step's collectives, traced in the production compute dtype
+            traced = {}
+            mesh_step(fsdp_config(arch, layers, FSDP_COUNTED_DTYPE), trace=traced)
+            shards = {}
+
+            def keep(g):
+                shards.update({k: (v.to_local().clone(), v.placements, v.shape, v.stride())
+                               for k, v in sharding.keyed_leaves(g).items()})
+                return g
+
+            got, m2, masters = mesh_step(cfg, keep)
+            laid = {k: ([str(x) for x in placements], list(local.shape))
+                    for k, (local, placements, _, _) in shards.items()}
+            grad_rel = {}
+            for k, (local, placements, shape, stride) in shards.items():
+                full = DTensor.from_local(local, mesh, placements, run_check=False, shape=shape,
+                                          stride=stride).full_tensor()
+                grad_rel[k] = float((full - want[k]).abs().max()) / max(
+                    float(want[k].abs().max()), 1e-30)
+            param_err = {k: float((v.full_tensor() - params[k]).abs().max())
+                         for k, v in sharding.keyed_leaves(got).items()}
+            meta["cells"][arch] = {
+                "layers": cfg.n_layers, "n_blocks": cfg.n_blocks, "d_model": cfg.d_model,
+                "compute_dtype": cfg.compute_dtype, "family": cfg.family,
+                "layout_wrong": {k: [masters[k], v] for k, v in laid.items() if v != masters[k]},
+                "leaves": len(masters), "traced_compute_dtype": FSDP_COUNTED_DTYPE,
+                **traced,
+                "grad_max_rel_err": max(grad_rel.values()),
+                "grad_max_rel_err_leaf": max(grad_rel, key=grad_rel.get),
+                "param_max_abs_err": max(param_err.values()),
+                "param_max_abs_err_leaf": max(param_err, key=param_err.get),
+                "loss_mesh": float(m2["loss"].full_tensor()), "loss_one": float(m1["loss"]),
+                "grad_norm_mesh": float(m2["grad_norm"].full_tensor()),
+                "grad_norm_one": float(m1["grad_norm"]), "peak_bytes": _peak(torch, device)}
+            del params, got, want, shards
+        np.savez(os.path.join(workdir, "dist", f"{name}{rank}.npz"),
+                 meta=np.array(json.dumps(meta)))
+    finally:
+        del registration
+        dist.destroy_process_group()
+
+
+def phase_fsdp(torch, device, smi, workdir) -> None:
+    """The train step under ``FSDP_RULES`` on FSDP_RANKS gloo ranks sharing
+    ``cuda:0`` (``fsdp_rank``), each held against one device: gradients in
+    their masters' layout and values, params after the step; and in bf16
+    compute each gradient reduced once, in f32, by its layout node where it
+    came in as a ``Partial`` sum (``layout_reductions``)."""
+    t0 = time.perf_counter()
+    os.makedirs(os.path.join(workdir, "dist"), exist_ok=True)
+    ranks = run_world("fsdp", FSDP_RANKS, "gloo", device.type, workdir, target=fsdp_rank)
+    for res in ranks:
+        for arch, c in res["meta"]["cells"].items():
+            where = f"fsdp.{arch} rank {res['meta']['rank']}"
+            require(not c["layout_wrong"],
+                    f"{where}: gradients not laid out as their masters: {c['layout_wrong']}")
+            require(c["grad_max_rel_err"] <= TP_GRAD_REL,
+                    f"{where}: gradients differ by {c['grad_max_rel_err']} of a leaf's largest "
+                    f"({c['grad_max_rel_err_leaf']})")
+            for m in ("loss", "grad_norm"):
+                rel = abs(c[f"{m}_mesh"] - c[f"{m}_one"]) / abs(c[f"{m}_one"])
+                require(rel <= TP_LOSS_RTOL, f"{where}: {m} {c[f'{m}_mesh']} vs {c[f'{m}_one']}")
+            require(c["param_max_abs_err"] <= TP_PARAM_TOL["atol"],
+                    f"{where}: params differ by {c['param_max_abs_err']} "
+                    f"({c['param_max_abs_err_leaf']})")
+            require(not c["nodes_wrong"],
+                    f"{where}: layout nodes [leaf, block, ran] not run once: {c['nodes_wrong']}")
+            require(not c["reductions_wrong"],
+                    f"{where}: gradients [leaf, block, came in, laid out as, issued] not "
+                    f"reduced once in f32 where partial (else not at all): "
+                    f"{c['reductions_wrong'][:8]}")
+    emit({"phase": "fsdp", "world": FSDP_RANKS, "backend": "gloo",
+          "mesh": {"data": FSDP_RANKS, "model": 1}, "rules": "fsdp", "batch": TP_GRAD_BATCH,
+          "reduced": [f"{TRAIN_ARCH}: n_layers 40 -> {TP_LAYERS} (every width kept), f32 "
+                      f"compute (the traced step: {FSDP_COUNTED_DTYPE})",
+                      "grok-1-314b: its smoke config"],
+          "tol": {"grad_rel": TP_GRAD_REL, "loss_rtol": TP_LOSS_RTOL, **TP_PARAM_TOL},
+          "ranks": [r["meta"] for r in ranks], "seconds": time.perf_counter() - t0,
+          "not_shown": "NCCL collectives across cards: two gloo ranks share one card, each "
+                       "collective copied through the host", "name_power_limit": smi})
+
+
 DECODE_ARCH = "qwen1.5-4b"
 DECODE_LAYERS = 4                   # of qwen1.5-4b's 40 (every width kept)
 DECODE_BATCH, DECODE_PROMPT, DECODE_NEW = 4, 256, 8
@@ -4664,6 +4995,16 @@ EXAMPLES = ("torch_quickstart.py", "torch_serve_llm.py", "torch_train_lm.py",
 EXAMPLE_TIMEOUT = 420               # seconds an example may take, start-up included
 
 
+def long_step_script():
+    """``scripts/torch_long_step.py``, the long cell's cost pass and step."""
+    scripts = os.path.join(ROOT, "scripts")
+    if scripts not in sys.path:
+        sys.path.insert(0, scripts)
+    import torch_long_step
+
+    return torch_long_step
+
+
 def dryrun_fake(workdir: str) -> None:
     """Phase dryrun's cost passes, in fake process groups of this spawned
     process; writes ``workdir/dist/dryrun_fake.json``."""
@@ -4681,6 +5022,9 @@ def dryrun_fake(workdir: str) -> None:
     out["tp"] = dryrun.cost_cell(TRAIN_ARCH, shape, mesh_lib.make_debug_mesh(1, 1, device="cpu"),
                                  "base", cfg=cfg)
     out["tp"]["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["long"] = long_step_script().cost()
+    out["long"]["seconds"] = time.perf_counter() - t0
     c = DRYRUN_CODEC
     out["codec_step"] = dryrun_codec.run("single", "ref", c["entries"] * DRYRUN_SINGLE_DP, 1,
                                          c["rank"], c["hidden"], PEMS_SHAPE, verbose=False)
@@ -4743,6 +5087,10 @@ def dryrun_rank(rank: int, world: int, backend: str, device_type: str, workdir: 
         meta = {"flops": counter.get_total_flops(), "peak_bytes": _peak(torch, device),
                 "allocated_before_bytes": before, "world": dist.get_world_size(),
                 "backend": dist.get_backend()}
+        del params, state, batch, step
+        if device.type == "cuda":  # the long cell's step: its own peak
+            _peak_reset(torch, device)
+            meta["long"] = long_step_script().card_step(torch, seed=SEED)
         np.savez(os.path.join(workdir, "dist", f"{name}{rank}.npz"),
                  meta=np.array(json.dumps(meta)))
     finally:
@@ -4807,6 +5155,23 @@ def phase_dryrun(torch, device, smi, workdir) -> None:
     cells = {k: pred[k]["status"] for k in ("codec_single", "codec_multi", "mamba",
                                             "qwen_decode")}
     qwen = pred["qwen_decode"]
+    long = pred["long"]
+    long_card = real.get("long", {"peak_bytes": 0})
+    long_rel = abs(long["peak_bytes"] - long_card["peak_bytes"]) / max(long_card["peak_bytes"], 1)
+    block = long["score_block_bytes"]
+    attention = (long["attention_term"] or {"bytes": 0})["bytes"]
+    cell = long_step_script().CELL
+    emit({"phase": "dryrun.long", **cell,
+          "reduced": [f"n_layers 40 -> {cell['layers']} (every width kept)"],
+          "mesh": "1x1", "peak_predicted_bytes": long["peak_bytes"],
+          "peak_card_bytes": long_card["peak_bytes"], "peak_rel_err": long_rel,
+          "loss_card": long_card.get("loss"), "flops_predicted": long["flops"],
+          "score_block_bytes": block, "attention_term": long["attention_term"],
+          "oracle_most_bytes": long["oracle_most_bytes"],
+          "oracle_most_score_blocks": long["oracle_most_bytes"] / block,
+          "oracle_bound_bytes": long["oracle_bound_bytes"],
+          "peak_terms": long["peak_terms"], "predicted_memory": long["memory"],
+          "cost_pass_seconds": long["seconds"], "name_power_limit": smi})
     emit({"phase": "dryrun", "arch": TRAIN_ARCH, "layers": TP_LAYERS, "batch": TP_GRAD_BATCH,
           "mesh": "1x1", "backend": real["backend"],
           "flops_predicted": tp["flops_per_device"], "flops_card": real["flops"],
@@ -4839,6 +5204,15 @@ def phase_dryrun(torch, device, smi, workdir) -> None:
             f"dryrun: the codec step's predicted FLOPs {pred['codec_step']['flops_per_device']} "
             f"vs the card's {codec_flops}")
     require(all(v == "ok" for v in cells.values()), f"dryrun: cost cells {cells}")
+    require(long_rel <= DRYRUN_PEAK_RTOL,
+            f"dryrun.long: predicted peak {long['peak_bytes']} vs the card's "
+            f"{long_card['peak_bytes']}")
+    require(attention <= 2 * block,
+            f"dryrun.long: the oracle's largest term at the peak is {attention} bytes, more "
+            f"than one chunk's two f32 score blocks ({2 * block})")
+    require(long["oracle_most_bytes"] <= long["oracle_bound_bytes"],
+            f"dryrun.long: the oracle holds {long['oracle_most_bytes']} bytes at once, more "
+            f"than one chunk's score blocks and operands ({long['oracle_bound_bytes']})")
     require(qwen["memory"]["peak_per_device"] < DRYRUN_CARD_BYTES,
             f"dryrun: {DRYRUN_DECODE_CELL} peaks at {qwen['memory']['peak_per_device']} bytes "
             "a card")
@@ -5020,6 +5394,7 @@ def main() -> int:
         train_launches = phase_train_all(torch, device, smi, workdir)
         dist_launches = phase_dist(torch, device, smi, workdir)
         phase_tp(torch, device, smi, workdir)
+        phase_fsdp(torch, device, smi, workdir)
         phase_decode(torch, device, smi, workdir)
         phase_pp(torch, device, smi, workdir)
         phase_dryrun(torch, device, smi, workdir)

@@ -34,7 +34,7 @@ TERMS = 6                 # groups kept at the peak
 SNAPSHOT_GROWTH = 1.01    # a new snapshot once the live bytes pass the last by 1 %
 
 
-def _counter_class():
+def counter_class():
     """A ``CostCounter`` that notes where each storage it tracks was made
     and groups the live ones at its peak."""
     from repro_torch.launch import dryrun
@@ -55,8 +55,8 @@ def _counter_class():
     class PeakTerms(dryrun.CostCounter):
         last = None
 
-        def __init__(self):
-            super().__init__()
+        def __init__(self, **kwargs):
+            super().__init__(**kwargs)
             self.where: dict[int, tuple[str, int, str]] = {}
             self.terms: list = []
             self._snap = 0
@@ -89,7 +89,7 @@ def _cell(job) -> dict:
     arch, shape, mesh, rules = job
     from repro_torch.launch import dryrun
 
-    dryrun.CostCounter = _counter_class()  # a process runs one cell
+    dryrun.CostCounter = counter_class()  # a process runs one cell
     t0 = time.perf_counter()
     try:
         res = dryrun.run_cell(arch, shape, mesh, rules, verbose=False)

@@ -307,15 +307,19 @@ _CTX = threading.local()
 @contextlib.contextmanager
 def sharding_ctx(mesh, rules: dict):
     """Bind (mesh, rules) for the ``shard`` constraints run inside; on a
-    ``DeviceMesh``, plain tensors meeting ``DTensor``s count as replicated."""
+    ``DeviceMesh``, plain tensors meeting ``DTensor``s count as replicated.
+    Nested inside another, it leaves DTensor's implicit replication on as
+    it found it (torch's context turns it off when it exits)."""
     prev = getattr(_CTX, "val", None)
     _CTX.val = (mesh, dict(rules))
     try:
         with contextlib.ExitStack() as stack:
             if hasattr(mesh, "mesh_dim_names"):
+                from torch.distributed.tensor import DTensor
                 from torch.distributed.tensor.experimental import implicit_replication
 
-                stack.enter_context(implicit_replication())
+                if not DTensor._op_dispatcher._allow_implicit_replication:
+                    stack.enter_context(implicit_replication())
             yield
     finally:
         _CTX.val = prev
@@ -389,7 +393,14 @@ class Shards:
                                   run_check=False)
 
     def weight(self, w: torch.Tensor) -> torch.Tensor:
-        return self.local(w, {d: None for d in self.split if d is not None})
+        """``w`` whole on every rank, as a plain tensor.  Its gradient stays
+        the ``Partial`` sum over the mesh dims that split the work (laid out
+        as ``w`` on the others), which the train step's layout step
+        (``layout_grad``) reduces once with the leaf's other contributions
+        (a tied embedding table's lookup and unembedding)."""
+        dims = {d: None for d in self.split if d is not None}
+        whole = _GatherGradPartial.apply(w, self._placements(dims))
+        return whole.to_local(grad_placements=self._placements(dims, grad=True))
 
     def mesh_dims(self, d: int) -> list[int]:
         """The mesh dims (of more than one rank) that split tensor dim
@@ -442,6 +453,23 @@ def leading_shards(x: torch.Tensor) -> Shards:
                                        for p in x.placements))
 
 
+class _GatherGradPartial(torch.autograd.Function):
+    """``w`` redistributed to ``placements`` (``Shards.weight``); its
+    gradient comes back in ``w``'s placements where it is not a ``Partial``
+    sum, and stays one where it is."""
+
+    @staticmethod
+    def forward(ctx, w, placements):
+        ctx.mesh, ctx.placements = w.device_mesh, w.placements
+        return w.redistribute(w.device_mesh, placements)
+
+    @staticmethod
+    def backward(ctx, g):
+        keep = [gp if gp.is_partial() else wp
+                for gp, wp in zip(g.placements, ctx.placements)]
+        return g.redistribute(ctx.mesh, keep), None
+
+
 class _ForwardLayoutGrad(torch.autograd.Function):
     """Identity on a ``DTensor`` whose gradient is laid out as the tensor
     was in the forward pass (replicated where the tensor was a partial
@@ -458,6 +486,17 @@ class _ForwardLayoutGrad(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g.redistribute(ctx.mesh, ctx.placements)
+
+
+def layout_grad(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself, whose gradient is laid out as ``t`` is: the ``Partial``
+    sum autograd makes over the mesh dims that split the batch is reduced
+    there, once, reduce-scattered onto a dim that splits ``t`` and
+    all-reduced elsewhere.  A plain tensor, or one that needs no gradient,
+    is returned as it is."""
+    if not is_dtensor(t) or not t.requires_grad:
+        return t
+    return _ForwardLayoutGrad.apply(t)
 
 
 def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -14,7 +14,10 @@ reference's gradients are ``jax.grad`` of its oracles.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+import torch.utils.checkpoint
 
 F32 = torch.float32
 
@@ -226,19 +229,33 @@ def mha_attention_chunked(
     q_offset: int = 0,
     chunk: int = 512,
 ) -> torch.Tensor:
-    """Memory-bounded exact attention: ``mha_attention`` over q chunks.
+    """Memory-bounded exact attention: ``mha_attention`` over q chunks,
+    each rematerialised.
 
     The [B, H, chunk, Skv] score block is the peak transient instead of
-    [B, H, Sq, Skv].  A ragged tail (Sq % chunk) is attended as its own
-    chunk, as in the reference.
+    [B, H, Sq, Skv], in the backward pass too: with autograd on, each full
+    chunk runs under a non-reentrant ``torch.utils.checkpoint``, which
+    keeps only the chunk's inputs and recomputes its scores and
+    probabilities when its gradient is taken, as the reference wraps its
+    scan body in ``jax.checkpoint``.  A ragged tail (Sq % chunk) is
+    attended as its own chunk, outside the checkpoint, as in the
+    reference.  The output is the same with autograd on or off.
     """
     sq = q.shape[1]
     if sq <= chunk:
         return mha_attention(q, k, v, causal=causal, q_offset=q_offset)
-    outs = [
-        mha_attention(q[:, s : s + chunk], k, v, causal=causal, q_offset=q_offset + s)
-        for s in range(0, sq, chunk)
-    ]
+    aligned = sq - sq % chunk
+    remat = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
+    outs = []
+    for s in range(0, aligned, chunk):
+        fn = functools.partial(mha_attention, causal=causal, q_offset=q_offset + s)
+        qc = q[:, s : s + chunk]
+        outs.append(torch.utils.checkpoint.checkpoint(
+            fn, qc, k, v, use_reentrant=False, preserve_rng_state=False)
+            if remat else fn(qc, k, v))
+    if aligned < sq:
+        outs.append(mha_attention(q[:, aligned:], k, v, causal=causal,
+                                  q_offset=q_offset + aligned))
     return torch.cat(outs, dim=1)
 
 

@@ -157,9 +157,13 @@ class CostCounter(torch.utils._python_dispatch.TorchDispatchMode):
     stride (on fake or meta tensors of the global shapes, from its module
     ``_sharding_prop``).  The FLOP formulas and the decomposition of operators
     they lack are ``FlopCounterMode``'s, so on one device the count is
-    that mode's."""
+    that mode's.
 
-    def __init__(self):
+    ``under``, a source file: ``peak_under`` is then the most live bytes at
+    once of the storages made with a frame of that file on the stack (what
+    one module holds, e.g. ``kernels/ref.py``'s attention oracle)."""
+
+    def __init__(self, under: str | None = None):
         super().__init__()
         from torch.utils.flop_counter import FlopCounterMode
 
@@ -170,9 +174,12 @@ class CostCounter(torch.utils._python_dispatch.TorchDispatchMode):
         self.op_counts: Counter = Counter()
         self.live = self.peak = 0
         self._storages: dict[int, weakref.ref] = {}
+        self._under, self._made_under = under, set()
+        self.live_under = self.peak_under = 0
 
     def track(self, tree) -> None:
         """Count the storages of ``tree``'s tensors as live."""
+        made = {}
         for t in _tensors(tree):
             st = t.untyped_storage()
             key = id(st)
@@ -180,11 +187,19 @@ class CostCounter(torch.utils._python_dispatch.TorchDispatchMode):
                 self._storages[key] = weakref.ref(
                     st, functools.partial(self._free, key, st.nbytes()))
                 self.live += st.nbytes()
+                made[key] = st.nbytes()
         self.peak = max(self.peak, self.live)
+        if made and self._under is not None and _on_stack(self._under):
+            self._made_under.update(made)
+            self.live_under += sum(made.values())
+            self.peak_under = max(self.peak_under, self.live_under)
 
     def _free(self, key: int, n: int, _ref) -> None:
         if self._storages.pop(key, None) is not None:
             self.live -= n
+            if key in self._made_under:
+                self._made_under.discard(key)
+                self.live_under -= n
 
     def storages(self, tree) -> set:
         return {id(t.untyped_storage()) for t in _tensors(tree)}
@@ -217,6 +232,13 @@ class CostCounter(torch.utils._python_dispatch.TorchDispatchMode):
             self.bytes += _nbytes(ins) + _nbytes(out)
         self.track(out)
         return out
+
+
+def _on_stack(filename: str) -> bool:
+    f = sys._getframe(2)
+    while f is not None and f.f_code.co_filename != filename:
+        f = f.f_back
+    return f is not None
 
 
 def collective_bytes_per_device(collectives, by_dtype: bool = False) -> dict[str, float]:
@@ -419,12 +441,13 @@ def build_cell(arch: str, shape_name: str | ShapeConfig, mesh, rules_name: str =
     return fn, args, cfg, shape, rules
 
 
-def measure(fn, args, mesh, rules: dict | None, fake_mode) -> dict:
-    """Run ``fn(*args)`` once under a ``CostCounter`` (inside
-    ``sharding_ctx(mesh, rules)`` unless ``rules`` is None); returns its counts,
-    collectives and the memory of the step (the reference's
+def measure(fn, args, mesh, rules: dict | None, fake_mode,
+            counter: CostCounter | None = None) -> dict:
+    """Run ``fn(*args)`` once under ``counter`` (a new ``CostCounter``
+    unless given; inside ``sharding_ctx(mesh, rules)`` unless ``rules`` is
+    None); returns it and the memory of the step (the reference's
     ``memory_analysis`` fields, ``code_bytes`` 0)."""
-    counter = CostCounter()
+    counter = CostCounter() if counter is None else counter
     local = [_local_tree(a) for a in args]
     counter.track(local)
     arg_storages = counter.storages(local)
@@ -473,9 +496,11 @@ def roofline(flops: float, nbytes: float, coll: dict, mf: float, n_dev: int,
 
 
 def cost_cell(arch: str, shape, mesh, rules_name: str = "base", remat: str | None = None,
-              seq_shard: bool | None = None, cfg=None) -> dict:
+              seq_shard: bool | None = None, cfg=None,
+              counter: CostCounter | None = None) -> dict:
     """The cost pass of one cell on ``mesh`` (a ``DeviceMesh`` over the
-    fake group): ``run_cell``'s keys from ``status`` on."""
+    fake group), under ``counter`` if given: ``run_cell``'s keys from
+    ``status`` on."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     t0 = time.perf_counter()
@@ -484,7 +509,7 @@ def cost_cell(arch: str, shape, mesh, rules_name: str = "base", remat: str | Non
                                              cfg=cfg, fake_mode=fake_mode)
     t_lower = time.perf_counter() - t0
     t0 = time.perf_counter()
-    m = measure(fn, args, mesh, rules, fake_mode)
+    m = measure(fn, args, mesh, rules, fake_mode, counter)
     t_cost = time.perf_counter() - t0
     counter, mem = m["counter"], m["memory"]
     cost = cost_dict(counter)

@@ -75,18 +75,21 @@ def _embed_in(params, cfg: ModelConfig, tokens, embeds):
     return sharding.shard(x, "batch", "seq", "act_embed")
 
 
-def forward(params, cfg: ModelConfig, tokens=None, embeds=None):
-    """Teacher-forced full-sequence forward.  Returns (logits, aux)."""
+def forward(params, cfg: ModelConfig, tokens=None, embeds=None, block_dtype=None):
+    """Teacher-forced full-sequence forward.  Returns (logits, aux).
+    ``block_dtype``: ``transformer.run_stack``'s."""
     x = _embed_in(params, cfg, tokens, embeds)
-    x, _, aux = transformer.run_stack(params, x, cfg, mode="full")
+    x, _, aux = transformer.run_stack(params, x, cfg, mode="full", block_dtype=block_dtype)
     x = layers.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return layers.unembed(params["tok"], x, layers.dtype_of(cfg.compute_dtype)), aux
 
 
-def loss_fn(params, cfg: ModelConfig, batch: dict):
-    """batch: {'tokens' or 'embeds', 'labels'}.  Returns (loss, {'xent', 'aux'})."""
+def loss_fn(params, cfg: ModelConfig, batch: dict, block_dtype=None):
+    """batch: {'tokens' or 'embeds', 'labels'}.  Returns (loss, {'xent', 'aux'}).
+    ``block_dtype``: ``transformer.run_stack``'s."""
     logits, aux = forward(
-        params, cfg, tokens=batch.get("tokens"), embeds=batch.get("embeds")
+        params, cfg, tokens=batch.get("tokens"), embeds=batch.get("embeds"),
+        block_dtype=block_dtype,
     )
     xent = layers.softmax_xent(logits, batch["labels"], valid_vocab=cfg.vocab)
     loss = xent + cfg.moe_aux_weight * aux

@@ -15,7 +15,8 @@ Within a block, params of each sublayer type are stacked on a sublayer
 dim and applied by a short loop; blocks are stacked on a leading
 ``[n_blocks, ...]`` dim of every leaf, as in the reference.  The
 reference's ``lax.scan`` over blocks is a Python loop over that dim here
-(``torch.unbind``, whose gradient is one stack of the blocks' gradients),
+(``torch.unbind``, whose gradient is one stack of the blocks' gradients,
+each laid out as its block's slice of the masters on a mesh),
 and the caches (attention k/v, Mamba conv and ssm state) are written in
 place.  ``aux`` sums the MoE load-balance losses over sublayers and blocks.
 
@@ -31,6 +32,7 @@ SSD's, are recomputed).  All three give the same loss and gradients.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Any
 
@@ -38,7 +40,7 @@ import torch
 import torch.utils.checkpoint as torch_checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.dist.sharding import ParamSpec, shard
+from repro_torch.dist.sharding import ParamSpec, current_ctx, layout_grad, shard, sharding_ctx
 from repro_torch.models import attention, layers, mamba, moe
 
 
@@ -191,6 +193,23 @@ def _unstack(tree, n: int) -> list:
     return list(torch.unbind(tree, 0))
 
 
+def _laid_out(tree, dtype: torch.dtype | None):
+    """A block's params, each of whose gradients is laid out as the param
+    (``layout_grad``: on a mesh, one reduction of the block's slice as its
+    backward ends, as the reference's scan reduces each layer's, so the
+    stack of the blocks' gradients is in the masters' layout, never whole
+    over the data-parallel axes), then cast to ``dtype`` unless it is
+    None: the reduction sums the gradient in the masters' dtype.  Made
+    just before the block runs: the autograd engine runs a ready node made
+    later first, so a node made with the others before the first block
+    would wait for the whole backward pass, holding every block's
+    unreduced gradients."""
+    if isinstance(tree, dict):
+        return {k: _laid_out(v, dtype) for k, v in tree.items()}
+    w = layout_grad(tree)
+    return w if dtype is None else w.to(dtype)
+
+
 #: the products "dots" saves: every 2-D matrix product (the batched
 #: attention products are ``bmm``)
 _DOT_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
@@ -211,8 +230,22 @@ def _remat_wrap(fn, cfg: ModelConfig):
         context_fn = torch_checkpoint.noop_context_fn
     else:
         raise ValueError(cfg.remat)
-    return functools.partial(torch_checkpoint.checkpoint, fn, use_reentrant=False,
-                             context_fn=context_fn)
+
+    def wrapped(*args):
+        layout = current_ctx()
+
+        def block(*inputs):
+            # the backward pass recomputes the block on autograd's device
+            # thread for CUDA tensors, where this thread's sharding context
+            # is not set: enter the forward's, or its ``shard`` constraints
+            # would lay the recomputed activations out otherwise
+            with sharding_ctx(*layout) if layout else contextlib.nullcontext():
+                return fn(*inputs)
+
+        return torch_checkpoint.checkpoint(block, *args, use_reentrant=False,
+                                           context_fn=context_fn)
+
+    return wrapped
 
 
 # ---------------------------------------------------------------------------
@@ -225,16 +258,19 @@ def run_stack(
     cache: dict | None = None,
     cache_len: int | None = None,
     mode: str = "full",
+    block_dtype: torch.dtype | None = None,
 ) -> tuple[torch.Tensor, dict | None, torch.Tensor]:
     """x: [B, S, d] hidden states -> (x, cache_or_None, aux).  The cache is
-    the one passed in, updated in place; aux sums the blocks' MoE losses."""
+    the one passed in, updated in place; aux sums the blocks' MoE losses.
+    ``block_dtype`` (mode "full"): each block's params are cast to it as
+    the block runs, after their gradient's layout step (``_laid_out``)."""
     if mode not in ("full", "prefill", "decode"):
         raise ValueError(mode)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if mode == "full":
         body = _remat_wrap(lambda bp, h: apply_block(bp, h, cfg, None, None, "full"), cfg)
         for bp in _unstack(params["blocks"], cfg.n_blocks):
-            x, a = body(bp, x)
+            x, a = body(_laid_out(bp, block_dtype), x)
             if a is not None:
                 aux = aux + a
         return x, None, aux

@@ -27,8 +27,12 @@ optimizer state laid out by ``param_shardings``/``opt_shardings`` and the
 batch by ``batch_shardings`` (``dist.sharding.device_put``), every leaf is
 a ``DTensor`` and DTensor's sharding rules run each operation on the
 shards; the models' ``shard`` constraints lay out the activations as the
-reference's do.  Gradients come back with their masters' placements and
-the metrics replicated.  Where DTensor has no rule, or a costly one, the
+reference's do.  Each gradient reaches ``grad_transform`` and the
+optimizer in its master's placements, reduced over the data-parallel axes
+once and in the master's dtype (a block's slice as the block's backward
+ends, ``models.transformer``; every other leaf as the backward pass
+ends), and the metrics replicated.
+Where DTensor has no rule, or a costly one, the
 code works on each rank's shard in plain sight: the embedding table is
 replicated before its gather, the cross-entropy is vocab-parallel
 (``models.layers``), decode attends each rank's shard of the KV cache
@@ -54,12 +58,18 @@ from repro_torch.optim.optimizers import AdamState, tree_leaves, tree_map, tree_
 # ---------------------------------------------------------------------------
 def value_and_grad(loss_fn, params, *args):
     """``((loss, aux), grads)`` of ``loss_fn(params, *args) -> (loss, aux)``
-    against every leaf of ``params``; ``aux`` is detached.  A leaf the loss
-    does not read (the token table of a model fed ``embeds``) gets a zero
-    gradient, as ``jax.grad`` gives it."""
+    against every leaf of ``params``; ``aux`` is detached.  Each gradient
+    is laid out as its leaf (``sharding.layout_grad``: autograd gives a
+    ``DTensor`` leaf's back as a ``Partial`` sum over the mesh dims that
+    split the batch, reduced there once): here for the leaves outside
+    ``params["blocks"]``, whose slices ``transformer.run_stack`` lays out
+    block by block.  A leaf the loss does not read (the token table of a
+    model fed ``embeds``) gets a zero gradient, as ``jax.grad`` gives it."""
     leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+    laid = {k: v if k == "blocks" else tree_map(sharding.layout_grad, v)
+            for k, v in tree_unflatten(params, leaves).items()}
     with torch.enable_grad():
-        loss, aux = loss_fn(tree_unflatten(params, leaves), *args)
+        loss, aux = loss_fn(laid, *args)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
     aux = tree_map(lambda a: a.detach(), aux)
@@ -79,9 +89,12 @@ def make_train_step(cfg: ModelConfig, opt, grad_transform=None):
     def loss_with_cast(p, batch):
         if param_dt != compute_dt:
             # cast the master weights once; every use then reads the
-            # compute-dtype copy, as in the reference
-            p = tree_map(lambda w: w.to(compute_dt), p)
-        return model.loss_fn(p, cfg, batch)
+            # compute-dtype copy, as in the reference.  A block's are cast
+            # as the block runs, after their gradient's layout step, which
+            # so reduces the gradient in the masters' dtype
+            p = {k: v if k == "blocks" else tree_map(lambda w: w.to(compute_dt), v)
+                 for k, v in p.items()}
+        return model.loss_fn(p, cfg, batch, block_dtype=compute_dt)
 
     def train_step(params, opt_state, batch):
         (loss, metrics), grads = value_and_grad(loss_with_cast, params, batch)

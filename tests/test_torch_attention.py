@@ -15,6 +15,7 @@ held against the same plain version on the card by ``chip_smoke.py``.
 """
 import math
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -96,6 +97,50 @@ def test_chunked_attention_ragged_tail_matches_jax(causal, dtype):
     _close(got, want, dtype)
     if dtype == "float32":
         _close(got, jref.mha_attention(jq, jk, jv, causal=causal), dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_chunked_attention_gradients_match_jax(dtype):
+    """dq, dk, dv of the chunked oracle (each full chunk rematerialised, the
+    ragged tail not) against ``jax.grad`` of the reference's at S 37 in
+    chunks of 8: four checkpointed chunks and a tail of 5."""
+    arrays = _qkv(2, 37, 37, 4, 2, 16, seed=4)
+    cot = np.random.default_rng(5).normal(size=arrays[0].shape)
+    (jq, jk, jv), (tq, tk, tv) = _pair(arrays, dtype)
+    jcot, tcot = _pair([cot], dtype)[0][0], _pair([cot], dtype)[1][0]
+    _, vjp = jax.vjp(lambda q, k, v: jref.mha_attention_chunked(q, k, v, chunk=8), jq, jk, jv)
+    want = vjp(jcot)
+    leaves = [t.requires_grad_() for t in (tq, tk, tv)]
+    out = tref.mha_attention_chunked(*leaves, chunk=8)
+    got = torch.autograd.grad(out, leaves, tcot)
+    for g, w in zip(got, want):
+        _close(g, w, dtype)
+
+
+def test_chunked_attention_keeps_one_chunk_for_the_backward():
+    """S 2048 in chunks of 512: what autograd keeps between the forward and
+    the backward is at most one chunk's f32 score block [B, H, 512, S]
+    (16.8 MB here) beside q, k, v and the output; keeping every chunk's
+    probabilities held 72.9 MB.  The forward is bitwise the one without
+    autograd and the concatenation of the chunks' plain oracle."""
+    b, s, h, d, chunk = 1, 2048, 4, 16, 512
+    q, k, v = (torch.from_numpy(a.astype(np.float32)).requires_grad_()
+               for a in _qkv(b, s, s, h, h, d, seed=6))
+    kept = {}
+
+    def pack(t):
+        kept[t.untyped_storage().data_ptr()] = t.untyped_storage().nbytes()
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        out = tref.mha_attention_chunked(q, k, v, chunk=chunk)
+    block = b * h * chunk * s * 4
+    assert sum(kept.values()) <= block + 4 * q.numel() * 4
+    with torch.no_grad():
+        assert torch.equal(out, tref.mha_attention_chunked(q, k, v, chunk=chunk))
+        assert torch.equal(out, torch.cat([tref.mha_attention(q[:, i:i + chunk], k, v,
+                                                              q_offset=i)
+                                           for i in range(0, s, chunk)], 1))
 
 
 # ---------------------------------------------------------------------------

@@ -32,6 +32,7 @@ ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 SRC = os.path.join(ROOT, "src")
 TIMEOUT = 300
 DECODE_LENS = (32, 64)  # a decode step's cache lengths, L and 2L
+LONG_SEQ, CHUNK = 2048, 512  # a step on the q-chunked oracle, and its chunk
 REFERENCE_KEYS = {
     "arch", "shape", "mesh", "rules", "status", "n_devices", "n_blocks", "seconds_lower",
     "seconds_compile", "seconds_cost_passes", "remat", "seq_shard", "memory",
@@ -126,10 +127,13 @@ def small_worlds():
         from repro_torch import configs
         from repro_torch.configs.base import ShapeConfig
         from repro_torch.dist import sharding
+        from repro_torch.kernels import ref
         from repro_torch.launch import dryrun, mesh as mesh_lib
         from repro_torch.models import model
         from repro_torch.optim import optimizers
         from repro_torch.train import step as step_lib
+
+        LONG_SEQ = {LONG_SEQ}
 
         class BackwardLargest(dryrun.CostCounter):
             largest = 0
@@ -161,6 +165,18 @@ def small_worlds():
             fn(*args)
         out["2x2"]["backward_largest"] = counter.largest
         out["2x2"]["vocab"] = cfg.vocab
+        # a 2048-token step with remat "dots": the live bytes of the storages
+        # the attention oracle makes (a frame of kernels/ref.py on the
+        # stack), at their most over the step
+        fake_mode = FakeTensorMode(allow_non_fake_inputs=True)
+        fn, args, _, _, rules = dryrun.build_cell(
+            "minicpm-2b", ShapeConfig("long", LONG_SEQ, 8, "train"), mesh, "base", remat="dots",
+            cfg=cfg, fake_mode=fake_mode)
+        counter = dryrun.CostCounter(under=ref.__file__)
+        with fake_mode, counter, sharding.sharding_ctx(mesh, rules):
+            fn(*args)
+        out["2x2"]["oracle_most"] = counter.peak_under
+        out["2x2"]["heads"] = (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
         for length in {DECODE_LENS!r}:
             for batch in (8, 1):
                 out[f"decode/{{batch}}/{{length}}"] = dryrun.cost_cell(
@@ -209,6 +225,24 @@ def test_train_backward_holds_no_more_than_one_vocab_shard(small_worlds):
     got = small_worlds["2x2"]
     shard = (8 // 2) * 32 * (padded_vocab(got["vocab"]) // 2) * 4
     assert 0 < got["backward_largest"] <= shard
+
+
+def test_train_attention_holds_no_more_than_one_chunk(small_worlds):
+    """At 2048 tokens the oracle attends 512-row q chunks, each
+    rematerialised in the backward pass inside the block's own "dots"
+    remat: the live bytes of what it makes never pass one chunk's two f32
+    score blocks [B/dp, H/tp, 512, S] (the scores and their softmax), its
+    mask [512, S], k and v in f32 and three f32 tensors of q's size (the
+    chunks' scaled q and outputs, and the concatenated output), as
+    ``scripts/torch_long_step.py``'s ``oracle_bound`` counts them.  Keeping
+    every chunk's softmax for the backward read 5.2 score blocks here."""
+    got = small_worlds["2x2"]
+    heads, kv_heads, dim = got["heads"]
+    b, h, hkv = 8 // 2, heads // 2, kv_heads // 2
+    block = b * h * CHUNK * LONG_SEQ * 4
+    operands = (2 * hkv + 3 * h) * b * LONG_SEQ * dim * 4
+    mask = CHUNK * LONG_SEQ
+    assert 2 * block <= got["oracle_most"] <= 2 * block + operands + mask
 
 
 @pytest.mark.parametrize("batch", [8, 1])

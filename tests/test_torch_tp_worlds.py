@@ -27,9 +27,13 @@ one device in the same rank:
   params after the Adam step at lr 1e-3 within atol 5e-4 (the update moves
   an element by about 1e-3 whatever its gradient: a zero or sign-flipped
   gradient reads 1e-3 or more, a sound run at most 2.7e-4 where a gradient
-  is near Adam's eps);
+  is near Adam's eps); each gradient in its master's placements and local
+  shape, reduced over ``data`` before the optimizer sees it; grok-1's and
+  llama4-maverick's step also under ``FSDP_RULES`` (expert, attention and
+  embedding leaves split over ``data``);
 * a vocab-sharded ``embed_lookup`` and its gradient (the lookup bitwise,
-  the gradient to 1e-6);
+  the gradient to 1e-6, left a ``Partial`` sum over ``data`` for the train
+  step's layout step);
 * prefill then DECODE_TOKENS greedy tokens of qwen1.5-4b's and minicpm-2b's
   smoke configs (f32) through ``train.step``'s prefill and decode steps,
   the cache laid out by ``cache_shardings`` three ways: ``batch`` (the
@@ -68,6 +72,7 @@ EMPTY_TOL, XENT_TOL = 1e-6, 1e-6
 JAMBA, JAMBA_GRAD_REL = "jamba-1.5-large-398b", 5e-5  # f32 sums sensitive to their order
 STEP_ARCHS = ("grok-1-314b", "mamba2-1.3b", "jamba-1.5-large-398b",
               "llama4-maverick-400b-a17b", "musicgen-medium")
+FSDP_STEP_ARCHS = ("grok-1-314b", "llama4-maverick-400b-a17b")  # the expert leaves
 COMPRESSORS = ("int8", "topk")
 LAUNCH = ["--arch", "minicpm-2b", "--smoke", "--device", "cpu", "--batch", "4", "--seq", "32",
           "--steps", "3", "--lr", "3e-3", "--log-every", "100"]
@@ -117,34 +122,44 @@ def forward(mesh, rules, arch, res):
     res["aux/" + arch] = np.array([float(sharding.replicate(aux)), float(want_aux)])
 
 
+def layout(tree):
+    return {k: [str(list(v.placements)), list(v.to_local().shape)]
+            for k, v in sharding.keyed_leaves(tree).items() if sharding.is_dtensor(v)}
+
+
 def train_step(cfg, params, state, batch, opt):
-    grads = {}
+    grads, laid = {}, {}
+    masters = layout(params)
 
     def capture(g):  # whole copies: the update clips the gradients in place
         whole = lambda x: x.full_tensor() if sharding.is_dtensor(x) else x
+        laid.update({k: v for k, v in layout(g).items() if v != masters[k]})
         grads.update(sharding.keyed_leaves(optimizers.tree_map(lambda x: whole(x).clone(), g)))
         return g
 
     params, _, metrics = step_lib.make_train_step(cfg, opt, capture)(params, state, batch)
-    return params, {k: float(v) for k, v in metrics.items()}, grads
+    return params, {k: float(v) for k, v in metrics.items()}, grads, laid
 
 
-def step(mesh, rules, arch, res):
+def step(mesh, rules, arch, res, prefix=""):
     cfg = configs.get_smoke(arch)
     batch = inputs(cfg, 4, 16)
     opt = optimizers.adamw(1e-3, max_grad_norm=1.0)
     p1 = model.init_params(cfg, 0, "cpu")
-    p1, m1, g1 = train_step(cfg, p1, opt.init(p1), batch, opt)
+    p1, m1, g1, _ = train_step(cfg, p1, opt.init(p1), batch, opt)
     p2 = model.init_params(cfg, 0, "cpu", step_lib.param_shardings(mesh, cfg, rules))
     state = sharding.device_put(opt.init(p2), step_lib.opt_shardings(mesh, cfg, rules))
     bd = sharding.device_put(batch, step_lib.batch_shardings(mesh, cfg, batch, rules))
     with sharding.sharding_ctx(mesh, rules):
-        p2, m2, g2 = train_step(cfg, p2, state, bd, opt)
+        p2, m2, g2, laid = train_step(cfg, p2, state, bd, opt)
+    key = prefix + arch
     # per leaf: (max |mesh - one device|, max |one device|)
-    res["grads/" + arch] = np.array(json.dumps(
+    res["grads/" + key] = np.array(json.dumps(
         {k: [float((g2[k] - g1[k]).abs().max()), float(g1[k].abs().max())] for k in g1}))
-    res["metrics/" + arch] = np.array(json.dumps({"mesh": m2, "one": m1}))
-    res["param_err/" + arch] = np.array(max(
+    res["metrics/" + key] = np.array(json.dumps({"mesh": m2, "one": m1}))
+    # the gradients the hook saw that are not laid out as their masters
+    res["grad_layout/" + key] = np.array(json.dumps(laid))
+    res["param_err/" + key] = np.array(max(
         float((a - b.full_tensor()).abs().max())
         for a, b in zip(optimizers.tree_leaves(p1), optimizers.tree_leaves(p2))))
 
@@ -167,9 +182,9 @@ def embed(mesh, rules, res):
     res["embed/want"] = y1.detach().numpy()
     res["embed/grad"] = td.grad.full_tensor().numpy()
     res["embed/grad_want"] = t1.grad.numpy()
-    res["embed/layouts"] = np.array(json.dumps([[p.dim if p.is_shard() else None
-                                                 for p in t.placements]
-                                                for t in (td, td.grad)]))
+    res["embed/layouts"] = np.array(json.dumps([[
+        "partial" if p.is_partial() else p.dim if p.is_shard() else None for p in t.placements]
+        for t in (td, td.grad)]))
 
 
 def decode_layout(mesh, cfg, label):
@@ -285,6 +300,8 @@ def main():
         forward(mesh, rules, arch, res)
     for arch in STEP_ARCHS:
         step(mesh, rules, arch, res)
+    for arch in FSDP_STEP_ARCHS:
+        step(mesh, sharding.FSDP_RULES, arch, res, "fsdp/")
     embed(mesh, rules, res)
     empty_piece(mesh, res)
     xent(mesh, res)
@@ -310,7 +327,8 @@ def _flat(tree, prefix=""):
 @pytest.fixture(scope="module")
 def world(tmp_path_factory):
     out = tmp_path_factory.mktemp("tp_2x2")
-    body = (f"STEP_ARCHS = {STEP_ARCHS!r}\nCOMPRESSORS = {COMPRESSORS!r}\n"
+    body = (f"STEP_ARCHS = {STEP_ARCHS!r}\nFSDP_STEP_ARCHS = {FSDP_STEP_ARCHS!r}\n"
+            f"COMPRESSORS = {COMPRESSORS!r}\n"
             f"LAUNCH = {LAUNCH!r}\nDECODE_ARCHS = {DECODE_ARCHS!r}\n"
             f"DECODE_LAYOUTS = {DECODE_LAYOUTS!r}\n" + WORLD_BODY)
     run_ranks(out, 4, body)
@@ -338,23 +356,39 @@ def test_forward_2x2_matches_one_device(world, arch):
 
 @pytest.mark.parametrize("arch", STEP_ARCHS)
 def test_train_step_2x2_gradients_match_one_device(world, arch):
-    grads = json.loads(str(world["grads/" + arch]))
+    _step_matches_one_device(world, arch, JAMBA_GRAD_REL if arch == JAMBA else GRAD_REL)
+
+
+@pytest.mark.parametrize("arch", FSDP_STEP_ARCHS)
+def test_fsdp_train_step_2x2_gradients_match_one_device(world, arch):
+    """Under ``FSDP_RULES``: the expert, attention and embedding leaves
+    split over ``data`` as well, each gradient reduce-scattered onto its
+    master's shard."""
+    _step_matches_one_device(world, "fsdp/" + arch, GRAD_REL)
+
+
+def _step_matches_one_device(world, key: str, rel: float) -> None:
+    grads = json.loads(str(world["grads/" + key]))
     assert any(scale > 0 for _, scale in grads.values())
-    rel = JAMBA_GRAD_REL if arch == JAMBA else GRAD_REL
     for leaf, (err, scale) in grads.items():  # an unread leaf's is 0 on both
         assert err <= rel * scale, (leaf, err, scale)
-    metrics = json.loads(str(world["metrics/" + arch]))
+    metrics = json.loads(str(world["metrics/" + key]))
     for name in ("loss", "grad_norm"):
         assert metrics["mesh"][name] == pytest.approx(metrics["one"][name], rel=LOSS_RTOL)
-    assert float(world["param_err/" + arch]) <= PARAM_ATOL
+    assert float(world["param_err/" + key]) <= PARAM_ATOL
+    # every gradient the optimizer gets is laid out as its master
+    assert json.loads(str(world["grad_layout/" + key])) == {}
 
 
 def test_vocab_sharded_embed_lookup_and_grad_match_one_device(world):
     np.testing.assert_array_equal(world["embed"], world["embed/want"])
     np.testing.assert_allclose(world["embed/grad"], world["embed/grad_want"],
                                rtol=EMBED_GRAD_TOL, atol=EMBED_GRAD_TOL)
-    # the table and its gradient: vocab (dim 0) on 'model', replicated on 'data'
-    assert json.loads(str(world["embed/layouts"])) == [[None, 0], [None, 0]]
+    # the table: vocab (dim 0) on 'model', replicated on 'data'; its gradient
+    # the same on 'model' and a sum over the token shards on 'data', which
+    # the train step's layout step reduces once with the unembedding's share
+    # of a tied table
+    assert json.loads(str(world["embed/layouts"])) == [[None, 0], ["partial", 0]]
 
 
 @pytest.mark.parametrize("label", DECODE_LAYOUTS)

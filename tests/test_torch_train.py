@@ -162,19 +162,54 @@ def test_loss_and_gradients_match_reference():
     _tree_close(grads, want_g, "grads")
 
 
+@pytest.mark.parametrize("attn_impl,b,seq", [("ref", 2, 24), ("chunked", 1, 520)])
 @pytest.mark.parametrize("remat", ["dots", "full"])
-def test_remat_modes_agree_with_none(remat):
+def test_remat_modes_agree_with_none(remat, attn_impl, b, seq):
+    """The oracle route, and the q-chunked one at 520 tokens (one 512-row
+    chunk, rematerialised inside the block's own remat, and a tail of 8)."""
     _, tcfg, _, tp = _pair()
-    batch = _tbatch(_batch(tcfg, s=24))
+    batch = _tbatch(_batch(tcfg, b=b, s=seq))
     runs = {}
     for mode in ("none", remat):
-        cfg = dataclasses.replace(tcfg, remat=mode)
+        cfg = dataclasses.replace(tcfg, remat=mode, attn_impl=attn_impl)
         runs[mode] = tstep.value_and_grad(lambda p, b: tmodel.loss_fn(p, cfg, b), tp, batch)
     (l0, _), g0 = runs["none"]
     (l1, _), g1 = runs[remat]
     torch.testing.assert_close(l1, l0, rtol=1e-6, atol=0)
     for a, b in zip(toptim.tree_leaves(g1), toptim.tree_leaves(g0)):
         torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("remat", ["dots", "full"])
+def test_remat_recompute_runs_under_the_forwards_sharding_context(remat):
+    """A CUDA backward runs on autograd's device thread, where the
+    sharding context of the forward's thread (a thread-local) is not set:
+    the block's recompute must run under the forward's, or its ``shard``
+    constraints lay its activations out otherwise (minicpm-2b at full
+    width on a (data 2, model 1) mesh of gloo ranks on an H100 under
+    ``FSDP_RULES`` recomputed a batch of 8 where the forward had 4)."""
+    import threading
+
+    from repro_torch.dist import sharding
+    from repro_torch.models import transformer
+
+    seen = []
+
+    def block(x):
+        seen.append(sharding.current_ctx())
+        return (x.sin() * x.cos()).sum()
+
+    body = transformer._remat_wrap(block, dataclasses.replace(configs.get_smoke(ARCH),
+                                                              remat=remat))
+    x = torch.ones(3, requires_grad=True)
+    mesh = object()
+    with sharding.sharding_ctx(mesh, sharding.FSDP_RULES):
+        y = body(x)
+    thread = threading.Thread(target=lambda: torch.autograd.grad(y, x))
+    thread.start()
+    thread.join()
+    assert len(seen) == 2 and seen[1] is not None and seen[1][0] is mesh
+    assert seen[1] == seen[0]
 
 
 def test_remat_rejects_unknown_policy():
