@@ -294,14 +294,19 @@ Phases, each printing JSON lines:
    gets in its master's placements and local shape, each within 1e-5 of
    its leaf's largest magnitude, the loss and grad norm within rtol 1e-4,
    the params after the step within atol 5e-5; each cell's step run
-   again in bf16 compute under ``layout_trace`` runs each leaf's layout
-   node (``sharding.layout_grad``; a stacked leaf's once a block) once,
-   and a node whose gradient came in as a ``Partial`` sum issues one
-   reduce-scatter or all-reduce, in f32, and any other none
-   (``needed_none`` names those: on torch 2.11 the norms, whose
-   gradients come in split over ``data`` and are gathered); the step's
-   other reductions are listed by the autograd node or source line that
-   issued them (``other_reductions``).  Under gloo, torch 2.11's functional
+   again in bf16 compute under ``layout_trace`` all-gathers each weight
+   the rules split over ``data`` in bf16 before its products
+   (``sharding.gather_dp``; again in a "dots" recompute), runs each
+   leaf's layout node (``sharding.layout_grad``; a stacked leaf's once a
+   block) once, each gradient, the norms' too, coming in as a ``Partial``
+   sum over ``data`` and reduced there by one reduce-scatter or
+   all-reduce, in f32 (``needed_none``, the nodes whose gradient came in
+   otherwise, must be empty), and issues no other reduction over
+   ``data`` than FSDP_OTHER_REDUCTIONS' (the cross-entropy's, the MoE
+   load-balance loss's and the gradient norm's, in f32: ``unlisted``
+   must be empty); the step's collectives are printed by kind and
+   dtype, and its other reductions by the autograd node or source line
+   that issued them (``other_reductions``).  Under gloo, torch 2.11's functional
    all-gather (DTensor's) crashes on CUDA tensors where
    ``dist.all_gather_into_tensor`` works: the ranks route the first
    through the second (``route_all_gather_through_c10d``).
@@ -4399,123 +4404,226 @@ def route_all_gather_through_c10d(torch, device_type: str):
 def layout_trace(torch, params):
     """Trace the collectives of one train step on ``params`` (``DTensor``
     masters): yields ``(counter, nodes)``.  ``counter``, a ``CostCounter``,
-    records every collective and ``counter.where`` where each was issued:
-    the autograd node it ran in (the backward pass) or the port's source
-    line (the forward).  Each layout node of a master's gradient (one a
-    leaf outside the blocks, one a block's slice of a stacked leaf; made
-    by ``sharding.layout_grad``) appends to ``nodes`` its leaf, its block,
-    the placements its gradient came in with and those it lays it out
-    in, whether it came in as a ``Partial`` sum over a mesh dim of more
-    than one rank, and the indexes in ``counter.collectives`` of what it
-    issued."""
+    records every collective, ``counter.where`` where each was issued (the
+    port's source line and function, a remat recompute's too, or else the
+    autograd node it ran in) and ``counter.axis`` the mesh axis of its group
+    (``?`` for a group of no mesh dim); ``counter.gathers`` are the
+    indexes of those that ``sharding.gather_dp`` issued, and
+    ``counter.gathered`` the (leaf, block) of each weight it gathered,
+    found through the weight's layout node.  Each layout node of a
+    master's gradient (one a leaf outside the blocks, one a block's slice
+    of a stacked leaf; made by ``sharding.layout_grad``) appends to
+    ``nodes`` its leaf, its block, the placements its gradient came in
+    with and those it lays it out in, the mesh axes (of more than one
+    rank) over which it came in as a ``Partial`` sum, and the indexes in
+    ``counter.collectives`` of what it issued.  Runs on real and on fake
+    (``FakeTensor``) shards alike."""
+    from torch.distributed import ProcessGroup
+    from torch.distributed.tensor import DTensor
+
     from repro_torch.dist import sharding
     from repro_torch.launch import dryrun
     from repro_torch.models import transformer
 
     port = os.path.dirname(os.path.dirname(dryrun.__file__))
+    mesh = next(v for v in sharding.keyed_leaves(params).values()
+                if isinstance(v, DTensor)).device_mesh
+    axis_of = {mesh.get_group(i).group_name: a for i, a in enumerate(mesh.mesh_dim_names)}
 
-    def site() -> str:
+    engine = torch.autograd.graph.__file__  # where the backward pass enters the engine
+
+    def site() -> str:  # the innermost frame of the port outside its helpers
         f = sys._getframe(2)
-        while f is not None:
+        while f is not None and f.f_code.co_filename != engine:
             name = f.f_code.co_filename
-            if name.startswith(port) and name != dryrun.__file__:
-                return f"{os.path.relpath(name, port)}:{f.f_lineno} ({f.f_code.co_name})"
+            if name.startswith(port) and name not in (dryrun.__file__, sharding.__file__):
+                return f"{os.path.relpath(name, port)}:{f.f_lineno} ({f.f_code.co_qualname})"
             f = f.f_back
         return "other"
+
+    def axis(func, args, kwargs) -> str:
+        for i, a in enumerate(func._schema.arguments):
+            if a.name in ("group_name", "process_group"):
+                g = kwargs[a.name] if a.name in kwargs else args[i]
+                if not isinstance(g, str):
+                    g = (g if isinstance(g, ProcessGroup) else ProcessGroup.unbox(g)).group_name
+                return axis_of.get(g, "?")
+        return "?"
 
     class Traced(dryrun.CostCounter):
         def __init__(self):
             super().__init__()
             self.where: list[str] = []
+            self.axis: list[str] = []
+            self.gathers: set[int] = set()
+            self.gathered: list[tuple] = []
 
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
             out = super().__torch_dispatch__(func, types, args, kwargs)
-            if len(self.collectives) > len(self.where):
-                node = torch._C._current_autograd_node()
-                here = node.name() if node is not None else site()
-                self.where += [here] * (len(self.collectives) - len(self.where))
+            n = len(self.collectives) - len(self.where)
+            if n:  # the port's code that issued it (a recompute's too), else the node
+                here, node = site(), torch._C._current_autograd_node()
+                self.where += [node.name() if here == "other" and node is not None
+                               else here] * n
+                self.axis += [axis(func, args, kwargs or {})] * n
             return out
 
+    def key(t) -> int:  # a storage's identity, on real and fake tensors
+        return t.untyped_storage()._cdata
+
     with torch.no_grad():
-        leaf_of = {v.to_local().untyped_storage().data_ptr(): k
-                   for k, v in sharding.keyed_leaves(params).items()}
+        leaf_of = {key(v.to_local()): k for k, v in sharding.keyed_leaves(params).items()}
     counter, nodes = Traced(), []
     layout, backward = sharding.layout_grad, sharding._ForwardLayoutGrad.backward
+    gather = sharding.gather_dp
 
     def named_layout(t):
         out = layout(t)
         if out is not t:
             with torch.no_grad():
                 local = t.to_local()
-            key = leaf_of.get(local.untyped_storage().data_ptr(), "?")
+            name = leaf_of.get(key(local), "?")
             block = (local.storage_offset() // max(local.numel(), 1)
-                     if key.startswith("['blocks']") else None)
-            out.grad_fn.layout_leaf = (key, block)
+                     if name.startswith("['blocks']") else None)
+            out.grad_fn.layout_leaf = (name, block)
         return out
 
     def counted_backward(ctx, g):
         start = len(counter.collectives)
         out = backward(ctx, g)
         if hasattr(ctx, "layout_leaf"):
-            mesh = g.device_mesh
             nodes.append({"leaf": ctx.layout_leaf[0], "block": ctx.layout_leaf[1],
                           "came_in": [str(p) for p in g.placements],
                           "laid_as": [str(p) for p in ctx.placements],
-                          "partial": any(p.is_partial() and mesh.size(i) > 1
-                                         for i, p in enumerate(g.placements)),
+                          "partial": [a for i, (a, p) in enumerate(zip(mesh.mesh_dim_names,
+                                                                       g.placements))
+                                      if p.is_partial() and mesh.size(i) > 1],
                           "issued": list(range(start, len(counter.collectives)))})
+        return out
+
+    def layout_leaf(t) -> tuple:  # the layout node upstream of a weight, by its leaf
+        todo, seen = [t.grad_fn], set()
+        while todo:
+            fn = todo.pop(0)
+            if fn is None or fn in seen:
+                continue
+            seen.add(fn)
+            if hasattr(fn, "layout_leaf"):
+                return fn.layout_leaf
+            todo += [f for f, _ in fn.next_functions]
+        return ("?", None)
+
+    def counted_gather(w):
+        start = len(counter.collectives)
+        out = gather(w)
+        issued = range(start, len(counter.collectives))
+        counter.gathers.update(issued)
+        if len(issued):
+            counter.gathered.append(layout_leaf(w))
         return out
 
     sharding.layout_grad = transformer.layout_grad = named_layout
     sharding._ForwardLayoutGrad.backward = staticmethod(counted_backward)
+    sharding.gather_dp = counted_gather
     try:
         with counter:
             yield counter, nodes
     finally:
         sharding.layout_grad = transformer.layout_grad = layout
         sharding._ForwardLayoutGrad.backward = staticmethod(backward)
+        sharding.gather_dp = gather
 
 
-def layout_reductions(counter, nodes, masters: dict, n_blocks: int) -> dict:
+#: the reductions over the DP axes that a train step issues outside its
+#: gradients' layout nodes, by the port's function that issues them
+#: (``layout_trace``'s site without its line): the losses' and the
+#: metrics', each of a scalar or of one [E] vector, in f32.  No
+#: activation is reduced over the DP axes.
+FSDP_OTHER_REDUCTIONS = {
+    "models/layers.py (_VocabParallelXent.forward)":
+        "the cross-entropy: the sum of the tokens' losses over the batch shards",
+    "models/moe.py (moe_ffn)":
+        "the MoE load-balance loss: its two [E] means over the batch shards, a MoE layer",
+    "optim/optimizers.py (global_norm)":
+        "the gradient norm (the grad_norm metric and the clip): a split leaf's sum of squares",
+}
+
+
+def layout_reductions(counter, nodes, masters: dict, n_blocks: int,
+                      compute_dtype: str = "torch.bfloat16") -> dict:
     """What ``layout_trace`` saw, checked: each leaf's layout node, a
     stacked leaf's once a block, ran once (``nodes_wrong``: the (leaf,
-    block)s that ran another number of times); a node whose gradient came
-    in as a ``Partial`` sum issued one reduction (all-reduce or
-    reduce-scatter), in f32, and one that did not issued none
-    (``reductions_wrong``; a gradient that came in whole, split where its
-    master is not, is gathered: no reduction); the leaves that needed no
-    reduction, by name, with their nodes' count, placements and what they
-    issued; and every other reduction of the step by where it was issued,
-    kind and dtype (count, bytes)."""
+    block)s that ran another number of times); a node issued one
+    reduction (all-reduce or reduce-scatter), in f32, over each mesh axis
+    over which its gradient came in as a ``Partial`` sum and none over
+    the others (``reductions_wrong``); the leaves whose gradients came in
+    as no ``Partial`` sum, by name, with their nodes' count, placements
+    and what they issued (``needed_none``); every reduction over a DP
+    axis outside the nodes that is not one of FSDP_OTHER_REDUCTIONS in f32
+    (``unlisted``); what the nodes issued, by its kinds and mesh axes in
+    order (``node_issued``: how many nodes issued each); the all-gathers
+    over a DP axis not in ``compute_dtype`` (``gathers_off_dtype``), and
+    what ``sharding.gather_dp`` issued (``gather_dp``); every other
+    reduction of the step by where it was issued, kind, dtype and mesh
+    axis, and the step's collectives by kind and dtype (count and bytes;
+    and a device's bytes with the ring factor, the sweep's measure)."""
+    from repro_torch.launch import dryrun
+
+    dp = ("pod", "data")
     want = Counter({(k, b): 1 for k in masters
                     for b in (range(n_blocks) if k.startswith("['blocks']") else (None,))})
     ran = Counter((n["leaf"], n["block"]) for n in nodes)
     wrong, none = [], {}
     for n in nodes:
-        issued = [counter.collectives[i] for i in n["issued"]]
-        reduced = [dtype for kind, dtype, _ in issued if kind in FSDP_REDUCTIONS]
-        if reduced != (["torch.float32"] if n["partial"] else []):
+        issued = [(*counter.collectives[i], counter.axis[i]) for i in n["issued"]]
+        reduced = sorted((axis, dtype) for kind, dtype, _, axis in issued
+                         if kind in FSDP_REDUCTIONS)
+        if reduced != sorted((axis, "torch.float32") for axis in n["partial"]):
             wrong.append([n["leaf"], n["block"], n["came_in"], n["laid_as"], issued])
         if not n["partial"]:
             c = none.setdefault(n["leaf"], {"nodes": 0, "came_in": n["came_in"],
                                             "laid_as": n["laid_as"], "issued": Counter()})
             c["nodes"] += 1
-            c["issued"].update(f"{kind} {dtype.replace('torch.', '')}" for kind, dtype, _ in issued)
+            c["issued"].update(f"{kind} {dtype.replace('torch.', '')} {axis}"
+                               for kind, dtype, _, axis in issued)
     in_nodes = {i for n in nodes for i in n["issued"]}
-    others: dict = {}
-    for i, ((kind, dtype, nbytes), where) in enumerate(zip(counter.collectives, counter.where)):
-        if i not in in_nodes and kind in FSDP_REDUCTIONS:
-            c = others.setdefault(f"{where} {kind} {dtype.replace('torch.', '')}", [0, 0])
-            c[0] += 1
-            c[1] += nbytes
+    others, unlisted, off_dtype, by_kind = {}, {}, {}, {}
+
+    def add(table, key, nbytes):
+        c = table.setdefault(key, [0, 0])
+        c[0], c[1] = c[0] + 1, c[1] + nbytes
+
+    for i, ((kind, dtype, nbytes), where, axis) in enumerate(
+            zip(counter.collectives, counter.where, counter.axis)):
+        name = f"{kind} {dtype.replace('torch.', '')}"
+        add(by_kind, name, nbytes)
+        if kind == "all-gather" and axis in dp and dtype != compute_dtype:
+            add(off_dtype, f"{where} {name} {axis}", nbytes)
+        if i in in_nodes or kind not in FSDP_REDUCTIONS:
+            continue
+        add(others, f"{where} {name} {axis}", nbytes)
+        listed = re.sub(r":\d+ ", " ", where) in FSDP_OTHER_REDUCTIONS
+        if axis in dp and not (listed and dtype == "torch.float32"):
+            add(unlisted, f"{where} {name} {axis}", nbytes)
+    gathers = [counter.collectives[i] for i in sorted(counter.gathers)]
+    coll = dryrun.collective_bytes_per_device(counter.collectives, by_dtype=True)
+    node_issued = Counter(", ".join(f"{counter.collectives[i][0]} {counter.axis[i]}"
+                                    for i in n["issued"]) for n in nodes)
     return {"layout_nodes": sum(ran.values()), "layout_nodes_expected": sum(want.values()),
             "nodes_wrong": [[k, b, ran[(k, b)]] for k, b in (want | ran) if ran[(k, b)] != 1],
-            "reductions_wrong": wrong,
+            "reductions_wrong": wrong, "node_issued": dict(node_issued),
             "gradient_reductions": sum(kind in FSDP_REDUCTIONS for n in nodes
                                        for kind, _, _ in (counter.collectives[i]
                                                           for i in n["issued"])),
             "needed_none": {k: {**v, "issued": dict(v["issued"])} for k, v in none.items()},
-            "other_reductions": dict(sorted(others.items(), key=lambda kv: -kv[1][1]))}
+            "unlisted": unlisted, "gathers_off_dtype": off_dtype,
+            "gather_dp": {"count": len(gathers), "bytes": sum(b for _, _, b in gathers),
+                          "dtypes": sorted({d for _, d, _ in gathers}),
+                          "weights": len(counter.gathered),
+                          "leaves": dict(Counter(k for k, _ in counter.gathered))},
+            "other_reductions": dict(sorted(others.items(), key=lambda kv: -kv[1][1])),
+            "collectives": dict(sorted(by_kind.items())),
+            "collective_bytes_per_device": {k: v for k, v in coll.items() if v}}
 
 
 def fsdp_config(arch: str, layers: int | None, compute_dtype: str = "float32"):
@@ -4588,7 +4696,8 @@ def fsdp_rank(rank: int, world: int, backend: str, device_type: str, workdir: st
                         layout_trace(torch, p) if traced else contextlib.nullcontext()) as t:
                     p, _, m = step_lib.make_train_step(cfg, opt, hook)(p, state, b)
                 if traced:
-                    trace.update(layout_reductions(*t, masters, cfg.n_blocks))
+                    trace.update(layout_reductions(*t, masters, cfg.n_blocks,
+                                                   f"torch.{cfg.compute_dtype}"))
                 return p, m, masters
 
             # the step's collectives, traced in the production compute dtype
@@ -4637,8 +4746,11 @@ def phase_fsdp(torch, device, smi, workdir) -> None:
     """The train step under ``FSDP_RULES`` on FSDP_RANKS gloo ranks sharing
     ``cuda:0`` (``fsdp_rank``), each held against one device: gradients in
     their masters' layout and values, params after the step; and in bf16
-    compute each gradient reduced once, in f32, by its layout node where it
-    came in as a ``Partial`` sum (``layout_reductions``)."""
+    compute (``layout_reductions``) each weight all-gathered in bf16 over
+    ``data`` before its products (``sharding.gather_dp``), each gradient
+    arriving at its layout node as a ``Partial`` sum and reduced there
+    once, in f32, and no other reduction over ``data`` than the losses'
+    and the metrics' (FSDP_OTHER_REDUCTIONS)."""
     t0 = time.perf_counter()
     os.makedirs(os.path.join(workdir, "dist"), exist_ok=True)
     ranks = run_world("fsdp", FSDP_RANKS, "gloo", device.type, workdir, target=fsdp_rank)
@@ -4660,14 +4772,26 @@ def phase_fsdp(torch, device, smi, workdir) -> None:
                     f"{where}: layout nodes [leaf, block, ran] not run once: {c['nodes_wrong']}")
             require(not c["reductions_wrong"],
                     f"{where}: gradients [leaf, block, came in, laid out as, issued] not "
-                    f"reduced once in f32 where partial (else not at all): "
+                    f"reduced once in f32 over each axis where partial (else not at all): "
                     f"{c['reductions_wrong'][:8]}")
+            require(not c["needed_none"],
+                    f"{where}: gradients that came in as no Partial sum (split where their "
+                    f"masters are not: a product split the activations): {c['needed_none']}")
+            require(not c["unlisted"],
+                    f"{where}: reductions over the DP axes outside the layout nodes and "
+                    f"FSDP_OTHER_REDUCTIONS [count, bytes]: {c['unlisted']}")
+            require(c["gather_dp"]["count"] > 0 and not c["gathers_off_dtype"],
+                    f"{where}: weights not all-gathered in {FSDP_COUNTED_DTYPE}: gather_dp "
+                    f"{c['gather_dp']}, others {c['gathers_off_dtype']}")
     emit({"phase": "fsdp", "world": FSDP_RANKS, "backend": "gloo",
           "mesh": {"data": FSDP_RANKS, "model": 1}, "rules": "fsdp", "batch": TP_GRAD_BATCH,
           "reduced": [f"{TRAIN_ARCH}: n_layers 40 -> {TP_LAYERS} (every width kept), f32 "
                       f"compute (the traced step: {FSDP_COUNTED_DTYPE})",
                       "grok-1-314b: its smoke config"],
           "tol": {"grad_rel": TP_GRAD_REL, "loss_rtol": TP_LOSS_RTOL, **TP_PARAM_TOL},
+          # rank 0's traced step: its collectives by kind and dtype, [count, bytes]
+          "collectives": {arch: c["collectives"]
+                          for arch, c in ranks[0]["meta"]["cells"].items()},
           "ranks": [r["meta"] for r in ranks], "seconds": time.perf_counter() - t0,
           "not_shown": "NCCL collectives across cards: two gloo ranks share one card, each "
                        "collective copied through the host", "name_power_limit": smi})

@@ -4,7 +4,7 @@ parallel processes, with each cell's peak broken down by where its live
 storages were made.
 
     python3 scripts/torch_dryrun_sweep.py [--procs 8] [--rules auto] \
-        [--mesh both] [--arch A] [--shape S] [--out FILE.jsonl]
+        [--mesh both] [--arch A[,B...]] [--shape S] [--out FILE.jsonl]
 
 Each cell runs ``launch.dryrun.run_cell`` (fake process groups of 256 or
 512 ranks, ``FakeTensor`` shards: no device and little memory) in one of
@@ -12,10 +12,12 @@ Each cell runs ``launch.dryrun.run_cell`` (fake process groups of 256 or
 result plus ``peak_terms``, the live bytes at the cell's peak grouped by
 the source line of the port (``repro_torch``, the dry-run itself left
 out) whose operation made each storage, largest first (``arguments`` for
-the step's arguments).  The snapshot is taken whenever the live bytes pass
-the last snapshot's by more than 1 %, so its total is within 1 % of the
-peak.  ``--out`` also writes the lines to a file.  Cells that raise print
-``status: error`` and the run exits 1.
+the step's arguments), and ``collective_bytes_by_dtype``, the collective
+bytes a device by kind and dtype ("all-gather:bfloat16").  The snapshot
+is taken whenever the live bytes pass the last snapshot's by more than
+1 %, so its total is within 1 % of the peak.  ``--out`` also writes the
+lines to a file.  Cells that raise print ``status: error`` and the run
+exits 1.
 """
 from __future__ import annotations
 
@@ -94,7 +96,11 @@ def _cell(job) -> dict:
     try:
         res = dryrun.run_cell(arch, shape, mesh, rules, verbose=False)
         if res["status"] == "ok":
-            res["peak_terms"] = dryrun.CostCounter.last.terms
+            last = dryrun.CostCounter.last
+            res["peak_terms"] = last.terms
+            res["collective_bytes_by_dtype"] = {
+                k: v for k, v in dryrun.collective_bytes_per_device(
+                    last.collectives, by_dtype=True).items() if ":" in k}
     except Exception as e:  # noqa: BLE001 - record the cell and go on with the sweep
         traceback.print_exc()
         res = {"arch": arch, "shape": shape, "mesh": mesh, "rules": rules, "status": "error",
@@ -114,7 +120,8 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     from repro_torch.launch import dryrun
 
-    jobs = [(a, s, m, args.rules) for a, s, m in dryrun.cells(args.mesh, args.arch, args.shape)]
+    jobs = [(a, s, m, args.rules) for arch in (args.arch.split(",") if args.arch else [None])
+            for a, s, m in dryrun.cells(args.mesh, arch, args.shape)]
     # the longest cells (train, prefill) first, so no worker ends on one alone
     order = {"train_4k": 0, "prefill_32k": 1, "decode_32k": 2, "long_500k": 3}
     jobs.sort(key=lambda j: order.get(j[1], 4))

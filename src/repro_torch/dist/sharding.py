@@ -393,11 +393,13 @@ class Shards:
                                   run_check=False)
 
     def weight(self, w: torch.Tensor) -> torch.Tensor:
-        """``w`` whole on every rank, as a plain tensor.  Its gradient stays
-        the ``Partial`` sum over the mesh dims that split the work (laid out
-        as ``w`` on the others), which the train step's layout step
-        (``layout_grad``) reduces once with the leaf's other contributions
-        (a tied embedding table's lookup and unembedding)."""
+        """``w`` whole on every rank, as a plain tensor: gathered over every
+        mesh dim, for work that reads it on plain shards (the embedding
+        lookup, Mamba's conv, the MoE router).  Its gradient stays the
+        ``Partial`` sum over the mesh dims that split the work (laid out as
+        ``w`` on the others) for the leaf's layout step (``layout_grad``)
+        to reduce once with the leaf's other contributions (a tied
+        embedding table's lookup and unembedding)."""
         dims = {d: None for d in self.split if d is not None}
         whole = _GatherGradPartial.apply(w, self._placements(dims))
         return whole.to_local(grad_placements=self._placements(dims, grad=True))
@@ -446,17 +448,14 @@ def on_batch_shards(fn, x: torch.Tensor, *weights: torch.Tensor) -> torch.Tensor
     return shards.mesh_tensor(fn(shards.local(x), *(shards.weight(w) for w in weights)))
 
 
-def leading_shards(x: torch.Tensor) -> Shards:
-    """The ``Shards`` of a ``DTensor`` x's splits of its leading dims (all
-    but the last, the features a product contracts)."""
-    return Shards(x.device_mesh, tuple(p.dim if p.is_shard() and p.dim < x.dim() - 1 else None
-                                       for p in x.placements))
-
-
 class _GatherGradPartial(torch.autograd.Function):
-    """``w`` redistributed to ``placements`` (``Shards.weight``); its
-    gradient comes back in ``w``'s placements where it is not a ``Partial``
-    sum, and stays one where it is."""
+    """``w`` redistributed to ``placements`` (``gather_dp``, ``matmul``,
+    ``Shards.weight``): gathered where a weight is read whole.  Its
+    gradient comes back in ``w``'s placements where it is not a
+    ``Partial`` sum, and stays one where it is: the sum over the shards of
+    the work is left to the leaf's layout node (``layout_grad``), which
+    reduces it once, in the master's dtype, where a redistribute's
+    backward would reduce it here, in ``w``'s."""
 
     @staticmethod
     def forward(ctx, w, placements):
@@ -470,10 +469,35 @@ class _GatherGradPartial(torch.autograd.Function):
         return g.redistribute(ctx.mesh, keep), None
 
 
+def gather_dp(w: torch.Tensor) -> torch.Tensor:
+    """``w`` gathered over the mesh's data-parallel axes (``pod``,
+    ``data``), its split over the others kept: what an FSDP step does
+    before each product of a weight that the rules (``FSDP_RULES``) shard
+    over those axes.  The gather moves ``w`` in its own dtype, so a weight
+    cast to the compute dtype first moves bf16, as the reference's GSPMD
+    does.  Its gradient stays a ``Partial`` sum over the DP axes (each
+    rank saw its batch shard), left to the leaf's layout node
+    (``layout_grad``) to reduce once, in f32 for f32 masters.  A plain
+    tensor, or one that no DP axis splits, is returned as it is."""
+    if not is_dtensor(w):
+        return w
+    from torch.distributed.tensor import Replicate
+
+    dp = dp_axes(w.device_mesh)
+    whole = [Replicate() if a in dp and p.is_shard() else p
+             for a, p in zip(mesh_axes(w.device_mesh), w.placements)]
+    if whole == list(w.placements):
+        return w
+    return _GatherGradPartial.apply(w, whole)
+
+
 class _ForwardLayoutGrad(torch.autograd.Function):
     """Identity on a ``DTensor`` whose gradient is laid out as the tensor
     was in the forward pass (replicated where the tensor was a partial
-    sum)."""
+    sum), one mesh dim at a time, major to minor: a ``Partial`` sum over
+    ``pod`` and ``data`` of a dim split over both is reduce-scattered over
+    ``pod``, then its shard over ``data``, where DTensor's own plan
+    all-reduces it whole over ``data`` first."""
 
     @staticmethod
     def forward(ctx, y):
@@ -485,7 +509,12 @@ class _ForwardLayoutGrad(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return g.redistribute(ctx.mesh, ctx.placements)
+        placements = list(g.placements)
+        for i, p in enumerate(ctx.placements):
+            if placements[i] != p:
+                placements[i] = p
+                g = g.redistribute(ctx.mesh, placements)
+        return g
 
 
 def layout_grad(t: torch.Tensor) -> torch.Tensor:
@@ -500,21 +529,56 @@ def layout_grad(t: torch.Tensor) -> torch.Tensor:
 
 
 def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``x @ w`` for activations x [..., d] and a weight w [d, k].  The
-    product flattens x's leading dims into one, which DTensor cannot
-    express for two split dims, and refuses.  So a ``DTensor`` x split on
-    more than one leading dim (the batch and, where the rules put the
-    sequence on a mesh axis, the sequence) runs on each rank's shard
-    (``Shards``) against the whole weight, gathered over the mesh, its
-    gradient reduced back; on any other ``DTensor`` x the product's
-    gradient comes back in the product's forward layout, not in a layout
-    with two split leading dims that a later constraint left on it."""
-    if not is_dtensor(x):
+    """``x @ w`` for activations x [..., d] and a weight w [d, k], or
+    batched over leading dims that both share: x [E, n, d] and w [E, d, k]
+    (the experts' products).
+
+    On ``DTensor``s the product runs on each rank's plain shards, in a
+    layout chosen here, mesh dim by mesh dim, not by DTensor's cost model
+    (which differs between torch releases: on torch 2.11 it split the
+    activations of an FSDP product on the contracted dim and reduced the
+    partial products).  The weight is first gathered over the DP axes
+    (``gather_dp``), as FSDP does.  Then, on each mesh dim:
+
+    * x splits a batch dim of the product: w is split on it alike;
+    * x splits another leading dim (the batch over the DP axes, the
+      sequence under Megatron SP): w is whole there, gathered if split;
+      its gradient is a ``Partial`` sum;
+    * x splits d: w's d is split alike, the output a ``Partial`` sum;
+    * x is whole: w keeps a split of its k columns (the output split on
+      them, x's gradient a ``Partial`` sum) and is gathered otherwise.
+
+    A ``Partial`` x is reduced first.  w's gradient is left a ``Partial``
+    sum where it is one, for the leaf's layout node (``layout_grad``) to
+    reduce once; the output's gradient comes back in the output's layout,
+    not in one a later constraint left on it."""
+    if not is_dtensor(x) or not is_dtensor(w):
         return x @ w
-    shards = leading_shards(x)
-    if len({d for d in shards.split if d is not None}) > 1:
-        return shards.mesh_tensor(shards.local(x) @ shards.weight(w))
-    return _ForwardLayoutGrad.apply(x @ w)
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    w = gather_dp(w)
+    batch, last, cols = w.dim() - 2, x.dim() - 1, w.dim() - 1
+    layout = []  # per mesh dim: x's, w's, the output's, x's and w's gradients'
+    for px, pw in zip(x.placements, w.placements):
+        px = Replicate() if px.is_partial() else px
+        if px.is_shard() and px.dim < batch:        # a batch dim of the product
+            pw, po, pdx, pdw = Shard(px.dim), px, px, Shard(px.dim)
+        elif px.is_shard() and px.dim < last:       # another leading dim of x
+            pw, po, pdx, pdw = Replicate(), px, px, Partial()
+        elif px.is_shard():                          # the contracted dim
+            pw, po, pdx, pdw = Shard(batch), Partial(), px, Shard(batch)
+        elif pw.is_shard(cols):                      # x whole, w's columns split
+            po, pdx, pdw = Shard(last), Partial(), pw
+        else:
+            pw = po = pdx = pdw = Replicate()
+        layout.append((px, pw, po, pdx, pdw))
+    xs, ws, out, dx, dw = (list(p) for p in zip(*layout))
+    if xs != list(x.placements):
+        x = x.redistribute(x.device_mesh, xs)
+    if ws != list(w.placements):
+        w = _GatherGradPartial.apply(w, ws)
+    y = x.to_local(grad_placements=dx) @ w.to_local(grad_placements=dw)
+    return _ForwardLayoutGrad.apply(DTensor.from_local(y, x.device_mesh, out, run_check=False))
 
 
 def shard(x: torch.Tensor, *axes: str | None) -> torch.Tensor:

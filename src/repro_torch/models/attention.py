@@ -16,8 +16,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.dist.sharding import (ParamSpec, Shards, is_dtensor, leading_shards, matmul,
-                                       shard)
+from repro_torch.dist.sharding import ParamSpec, Shards, is_dtensor, matmul, shard
 from repro_torch.kernels import ops
 from repro_torch.models import layers
 
@@ -39,17 +38,9 @@ def attn_specs(cfg: ModelConfig, stacked: tuple[int, ...] = ()) -> dict:
 
 
 def _proj(x: torch.Tensor, w: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
-    """einsum('bsd,dhk->bshk') as one matrix product.  A ``DTensor`` weight
-    whose heads no mesh dim splits (a head count the mesh does not divide:
-    the rules replicate it) runs on each rank's shard of x's leading dims
-    against the whole weight: DTensor may split the product's h * k
-    columns over a mesh dim that cannot split the h heads, which the
-    unflatten into heads (or its gradient's) then refuses."""
+    """einsum('bsd,dhk->bshk') as one matrix product (``matmul``: on a
+    mesh the product's columns are split only where w's heads are)."""
     d, h, k = w.shape
-    if is_dtensor(w) and not any(p.is_shard(1) for p in w.placements):
-        shards = leading_shards(x)
-        y = shards.local(x) @ shards.weight(w).to(dt).reshape(d, h * k)
-        return shards.mesh_tensor(y.reshape(*y.shape[:-1], h, k))
     return matmul(x, w.to(dt).reshape(d, h * k)).reshape(*x.shape[:-1], h, k)
 
 

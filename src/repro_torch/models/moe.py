@@ -23,7 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.dist.sharding import ParamSpec, batch_shards, matmul, shard
+from repro_torch.dist.sharding import ParamSpec, batch_shards, matmul, replicate, shard
 
 
 def moe_specs(cfg: ModelConfig, stacked: tuple[int, ...] = ()) -> dict:
@@ -107,7 +107,8 @@ def moe_ffn(p: dict, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tensor, t
     are per group, run on each rank's batch shard (``dist.sharding.Shards``;
     DTensor's own scatter and gather rules fail on some torch releases);
     the expert products run on ``DTensor``s under the reference's
-    constraints."""
+    constraints, through ``matmul`` (each expert weight gathered over the
+    DP axes where the rules split it there)."""
     dt = x.dtype
     b, s, d = x.shape
     e, k = cfg.moe_experts, cfg.moe_top_k
@@ -125,7 +126,9 @@ def moe_ffn(p: dict, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tensor, t
     first = F.one_hot(gate_idx[..., 0], e).to(torch.float32)
     if shards is not None:  # the means are over every rank's tokens
         probs, first = shards.mesh_tensor(probs), shards.mesh_tensor(first)
-    aux = e * torch.sum(probs.mean(dim=(0, 1)) * first.mean(dim=(0, 1)))
+    # each mean is reduced whole ([E], in the forward pass): the gradient to
+    # the probabilities then needs no reduction
+    aux = e * torch.sum(replicate(probs.mean(dim=(0, 1))) * replicate(first.mean(dim=(0, 1))))
 
     # ---- grouped sort-based dispatch ----------------------------------------------
     order, tok_s, slot, in_cap = dispatch(gate_idx, cap, e)
@@ -142,10 +145,10 @@ def moe_ffn(p: dict, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tensor, t
     xe = _shard_experts(xe, g, "expert_in")
 
     # ---- expert SwiGLU: products batched over the experts ----------------------------
-    h = torch.bmm(xe, p["w_gate"].to(dt))
-    u = torch.bmm(xe, p["w_up"].to(dt))
+    h = matmul(xe, p["w_gate"].to(dt))
+    u = matmul(xe, p["w_up"].to(dt))
     h = _shard_experts(F.silu(h) * u, g, "expert_mlp")
-    ye = _shard_experts(torch.bmm(h, p["w_down"].to(dt)), g, "expert_in")  # [E, G*C, d]
+    ye = _shard_experts(matmul(h, p["w_down"].to(dt)), g, "expert_in")  # [E, G*C, d]
     if shards is not None:
         ye = shards.local(ye, {0: 1})
     ye = ye.reshape(e, g_l, cap, d).transpose(0, 1).reshape(g_l, e * cap, d)

@@ -1,5 +1,5 @@
 """The train step hands its optimizer every gradient in its master's layout,
-each reduced once, on fake worlds of four ranks; imports no JAX.
+each reduced once, on fake worlds of four and eight ranks; imports no JAX.
 
 ``torch.autograd.grad`` gives a ``DTensor`` master's gradient back as a
 ``Partial`` sum over the mesh dims that split the batch.  ``train.step``
@@ -20,7 +20,18 @@ and FSDP rules on 2 x 2 and 4 x 1 (data, model) meshes, batch 8 x 32:
   (before the repair 2,314,504 bytes against 736,904); in bf16 compute
   too, where the gradients are still summed in f32, the masters' dtype;
 * under remat "dots" on 2 x 2 each block's gradients are reduced right
-  after its backward, before the next block's recompute.
+  after its backward, before the next block's recompute;
+* under the FSDP rules in bf16 compute (minicpm-2b with remat "dots",
+  grok-1), traced by ``chip_smoke.layout_trace`` as phase ``fsdp`` traces
+  the step on the card: each weight split over ``data`` is all-gathered
+  in bf16 by ``sharding.gather_dp`` before its products, each gradient
+  reaches its layout node as a ``Partial`` sum and is reduced there once,
+  in f32, and nothing else is reduced over ``data`` but
+  ``chip_smoke.FSDP_OTHER_REDUCTIONS`` (ROADMAP C.14: before the repair
+  grok-1's expert products split the activations over ``data`` and
+  reduced them, and its expert weights' gradients came in split);
+* on a (pod 2, data 2, model 2) mesh each FSDP gradient is
+  reduce-scattered over ``pod``, then over ``data`` (ROADMAP C.15).
 
 Every fake group lives in a subprocess of its own, as in
 ``tests/test_torch_dryrun_cost.py``.
@@ -41,10 +52,15 @@ RULES = ("base", "fsdp")
 WORLDS = ("2x2", "4x1")
 F32 = 4
 RING = 2  # an all-reduce's bytes on the wire a rank: the reference's ring factor
+# the FSDP steps traced in bf16 compute (arch, remat): "dots" recomputes each
+# block in the backward pass, which gathers the block's weights again
+TRACED = (("minicpm-2b", "dots"), ("grok-1-314b", "none"))
 
 BODY = """
 import dataclasses, json
+import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
+import chip_smoke
 from repro_torch import configs
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.dist import sharding
@@ -59,7 +75,23 @@ def layout(tree):
             for k, v in sharding.keyed_leaves(tree).items()}
 
 
-dryrun.fake_world(4)
+def traced(mesh, arch, remat):
+    # the FSDP step in bf16 compute, its collectives traced as phase fsdp
+    # of chip_smoke.py traces them on the card
+    cfg = dataclasses.replace(configs.get_smoke(arch), compute_dtype="bfloat16", remat=remat)
+    fake_mode = FakeTensorMode(allow_non_fake_inputs=True)
+    fn, args, cfg, _, rules = dryrun.build_cell(
+        arch, ShapeConfig("smoke", 32, 8, "train"), mesh, "fsdp", cfg=cfg, fake_mode=fake_mode)
+    masters = layout(args[0])
+    with fake_mode, sharding.sharding_ctx(mesh, rules), chip_smoke.layout_trace(
+            torch, args[0]) as (counter, nodes):
+        fn(*args)
+    return {"masters": masters, "n_blocks": cfg.n_blocks, "tied": cfg.tie_embeddings,
+            **chip_smoke.layout_reductions(counter, nodes, masters, cfg.n_blocks,
+                                           "torch.bfloat16")}
+
+
+dryrun.fake_world(RANKS)
 out = {}
 for world in WORLDS:
     d, m = (int(x) for x in world.split("x"))
@@ -89,6 +121,11 @@ for world in WORLDS:
             "n_blocks": cfg.n_blocks, "op_counts": dict(counter.op_counts),
             "all_reduce_bytes": dryrun.collective_bytes_per_device(
                 counter.collectives)["all-reduce"]}
+    for arch, remat in TRACED:
+        out[f"{world}/{arch}/fsdp/bfloat16/{remat}"] = traced(mesh, arch, remat)
+if POD:  # a (pod 2, data 2, model 2) mesh: two DP axes
+    out["pod/minicpm-2b/fsdp/bfloat16"] = traced(mesh_lib.make_debug_mesh(2, 2, 2, device="cpu"),
+                                                 "minicpm-2b", "none")
 print(json.dumps(out))
 """
 
@@ -144,13 +181,15 @@ print(json.dumps({"order": {"events": "".join(events), "n_blocks": cfg.n_blocks,
 
 @pytest.fixture(scope="module")
 def cells():
-    """Every cell, a process a world, and the order's process, all run
-    together."""
+    """Every cell, a process a world (the pod mesh's of 8 ranks), and the
+    order's process, all run together."""
     env = {**os.environ, "PYTHONPATH": SRC, "OMP_NUM_THREADS": "2"}
     extra = {"4x1": (("minicpm-2b", "base", "bfloat16"),)}
     codes = [f"ARCHS, RULES, WORLDS = {ARCHS!r}, {RULES!r}, {(world,)!r}\n"
-             f"EXTRA = {extra.get(world, ())!r}\n"
-             + textwrap.dedent(BODY) for world in WORLDS] + [textwrap.dedent(ORDER)]
+             f"EXTRA, TRACED, POD, RANKS = {extra.get(world, ())!r}, {TRACED!r}, False, 4\n"
+             + textwrap.dedent(BODY) for world in WORLDS]
+    codes += ["ARCHS, RULES, WORLDS, EXTRA, TRACED, POD, RANKS = (), (), (), (), (), True, 8\n"
+              + textwrap.dedent(BODY), textwrap.dedent(ORDER)]
     procs = [subprocess.Popen([sys.executable, "-c", code], env=env, cwd=ROOT,
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
              for code in codes]
@@ -218,3 +257,76 @@ def _all_reduced_once(got):
     loss = RING * F32 * 1
     assert gradients == 736_896
     assert got["all_reduce_bytes"] == gradients + loss
+
+
+def _traced(cells, world, arch, remat):
+    return cells[f"{world}/{arch}/fsdp/bfloat16/{remat}"]
+
+
+@pytest.mark.parametrize("world", WORLDS)
+@pytest.mark.parametrize("arch,remat", TRACED)
+def test_fsdp_step_gathers_each_weight_over_data_in_bf16(cells, arch, remat, world):
+    """Under ``FSDP_RULES`` each product reads its weight gathered over
+    ``data`` (``sharding.gather_dp``), after the cast: in bf16.  Each
+    weight the rules split over ``data`` is gathered once a block, and
+    again in the block's "dots" recompute (the gathered weight is not kept
+    for the backward pass); the router and the token table are read whole
+    on the batch shards (``Shards.weight``), the table also gathered here
+    as the tied unembedding."""
+    got = _traced(cells, world, arch, remat)
+    passes = 2 if remat == "dots" else 1
+    split = [k for k, (placements, _) in got["masters"].items() if placements[0] != "R"]
+    want = {k: got["n_blocks"] * passes if k.startswith("['blocks']") else 1 for k in split
+            if not k.endswith("['router']") and (k != "['tok']['embed']" or got["tied"])}
+    assert got["gather_dp"]["leaves"] == want
+    assert got["gather_dp"]["dtypes"] == ["torch.bfloat16"]
+    assert got["gather_dp"]["count"] == got["gather_dp"]["weights"] == sum(want.values())
+    assert got["gathers_off_dtype"] == {}  # no all-gather over data in f32
+
+
+@pytest.mark.parametrize("world", WORLDS)
+@pytest.mark.parametrize("arch,remat", TRACED)
+def test_fsdp_step_reduces_each_gradient_once_in_f32_at_its_layout_node(cells, arch, remat,
+                                                                        world):
+    """Every gradient, the norms' too, reaches its layout node as a
+    ``Partial`` sum over ``data`` and is reduced there once, in f32 (and
+    once over ``model`` too where it is a sum over that axis as well)."""
+    got = _traced(cells, world, arch, remat)
+    assert got["layout_nodes"] == got["layout_nodes_expected"] > 0
+    assert got["nodes_wrong"] == [] and got["reductions_wrong"] == []
+    assert got["needed_none"] == {}
+
+
+@pytest.mark.parametrize("world", WORLDS)
+@pytest.mark.parametrize("arch,remat", TRACED)
+def test_fsdp_step_reduces_no_activation_over_data(cells, arch, remat, world):
+    """Outside the layout nodes the step reduces over ``data`` only what
+    ``chip_smoke.FSDP_OTHER_REDUCTIONS`` names (the cross-entropy's sum,
+    the MoE load-balance loss's means, the gradient norm's sums), in f32:
+    no product splits the activations on ``data`` and reduces them."""
+    got = _traced(cells, world, arch, remat)
+    assert got["unlisted"] == {}
+    assert any(k.startswith("models/layers.py") for k in got["other_reductions"])
+
+
+def test_fsdp_step_reduce_scatters_each_gradient_over_pod_then_data(cells):
+    """On a (pod 2, data 2, model 2) mesh a gradient that is a ``Partial``
+    sum over both DP axes of a master split over both is reduce-scattered
+    over ``pod``, then its shard over ``data``: one mesh dim at a time
+    (``_ForwardLayoutGrad``), where DTensor's own plan all-reduces it whole
+    over ``data`` first (ROADMAP C.15; the production multi-pod mesh's
+    grok-1 × train_4k cell: 78.9 GB of f32 all-reduce results a step
+    against 2.6 GB of reduce-scatters).  A replicated master's (the
+    norms', also a sum over ``model``) is all-reduced over each axis."""
+    got = cells["pod/minicpm-2b/fsdp/bfloat16"]
+
+    def nodes(leaves):  # a stacked leaf's node runs once a block
+        return sum(got["n_blocks"] if k.startswith("['blocks']") else 1 for k in leaves)
+
+    split = [k for k, (placements, _) in got["masters"].items() if placements[:2] != ["R", "R"]]
+    whole = [k for k in got["masters"] if k not in split]
+    assert got["nodes_wrong"] == [] and got["reductions_wrong"] == []
+    assert got["node_issued"] == {"reduce-scatter pod, reduce-scatter data": nodes(split),
+                                  "all-reduce pod, all-reduce data, all-reduce model":
+                                      nodes(whole)}
+    assert split and whole
