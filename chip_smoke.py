@@ -56,7 +56,9 @@ Phases, each printing JSON lines:
    H 12), (8192, 10, 18), (4096, 10, 68), (1024, 5, 256) and the stream's
    (8192, 14, 12), ``tt_contract`` at (B 8192, K 8, R 6), (8192, 8, 10),
    (4096, 8, 34), (256, 4, 128), (1001, 8, 10), B off the block, (1001, 3,
-   5) and the stream's (8192, 12, 6), on the operands a training step makes
+   5), the stream's (8192, 12, 6) and the wide plan's (517, 5, 57),
+   (16384, 8, 43), (16384, 8, 57) and (8192, 8, 128) (the last three also
+   timed, ``kernels.bwd.wide_timing``), on the operands a training step makes
    (``training_inputs``); each gradient within atol 1e-5 + rtol 1e-4 of its
    largest value, and every ``lstm_scan`` gradient no further from an f64
    evaluation than 4x the plain version's (a weight's gradient sums B T
@@ -106,6 +108,19 @@ Phases, each printing JSON lines:
    fit.parity: ``compress`` twice on the mini replica from the same seed,
    the plain versions ("ref") against the kernels ("auto"): fitness within
    1e-3 at every epoch; a mode whose accepted swaps differ is printed.
+   fit_budget: ``get_codec("nttd").fit(x, budget=4_000_000)`` on the same
+   replica, the adapter's defaults (batch 16384, lr 5e-3, TSP init, Alg.
+   3), 6 epochs of 2^21 entries: the budget rule's rank 57, hidden 114 (d'
+   10), whose step runs the simt ``lstm_scan``, both backward kernels'
+   wide plans and ``tt_contract`` at R 57, and whose fitness runs the simt
+   decode.  Every step launches each training kernel once, no plain
+   version runs, the payload is within the budget and answers as fitted
+   and as the plain route, and one step from the fitted params gives the
+   plain route's loss and gradients; ``timing.fit_budget`` gives each
+   kernel's time at that fit's shapes beside its bound, and
+   ``fit_budget.parity`` runs ``fitness_parity`` (as fit.parity) at that
+   rank, hidden and d' on the mini replica, every backward launch of its
+   kernel route in the wide plan.
    stream: out-of-core compression at the reference's fig5 FULL shape,
    ``fit_stream("nttd", SyntheticTensorSource((16384, 64, 64),
    slab_entries=2^18, seed=1), rank=6, hidden=12, steps_per_slab=2,
@@ -386,10 +401,14 @@ Phases, each printing JSON lines:
    ``nn.LSTM``'s backward; a ``timing.fit_step`` line sets the four kernels
    of a step beside the fit's seconds a step, and a ``timing.stream_step``
    line the same four at a step of the stream (B 8192, T 14, H 12, R 6)
-   beside the stream's seconds a step.
+   beside the stream's seconds a step.  The ``tt_contract`` backward's
+   wide plan has a row of its own (``tt_contract_bwd_wide``) at the 4 MB
+   budget fit's step (B 16384, K 8, R 57), with its launches in phase
+   ``fit_budget``.
    Every forward row also carries its launches on the fit path
-   (``launches_fit``), and every row on the stream path its launches in
-   phase ``stream`` (``launches_stream``).
+   (``launches_fit``), every row on the stream path its launches in phase
+   ``stream`` (``launches_stream``), and every row its launches in phase
+   ``fit_budget`` (``launches_fit_budget``).
 
 The line before the last is the card's ``name, power.limit`` as
 ``nvidia-smi`` reports them; the last line is the result object.  Any
@@ -538,6 +557,35 @@ PP_TOL = 2e-4                       # rtol = atol, tests/test_spmd.py's pipeline
 PP_TIMED = 3                        # timed pipeline runs after the checked one
 EMBED_EPOCHS = 1                    # the reference's default is 150
 EMBED_LOOKUP = (8, 128)
+
+
+def tt_bwd_wide_row(torch, device, launches, errs):
+    """The ``tt_contract`` backward's wide plan at the 4 MB budget fit's
+    step (B 16384, K 8, R 57; ``tt_bwd_inputs``): the call (CUDA events, 20
+    after 2 warm-ups; mid is 1.7 GB, far above the L2), the plain version
+    (5), the byte bound; ``launches`` its launches in phase fit_budget."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import tt_contract as _tt
+
+    b, k, r = BWD_TT_WIDE_TIMED[1]
+    first, mid, last, dout = tt_bwd_inputs(torch, torch.Generator().manual_seed(SEED), b, k, r,
+                                           device)
+    plan = _tt.bwd_plan(r, k, b, torch.cuda.get_device_properties(device).multi_processor_count)
+    require(plan.kind == "wide", f"the budget fit's step takes the {plan.kind} plan")
+    n_ops, n_bytes = tt_bwd_cost(b, k, r)
+    row = {"name": "tt_contract_bwd_wide", "route": "cuda",
+           "source": SOURCES["tt_contract_bwd"][0], "replaces": SOURCES["tt_contract_bwd"][1],
+           "launches": launches,
+           "max_abs_err": errs["tt_contract_bwd_wide"],
+           "ms": time_ms(torch, lambda: _tt.tt_contract_bwd(first, mid, last, dout), 20),
+           "plain_ms": time_ms(torch, lambda: ref.tt_contract_bwd(first, mid, last, dout), 5),
+           **bound(n_ops, n_bytes, PEAK_FP32), "library_ms": None, "library": None,
+           "library_max_abs_err": None, "plan": dataclasses.asdict(plan),
+           "shape": {"B": b, "K": k, "R": r}, "ops": n_ops, "bytes": n_bytes,
+           "note": "the wide plan's kernel (tt_contract_bwd_wide_cluster_kernel); launches: "
+                   "phase fit_budget's; max_abs_err: over kernels.bwd's wide cases"}
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+    return row
 
 
 class SmokeFailure(RuntimeError):
@@ -862,12 +910,17 @@ BWD_RTOL, BWD_ATOL = 1e-4, 1e-5
 BWD_LSTM_CASES = ((8192, 10, 12), (8192, 10, 18), (4096, 10, 68), (1024, 5, 256),
                   (8192, 14, 12))
 # tt_contract backward cases (B, K, R): SMALL's and MEDIUM's ranks at K 8
-# (PEMS-SF's d' 10), the 1 MB rank, the widest (the wide plan; the others
-# take the slab plan), a B off the slab of entries (16 a slab at R 10), and
-# a K R^2 that is not a multiple of 4 (the slab plan's ragged heads and
-# tails), and a step of the stream phase (K 12)
+# (PEMS-SF's d' 10), the 1 MB rank, the widest at K 4, a B off the slab of
+# entries (16 a slab at R 10), a K R^2 that is not a multiple of 4 (the slab
+# plan's ragged heads and tails), a step of the stream phase (K 12); then
+# the wide plan at the 4 MB rank at K 5 on a batch off the card's SMs
+# (517, as the forward's TT_CASES), the first rank past the slab plan at K
+# 8 (43), the 4 MB fit's step (57, at the adapter's batch 16384) and the
+# budget rule's widest at K 8 (128)
 BWD_TT_CASES = ((8192, 8, 6), (8192, 8, 10), (4096, 8, 34), (256, 4, 128), (1001, 8, 10),
-                (1001, 3, 5), (8192, 12, 6))
+                (1001, 3, 5), (8192, 12, 6), (517, 5, 57), (16384, 8, 43), (16384, 8, 57),
+                (8192, 8, 128))
+BWD_TT_WIDE_TIMED = BWD_TT_CASES[-3:]
 # the fit phase: the paper's MEDIUM on the PEMS-SF replica at its Table II
 # shape, 6 epochs so that one Alg. 3 sweep runs after the fifth, 2^21
 # entries (256 steps of 8192) an epoch
@@ -1035,8 +1088,8 @@ def phase_device(torch):
     # the backward kernels: their resources, one kernel a plan, and each
     # backward's plan at the shapes it is held at (lstm: where the weights
     # are read from, tile of sequences, threads, shared memory; tt: slab or
-    # wide, entries a slab or block, threads, blocks, shared memory); the
-    # lstm backward and the tt slab plan must not spill
+    # wide, entries a slab, threads, blocks, shared memory, blocks a
+    # cluster); none may spill
     from repro_torch.kernels import lstm as _lstm
     from repro_torch.kernels import tt_contract as _tt
 
@@ -1049,9 +1102,7 @@ def phase_device(torch):
     require(len(bwd) == 5,
             f"ptxas reports {len(bwd)} backward kernels, expected 5 (the lstm_scan backward's "
             f"three plans, tt_contract's slab and wide plans): {bwd}")
-    require(all(r["spill_store_bytes"] == r["spill_load_bytes"] == 0 for r in bwd
-                if "lstm_scan_bwd_kernel" in r["kernel"]
-                or "tt_contract_bwd_slab_kernel" in r["kernel"]),
+    require(all(r["spill_store_bytes"] == r["spill_load_bytes"] == 0 for r in bwd),
             f"a backward kernel spills: {bwd}")
     sass = sass_hgmma(path)
     if sass["tool"]:
@@ -2661,8 +2712,8 @@ def phase_kernels_bwd(torch, device):
     from repro_torch.kernels import tt_contract as _tt
 
     gen = torch.Generator().manual_seed(SEED)
-    errs = {"lstm_scan_bwd": 0.0, "tt_contract_bwd": 0.0}
-    lstm_cases, tt_cases = [], []
+    errs = {"lstm_scan_bwd": 0.0, "tt_contract_bwd": 0.0, "tt_contract_bwd_wide": 0.0}
+    lstm_cases, tt_cases, wide_timing = [], [], []
     for b, t, h in BWD_LSTM_CASES:
         x, lw, dhs = lstm_bwd_inputs(torch, gen, b, t, h, device)
         hs = ops.lstm_scan(x, *lw, impl="cuda")  # the forward kernel's, as training saves it
@@ -2698,12 +2749,26 @@ def phase_kernels_bwd(torch, device):
         errs["tt_contract_bwd"] = max(errs["tt_contract_bwd"], *err)
         names = ("dfirst", "dmid", "dlast")
         plan = _tt.bwd_plan(r, k, b, sms)
+        if plan.kind == "wide":
+            errs["tt_contract_bwd_wide"] = max(errs["tt_contract_bwd_wide"], *err)
         tt_cases.append({"B": b, "K": k, "R": r, "plan": plan.kind, "entries": plan.entries,
                          "blocks": plan.blocks, "threads": plan.threads,
+                         "cluster": plan.cluster,
                          "max_abs_err": dict(zip(names, err)),
                          "largest": dict(zip(names, (float(p.abs().max()) for p in plain))),
                          "beyond_elementwise": dict(zip(names, beyond_elementwise(
                              torch, got, plain)))})
+        if (b, k, r) in BWD_TT_WIDE_TIMED:
+            del got, plain
+            ms = time_ms(torch, lambda: _tt.tt_contract_bwd(first, mid, last, dout), 20)
+            cost = bound(*tt_bwd_cost(b, k, r), PEAK_FP32)
+            wide_timing.append({"B": b, "K": k, "R": r, "plan": plan.kind,
+                                "cluster": plan.cluster, "ms": ms, **cost,
+                                "bound_share": cost["bound_ms"] / ms})
+    emit({"phase": "kernels.bwd.wide_timing", "cases": wide_timing,
+          "note": "ms: CUDA events, mean of 20 back-to-back calls after 2 warm-ups (mid is "
+                  "1.2-4.3 GB, far above the 50 MB L2; a call's host work is far shorter than "
+                  "its kernel)"})
     # mid one float off the 16-byte grid (a view one float into a larger
     # buffer): the slab plan copies each entry's ragged head and tail by
     # plain loads and allocates dmid at the same offset from the grid
@@ -2864,24 +2929,24 @@ def phase_fit(torch, device):
     return launches, log.seconds_train / steps
 
 
-def phase_fit_parity(torch, device):
+def fitness_parity(torch, x, opts) -> dict:
     """``compress`` twice on the card from the same seed (so the same
-    initial params) on the mini PEMS-SF replica: the plain versions ("ref")
-    and the kernels ("auto").  The fitness histories must agree within
+    initial params) on ``x`` with ``opts``: the plain versions ("ref") and
+    the kernels ("auto").  The fitness histories must agree within
     ``FIT_PARITY_TOL`` at every epoch; where the accepted swaps of a mode
-    differ, the mode is printed."""
+    differ, the mode is printed.  Returns the fields to print."""
     from repro_torch.core import codec
-    from repro_torch.data import synthetic_tensors
     from repro_torch.kernels import ops
+    from repro_torch.kernels import tt_contract as _tt
 
-    x = synthetic_tensors.load(FIT_DATASET, mini=True, seed=SEED)
     runs = {}
     for impl in ("ref", "auto"):
         ops.reset_launch_counts()
         t = time.perf_counter()
-        _, log = codec.compress(x, codec.CodecConfig(**fit_options(kernel_impl=impl)))
+        _, log = codec.compress(x, codec.CodecConfig(**{**opts, "kernel_impl": impl}))
         torch.cuda.synchronize()
-        runs[impl] = (log, time.perf_counter() - t, ops.launch_counts())
+        runs[impl] = (log, time.perf_counter() - t,
+                      {**ops.launch_counts(), "tt_contract_bwd_wide": _tt.wide_launches})
     (plain, plain_s, plain_launches), (kern, kern_s, launches) = runs["ref"], runs["auto"]
     require(not any(plain_launches.values()), f"the ref route launched {plain_launches}")
     require(all(launches[k] > 0 for k in ("decode_tile", "lstm_scan", "lstm_scan_bwd",
@@ -2898,12 +2963,246 @@ def phase_fit_parity(torch, device):
                    for stats in plain.reorder_stats]
     differ = [a[0] for sweep, psweep in zip(swaps, plain_swaps) for a, b in zip(sweep, psweep)
               if a != b]
-    emit({"phase": "fit.parity", "dataset": FIT_DATASET, "shape": list(x.shape),
-          "tolerance": FIT_PARITY_TOL, "fitness_auto": kern.fitness_history,
-          "fitness_ref": plain.fitness_history, "max_fitness_diff": max(diffs),
-          "loss_auto": kern.loss_history, "loss_ref": plain.loss_history,
-          "swaps_auto": swaps, "swaps_ref": plain_swaps, "modes_whose_swaps_differ": differ,
-          "seconds_auto": kern_s, "seconds_ref": plain_s, "launches_auto": launches})
+    return {"dataset": FIT_DATASET, "shape": list(x.shape), "tolerance": FIT_PARITY_TOL,
+            "fitness_auto": kern.fitness_history, "fitness_ref": plain.fitness_history,
+            "max_fitness_diff": max(diffs), "loss_auto": kern.loss_history,
+            "loss_ref": plain.loss_history, "swaps_auto": swaps, "swaps_ref": plain_swaps,
+            "modes_whose_swaps_differ": differ, "seconds_auto": kern_s, "seconds_ref": plain_s,
+            "launches_auto": launches}
+
+
+def phase_fit_parity(torch, device):
+    """``fitness_parity`` of the paper's MEDIUM (``fit_options``) on the mini
+    PEMS-SF replica."""
+    from repro_torch.data import synthetic_tensors
+
+    x = synthetic_tensors.load(FIT_DATASET, mini=True, seed=SEED)
+    emit({"phase": "fit.parity", **fitness_parity(torch, x, fit_options())})
+
+
+FIT_BUDGET = 4_000_000
+FIT_BUDGET_ARCH = (57, 114)          # (rank, hidden) the budget rule picks on PEMS-SF
+FIT_BUDGET_EPOCHS, FIT_BUDGET_REORDER = 6, 5
+FIT_BUDGET_ENTRIES = 1 << 21
+FIT_BUDGET_REDUCED = [
+    "epochs: 6 of the adapter's default 60, so that exactly one Alg. 3 sweep runs "
+    "(reorder_warmup = reorder_every = 5)",
+    "entries_per_epoch: 2^21 (128 steps of 16384) of the tensor's 61,015,680",
+]
+FIT_BUDGET_LOSS_RTOL = 1e-5          # one step's summed loss, kernels against the plain route
+
+
+def fit_budget_step(torch, enc, x, opts):
+    """One training step's loss and gradients from the fitted params on one
+    batch of ``opts["batch_size"]`` entries of ``x`` (the adapter's
+    positions and normalized values), through the kernels (``kernel_impl``
+    "cuda": one launch of each training kernel) and through the plain
+    versions ("ref": none), held together: the loss within
+    ``FIT_BUDGET_LOSS_RTOL``, each leaf's gradient by ``compare_grads``."""
+    import numpy as np
+
+    from repro_torch.core import codec
+    from repro_torch.optim import optimizers
+    from repro_torch.kernels import ops
+
+    ct = enc.ct
+    rng = np.random.default_rng(SEED)
+    pos = np.stack([rng.integers(0, n, opts["batch_size"]) for n in x.shape], axis=1)
+    orig = np.stack([ct.pi[j][pos[:, j]] for j in range(x.ndim)], axis=1)
+    vals = (x[tuple(orig.T)] - ct.norm_mean) / ct.norm_std
+    pos_t = torch.as_tensor(pos, device=ct.device)
+    vals_t = torch.as_tensor(vals.astype(np.float32), device=ct.device)
+    out = {}
+    for impl in ("cuda", "ref"):
+        cfg = dataclasses.replace(ct.cfg, kernel_impl=impl)
+        ops.reset_launch_counts()
+        with codec.full_f32():
+            loss, grads = codec._make_value_and_grad(ct.spec, cfg)(ct.params, pos_t, vals_t)
+        torch.cuda.synchronize()
+        out[impl] = (float(loss), optimizers.tree_leaves(grads), ops.launch_counts())
+    (loss, grads, launches), (plain_loss, plain_grads, plain_launches) = out["cuda"], out["ref"]
+    require(all(launches[k] == 1 for k in TRAIN_KERNELS),
+            f"the kernels' step launched {launches}; expected one of each training kernel")
+    require(not any(plain_launches.values()), f"the plain route's step launched {plain_launches}")
+    require(abs(loss - plain_loss) <= FIT_BUDGET_LOSS_RTOL * abs(plain_loss),
+            f"step loss {loss} vs the plain route's {plain_loss}")
+    errs = compare_grads(torch, grads, plain_grads)
+    return {"entries": opts["batch_size"], "loss": loss, "loss_plain": plain_loss,
+            "loss_rtol": FIT_BUDGET_LOSS_RTOL, "grad_max_abs_err": max(errs),
+            "grad_worst_share_of_largest": max(e / max(float(w.abs().max()), 1e-30)
+                                               for e, w in zip(errs, plain_grads)),
+            "launches": launches}
+
+
+def fit_budget_kernels(torch, device, opts, spec):
+    """The four training kernels and the fitness's decode at the budget
+    fit's shapes: B 16384 (the adapter's batch), T = d' 10, H 114, R 57, K
+    8 (``training_inputs``), and the decode at its fitness batch
+    (``eval_batch`` 65,536 entries, T 10, M 8): CUDA events over 20
+    back-to-back calls after 2 warm-ups, device time (every call here
+    outlasts its host work); the ``lstm_scan`` backward's kernel alone and
+    its whole call; each beside its bound and its plan or body."""
+    from repro_torch.kernels import decode_tile as _decode_tile
+    from repro_torch.kernels import lstm as _lstm
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import tt_contract as _tt
+
+    r, h = FIT_BUDGET_ARCH
+    b, t = opts["batch_size"], spec.d_prime
+    k = t - 2
+    gen = torch.Generator().manual_seed(SEED)
+    (x, lw, dhs), (first, mid, last, dout) = training_inputs(torch, gen, b, t, h, r, device)
+    hs = ops.lstm_scan(x, *lw, impl="cuda")
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    tt_plan = _tt.bwd_plan(r, k, b, sms)
+    be, m = opts["eval_batch"], 8
+    idx, ws = decode_inputs(torch, gen, be, t, m, h, r, torch.float32, device, width_scaled=True)
+    dec_bytes = be * t * 4 + be * 4 + sum(int(w.numel()) for w in ws) * 4
+    rows = {
+        "lstm_scan": {"body": _lstm.lstm_body(h), "tile": _lstm.simt_tile(h),
+                      "ms": time_ms(torch, lambda: ops.lstm_scan(x, *lw, impl="cuda"), 20),
+                      **bound(*lstm_cost(b, t, h), PEAK_FP32)},
+        "lstm_scan_bwd": {"plan": dataclasses.asdict(_lstm.bwd_plan(h, b)),
+                          "ms": time_ms(torch, lambda: _lstm.bwd_gates(x, *lw, hs, dhs), 20),
+                          "call_ms": time_ms(torch, lambda: _lstm.lstm_scan_bwd(x, *lw, hs, dhs),
+                                             20),
+                          **bound(*lstm_bwd_kernel_cost(b, t, h), PEAK_FP32)},
+        "tt_contract": {"body": "lane_group", "lanes_per_entry": _tt.lanes_per_entry(r),
+                        "ms": time_ms(torch, lambda: ops.tt_contract(first, mid, last,
+                                                                     impl="cuda"), 20),
+                        **bound(b * (k * 2 * r * r + 2 * r), tt_bytes(b, k, r, 4), PEAK_FP32)},
+        "tt_contract_bwd": {"plan": dataclasses.asdict(tt_plan),
+                            "ms": time_ms(torch, lambda: _tt.tt_contract_bwd(first, mid, last,
+                                                                            dout), 20),
+                            **bound(*tt_bwd_cost(b, k, r), PEAK_FP32)},
+        "decode_tile": {"body": _decode_tile.decode_body(h, r), **simt_tile(h, r),
+                        "ms": time_ms(torch, lambda: ops.nttd_decode_tile(idx, *ws, impl="cuda"),
+                                      20),
+                        **bound(decode_cost(be, t, h, r), dec_bytes, PEAK_FP32)},
+    }
+    for row in rows.values():
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+    rows["lstm_scan_bwd"]["note"] = ("ms: the kernel alone (bwd_gates); call_ms: the wrapper, "
+                                     "with the weight gradients' product")
+    return {"shape": {"B": b, "T": t, "H": h, "R": r, "K": k, "decode_B": be, "decode_M": m},
+            "kernels": rows}
+
+
+def phase_fit_budget(torch, device):
+    """The budget-driven fit at its wide pick, on the card: ``get_codec(
+    "nttd").fit(x, budget=FIT_BUDGET)`` on the PEMS-SF replica at its Table
+    II shape, the adapter's defaults (batch 16384, lr 5e-3, TSP init, Alg.
+    3) cut in depth only (``FIT_BUDGET_REDUCED``).  The rule picks rank 57,
+    hidden 114 (d' 10, so K 8), where the training step runs the simt
+    ``lstm_scan`` forward, the ``lstm_scan`` backward's wide plan,
+    ``tt_contract`` at R 57 and the ``tt_contract`` backward's wide plan,
+    and the fitness the simt decode.  Every step must launch each training
+    kernel once and no plain version may run; the payload must be within
+    the budget, load, and answer ``decode_at`` as fitted and as the plain
+    route on the card (rtol = atol = 1e-5); one step from the fitted params
+    must give the plain route's loss and gradients (``fit_budget_step``).
+    Prints the seconds by part, steps/s, the fitness, the launches with
+    each kernel's plan or body, and the kernels' times at this fit's shapes
+    (``fit_budget_kernels``).  Returns the phase's launches."""
+    import numpy as np
+
+    from repro_torch.codecs import get_codec, load_bytes
+    from repro_torch.codecs.adapters import NTTDEncoded
+    from repro_torch.core.codec import CodecConfig
+    from repro_torch.data import synthetic_tensors
+    from repro_torch.kernels import decode_tile as _decode_tile
+    from repro_torch.kernels import lstm as _lstm
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import tt_contract as _tt
+
+    t0 = time.perf_counter()
+    x = synthetic_tensors.load(FIT_DATASET, mini=False, seed=SEED)
+    tensor_s = time.perf_counter() - t0
+    require(x.shape == PEMS_SHAPE, f"the {FIT_DATASET} replica has shape {x.shape}")
+    opts = dict(epochs=FIT_BUDGET_EPOCHS, reorder_warmup=FIT_BUDGET_REORDER,
+                reorder_every=FIT_BUDGET_REORDER, entries_per_epoch=FIT_BUDGET_ENTRIES)
+    codec = get_codec("nttd")
+    rank = codec._rank_for_budget(x.shape, FIT_BUDGET, opts)
+    require((rank, 2 * rank) == FIT_BUDGET_ARCH,
+            f"the budget rule picks rank {rank} at {FIT_BUDGET} bytes, not {FIT_BUDGET_ARCH[0]}")
+    with plain_calls_counted(ref) as plain:
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t = time.perf_counter()
+        enc = codec.fit(x, budget=FIT_BUDGET, **opts)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t
+        launches = ops.launch_counts()
+        simt = {"decode_tile": _decode_tile.simt_launches, "lstm_scan": _lstm.simt_launches,
+                "tt_contract_bwd": _tt.wide_launches}
+    cfg = CodecConfig(**opts)
+    ct, log = enc.ct, enc.log
+    require(ct.device.type == "cuda", "the fit did not run on the card")
+    require((ct.cfg.rank, ct.cfg.hidden, ct.spec.d_prime) == (*FIT_BUDGET_ARCH, 10),
+            f"the fit ran at rank {ct.cfg.rank}, hidden {ct.cfg.hidden}, d' {ct.spec.d_prime}")
+    require(cfg.kernel_impl == "auto" and (cfg.batch_size, cfg.lr) == (16384, 5e-3)
+            and cfg.init_reorder and cfg.update_reorder,
+            f"the adapter's defaults moved: {cfg}")
+    require(sum(plain.values()) == 0, f"plain versions ran on the budget fit's path: {plain}")
+    steps = FIT_BUDGET_ENTRIES // cfg.batch_size * log.epochs_run
+    train = {k: launches[k] for k in TRAIN_KERNELS}
+    require(set(train.values()) == {steps},
+            f"{steps} training steps launched {train}; expected one of each a step")
+    require(simt["lstm_scan"] == launches["lstm_scan"]
+            and simt["decode_tile"] == launches["decode_tile"] >= log.epochs_run
+            and simt["tt_contract_bwd"] == launches["tt_contract_bwd"],
+            f"the simt bodies and the wide backward plan ran {simt} of {launches}")
+    require(len(log.reorder_stats) == 1, f"{len(log.reorder_stats)} Alg. 3 sweeps")
+    require(all(math.isfinite(v) for v in log.fitness_history + log.loss_history),
+            "non-finite fitness or loss")
+    # what comes out: within the budget, reloaded intact, as the plain route
+    payload = enc.payload_bytes()
+    require(payload <= FIT_BUDGET, f"payload {payload} bytes beyond the budget {FIT_BUDGET}")
+    blob = enc.save()
+    idx = np.stack([np.random.default_rng(SEED).integers(0, n, REQUEST) for n in PEMS_SHAPE],
+                   axis=1)
+    loaded = load_bytes(blob)
+    got = loaded.decode_at(idx)
+    require(bool(np.isfinite(got).all()), "non-finite decode of the fitted payload")
+    np.testing.assert_allclose(got, enc.decode_at(idx), rtol=1e-5, atol=1e-5)
+    want = _with_impl(loaded, "ref", NTTDEncoded).decode_at(idx)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    step = fit_budget_step(torch, enc, x, dataclasses.asdict(cfg))
+    kernels = fit_budget_kernels(torch, device, dataclasses.asdict(cfg), ct.spec)
+    seconds_fitness = fit_s - log.seconds_init_order - log.seconds_train - log.seconds_reorder
+    emit({"phase": "fit_budget", "dataset": FIT_DATASET, "shape": list(x.shape),
+          "budget": FIT_BUDGET, "rank": ct.cfg.rank, "hidden": ct.cfg.hidden,
+          "d_prime": ct.spec.d_prime, "folded_shape": list(ct.spec.folded_shape),
+          "config": {k: getattr(cfg, k) for k in (
+              "batch_size", "lr", "epochs", "reorder_warmup", "reorder_every",
+              "reorder_samples", "entries_per_epoch", "eval_batch", "kernel_impl")},
+          "reduced": FIT_BUDGET_REDUCED, "tensor_seconds": tensor_s, "seconds": fit_s,
+          "seconds_by_part": {"tsp_init": log.seconds_init_order, "training": log.seconds_train,
+                              "alg3": log.seconds_reorder, "fitness": seconds_fitness},
+          "epochs_run": log.epochs_run, "steps": steps, "steps_per_s": steps / log.seconds_train,
+          "fitness_history": log.fitness_history, "loss_history": log.loss_history,
+          "fitness_reached": max(log.fitness_history),
+          "payload_bytes_v_a": payload, "saved_bytes": len(blob),
+          "launches": launches, "simt_launches": simt, "plain_calls": plain,
+          "bodies": {"lstm_scan": _lstm.lstm_body(ct.cfg.hidden),
+                     "lstm_scan_bwd": _lstm.bwd_plan(ct.cfg.hidden, cfg.batch_size).kind,
+                     "tt_contract": "lane_group",
+                     "tt_contract_bwd": kernels["kernels"]["tt_contract_bwd"]["plan"]["kind"],
+                     "decode_tile": _decode_tile.decode_body(ct.cfg.hidden, ct.cfg.rank)},
+          "step_parity": step, "max_abs_err_decode": float(np.abs(got - want).max())})
+    emit({"phase": "timing.fit_budget", **kernels})
+    # the fitness of each epoch against the plain route at this width, on
+    # the mini replica folded to the same d' (K 8)
+    parity = fitness_parity(torch, synthetic_tensors.load(FIT_DATASET, mini=True, seed=SEED),
+                            {**opts, "rank": ct.cfg.rank, "hidden": ct.cfg.hidden,
+                             "d_prime": ct.spec.d_prime})
+    require(parity["launches_auto"]["tt_contract_bwd_wide"]
+            == parity["launches_auto"]["tt_contract_bwd"],
+            f"the parity fit's backward ran outside the wide plan: {parity['launches_auto']}")
+    emit({"phase": "fit_budget.parity", "rank": ct.cfg.rank, "hidden": ct.cfg.hidden,
+          "d_prime": ct.spec.d_prime, **parity})
+    return {**launches, "decode_tile_simt": simt["decode_tile"],
+            "lstm_scan_simt": simt["lstm_scan"], "tt_contract_bwd_wide": simt["tt_contract_bwd"]}
 
 
 class TimedSource:
@@ -5507,6 +5806,7 @@ def main() -> int:
         simt_launches, lstm_simt_launches = phase_wide(torch, device)
         fit_launches, step_s = phase_fit(torch, device)
         phase_fit_parity(torch, device)
+        fit_budget_launches = phase_fit_budget(torch, device)
         stream_launches, stream_step_s, stream_path = phase_stream(torch, device, smi, workdir)
         phase_stream_parity(torch, device)
         delta_path = phase_stream_delta(torch, device, workdir)
@@ -5538,6 +5838,10 @@ def main() -> int:
         kernels.append(simt_lstm[0])
         kernels.append(flash_timing_row(torch, device, serve_launches, errs))
         kernels.extend(bwd_timing(torch, device, fit_launches, errs, step_s, fit_ops, bwd_ops))
+        kernels.append(tt_bwd_wide_row(torch, device, fit_budget_launches["tt_contract_bwd_wide"],
+                                       errs))
+        for row in kernels:  # and on the budget fit's path (phase fit_budget)
+            row["launches_fit_budget"] = fit_budget_launches.get(row["name"], 0)
         stream_step_timing(torch, device, stream_step_s)
         for row in kernels:  # and on the stream path (phase stream)
             if row["name"] in stream_launches:

@@ -15,8 +15,10 @@ from ``chip_smoke.tt_bwd_inputs``, seed 0), it prints one JSON line:
   after 2 warm-ups, back to back (where a call's host work outlasts its
   kernel, this is the host's time a call);
 * ``kernel_ms``: the device time of one call's kernel, the median of
-  ``REPEATS`` calls, each framed by idle host time, every call of the run
-  in one ``torch.profiler`` session (``chip_smoke.device_kernels``);
+  ``REPEATS`` calls, each framed by idle host time and preceded by a write
+  of ``FLUSH_BYTES`` that evicts the 50 MB L2 (so a call whose operands
+  would fit there reads them cold, as a training step does), every call of
+  the run in one ``torch.profiler`` session (``chip_smoke.device_kernels``);
   ``device_ops``: the device operations of a call;
 * ``bound_ms`` and ``bound_by`` (``chip_smoke.tt_bwd_cost`` over 67 TFLOP/s
   FP32 or 3.35 TB/s); ``share`` and ``kernel_share``, the bound over
@@ -32,8 +34,9 @@ the plan's threads or shared memory is skipped).  ``--variants FILE``
 also builds variants of this checkout's ``tt_contract_bwd.cu``, a JSON
 object name -> ``{"subs": [[old, new], ...]}``
 (``scripts/tt_bwd_variants.json``: knock-outs that remove one phase of
-the slab plan each), each with ``nvcc`` and the package's flags into
-``build/tt_bwd_variants/<name>/``, all in parallel, and times each at
+the slab plan each, and the wide plan's stores of dmid), each with
+``nvcc`` and the package's flags into ``build/tt_bwd_variants/<name>/``,
+all in parallel, and times each at
 every case through its C entry with ``bwd_plan``'s launch, one line each
 with its ptxas registers and its largest difference from this checkout's
 kernel (a knock-out computes something else, and that difference says
@@ -53,6 +56,7 @@ import subprocess
 import sys
 
 REPEATS = 5
+FLUSH_BYTES = 256 << 20
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(HERE, "src", "repro_torch", "kernels", "csrc")
 OUT = os.path.join(HERE, "build", "tt_bwd_variants")
@@ -91,7 +95,7 @@ def launcher(torch, fn, operands, plan, name: str):
     def call():
         err = fn(*(a.data_ptr() for a in (*operands, *grads)), bsz, k_steps, rank,
                  ("slab", "wide").index(plan.kind), plan.entries, plan.stride, plan.threads,
-                 plan.blocks, torch.cuda.current_stream().cuda_stream)
+                 plan.blocks, plan.cluster, torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"{name}: CUDA error {err}")
         return grads
@@ -111,7 +115,7 @@ def variant_calls(torch, smoke, path: str, cases) -> list[tuple[dict, object]]:
         ptxas = [{k: row[k] for k in ("kernel", "registers", "spill_store_bytes")}
                  for row in smoke.ptxas_resources(log)]
         fn = ctypes.CDLL(so).repro_tt_contract_bwd
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_longlong] + [ctypes.c_int] * 7 + [
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_longlong] + [ctypes.c_int] * 8 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
         for (b, k, r), operands, mine, plan in cases:
@@ -183,8 +187,9 @@ def main() -> int:
                                    smoke.PEAK_FP32))
             rows.append(row)
             calls.append(call)
-    seen = smoke.device_kernels(torch, [call for call in calls for _ in range(REPEATS)],
-                                times=True)
+    scratch = torch.empty(FLUSH_BYTES // 4, device=device)
+    seen = smoke.device_kernels(torch, [fn for call in calls for _ in range(REPEATS)
+                                        for fn in (scratch.zero_, call)], times=True)[1::2]
     for n, row in enumerate(rows):
         profiled = seen[n * REPEATS:(n + 1) * REPEATS]
         row["kernel_ms"] = statistics.median(sum(us for _, us in ops) for ops in profiled) / 1e3

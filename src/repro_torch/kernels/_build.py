@@ -58,8 +58,8 @@ _SIGNATURES = {
     # first, mid, last, out, B, K, R, lanes per entry, dtype, stream
     "repro_tt_contract": [_P] * 4 + [_L, _I, _I, _I, _I, _P],
     # first, mid, last, dout, dfirst, dmid, dlast, B, K, R, plan, entries, stride,
-    # threads, blocks, stream (f32)
-    "repro_tt_contract_bwd": [_P] * 7 + [_L] + [_I] * 7 + [_P],
+    # threads, blocks, cluster, stream (f32)
+    "repro_tt_contract_bwd": [_P] * 7 + [_L] + [_I] * 8 + [_P],
     # q, k, v, out, B, Sq, Skv, Hq, Hkv, D, q_offset, kv_valid, causal, scale, dtype, stream
     "repro_flash_attention": [_P] * 4 + [_I] * 9 + [ctypes.c_float, _I, _P],
     # the same arguments as repro_flash_attention

@@ -1,6 +1,8 @@
 // Hopper (sm_90a) building blocks written out in PTX: mbarriers, TMA tile
-// and 1-D bulk loads, the async-proxy fence, wgmma shared-memory
-// descriptors and the three wgmma shapes the flash-attention body issues.
+// and 1-D bulk loads, the async-proxy fence, 4-byte cp.async counted on an
+// mbarrier, thread-block clusters (ranks, barrier, distributed shared
+// memory and st.async), wgmma shared-memory descriptors and the three
+// wgmma shapes the flash-attention body issues.
 //
 // Shared-memory tiles are the 128-byte-swizzled layout that TMA writes with
 // CU_TENSOR_MAP_SWIZZLE_128B: rows of 64 bf16 (128 bytes), 16-byte chunk c of
@@ -90,6 +92,91 @@ __device__ __forceinline__ void bulk_wait_read() {
 // async-proxy (TMA) accesses, once a barrier has joined the threads.
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Copy one float of global memory into shared memory asynchronously
+// (cp.async, 4 bytes, both addresses 4-byte aligned).
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(src) : "memory");
+}
+
+// An arrival on `bar`, counted against its expected arrivals, once every
+// cp.async this thread has issued so far has completed.
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared.b64 [%0];\n" ::"r"(bar) : "memory");
+}
+
+// ---------------------------------------------------------------- clusters
+// This block's rank in its cluster, the cluster's blocks, and (1-D
+// clusters along x) the cluster's index in the grid and the grid's
+// clusters.
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t cluster_blocks() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t cluster_index() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%clusterid.x;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t cluster_count() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%nclusterid.x;\n" : "=r"(r));
+  return r;
+}
+
+// The two halves of a barrier of every thread of the cluster: the arrive
+// releases this thread's earlier writes (to other blocks' shared memory
+// too), the wait acquires every arrived thread's.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait;\n" ::: "memory");
+}
+
+// The shared::cluster address of `addr` (a shared::cta address of this
+// block) at the same offset in block `rank` of the cluster.
+__device__ __forceinline__ uint32_t cluster_map(uint32_t addr, uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+
+// Store one float into the shared memory of a block of the cluster
+// (`addr` from cluster_map), counted as 4 bytes of the phase of that
+// block's mbarrier `bar` (also from cluster_map): a waiter that sees the
+// phase complete sees the float.
+__device__ __forceinline__ void st_async(uint32_t addr, float v, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.f32 [%0], %1, [%2];\n" ::"r"(addr),
+      "f"(v), "r"(bar)
+      : "memory");
+}
+
+// mbar_wait with acquire at cluster scope: for phases that other blocks'
+// st_async complete.
+__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
 }
 
 // Copy the box at coordinates (c0, c1, c2) of a 3-D tensor map into shared

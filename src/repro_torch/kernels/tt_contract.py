@@ -12,10 +12,13 @@ body, a lane group per entry (``lanes_per_entry`` lanes, reading each row
 of ``mid`` coalesced).  The backward takes f32 and R <= ``MAX_BWD_RANK`` in
 two plans (``bwd_plan``): "slab", where two buffers of an entry fit half an
 SM's shared memory, persistent blocks copying slabs of entries into shared
-memory once and sweeping them there; "wide" above, the forward's lane
-groups.  ``ops.tt_contract`` turns K == 0 into a row dot.  ``launches``
-counts forward kernel launches, ``bwd_launches`` backward ones, nothing
-else.
+memory once and sweeping them there; "wide" above (``wide_plan``),
+persistent clusters of 1 to 8 blocks that split each core's rows, so that
+the cluster holds an entry and reads its ``mid`` once, the sweeps' partial
+sums and vectors handed between the blocks through distributed shared
+memory.  ``ops.tt_contract`` turns K == 0 into a row dot.  ``launches``
+counts forward kernel launches, ``bwd_launches`` backward ones and
+``wide_launches`` the backward's launches in the wide plan, nothing else.
 """
 from __future__ import annotations
 
@@ -28,12 +31,13 @@ import torch
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels._common import (
     DTYPE_CODES,
+    MAX_SMEM_BYTES,
     check_cuda_operands,
     check_shape,
     check_smem,
 )
 
-# kTTThreads in csrc/tt_contract.cu, kTTBwdWideThreads in tt_contract_bwd.cu
+# kTTThreads in csrc/tt_contract.cu
 THREADS = 256
 # the widest chain the backward takes: the budget rule's largest rank
 # (NTTDCodec._rank_for_budget tries ranks up to 128)
@@ -42,11 +46,19 @@ MAX_BWD_RANK = 128
 # two blocks a SM, each within half an H100 SM's shared memory less what
 # the hardware reserves a block
 BWD_SLAB_THREADS = 256
+# the backward's wide plan: threads a block (the kernel takes up to
+# kTTBwdWideThreads, 512), the registers a thread its launch bounds allow
+# (64: two blocks of 512 a SM) and the largest cluster it takes (the
+# portable cluster size)
+BWD_WIDE_THREADS = 256
+BWD_WIDE_REGISTERS = 64
+MAX_CLUSTER = 8
 SM_SMEM_BYTES = 233_472
 BLOCK_RESERVED_SMEM = 1024
 H100_SMS = 132
 launches = 0
 bwd_launches = 0
+wide_launches = 0
 
 
 def lanes_per_entry(rank: int) -> int:
@@ -109,15 +121,18 @@ def tt_contract(first: torch.Tensor, mid: torch.Tensor, last: torch.Tensor) -> t
 @dataclasses.dataclass(frozen=True)
 class TTBwdPlan:
     """A launch of the backward kernel: its plan ("slab" or "wide"), the
-    entries of a slab (slab) or of a block (wide), the floats of an entry's
-    slot in a slab buffer (slab; 0 for wide), threads and blocks, and the
-    shared memory of a block in bytes."""
+    entries a slab (slab) or a cluster (wide: 1) sweeps at once, the floats
+    of a slot (slab: an entry's; wide: a block's rows of one core), threads
+    and blocks (wide: at most; the launch takes no more clusters than fit
+    the card at once), the shared memory of a block in bytes and the blocks
+    of a cluster (slab: 1)."""
     kind: str
     entries: int
     stride: int
     threads: int
     blocks: int
     smem_bytes: int
+    cluster: int = 1
 
 
 def slab_smem_bytes(rank: int, k_steps: int, entries: int, stride: int) -> int:
@@ -180,19 +195,68 @@ def slab_entries(rank: int, k_steps: int) -> int:
     return entries
 
 
+def wide_rows(rank: int, cluster: int) -> int:
+    """Rows of every core a block of a wide cluster holds: ceil(R / C) (the
+    last block the rest)."""
+    return -(-rank // cluster)
+
+
+def wide_slot(rank: int, cluster: int) -> int:
+    """Floats of a wide block's slot for one core: its rows and room for
+    their offset from the 16-byte grid (up to 3 floats), a multiple of 4."""
+    return (wide_rows(rank, cluster) * rank + 6) // 4 * 4
+
+
+def wide_smem_bytes(rank: int, k_steps: int, cluster: int) -> int:
+    """A wide block's shared memory: K + 4 mbarriers (a slot's each, and
+    two sets each of the exchanges of partial sums and of u; 8 bytes each,
+    rounded up to 16), K slots, its rows of v_0 .. v_K, every u_0 .. u_K
+    ((K + 1) R) and two sets of the prefix's partial sums (C P rows each, P
+    = threads / R)."""
+    rows = wide_rows(rank, cluster)
+    return (((k_steps + 4) * 8 + 15) // 16 * 16
+            + 4 * (k_steps * wide_slot(rank, cluster) + (k_steps + 1) * (rows + rank)
+                   + 2 * cluster * (BWD_WIDE_THREADS // rank) * rows))
+
+
+def wide_blocks_per_sm(smem: int) -> int:
+    """Wide blocks an SM holds at once, by shared memory, threads and
+    registers."""
+    return min(SM_SMEM_BYTES // (smem + BLOCK_RESERVED_SMEM), 2048 // BWD_WIDE_THREADS,
+               65536 // (BWD_WIDE_THREADS * BWD_WIDE_REGISTERS))
+
+
+def wide_cluster(rank: int, k_steps: int) -> int:
+    """Blocks of a wide cluster: the fewest, of 1, 2, 4 and 8, each holding
+    at least one row, whose blocks fit two a SM; else 8."""
+    for cluster in (1, 2, 4):
+        if (wide_rows(rank, cluster) * (cluster - 1) < rank
+                and wide_blocks_per_sm(wide_smem_bytes(rank, k_steps, cluster)) >= 2):
+            return cluster
+    return MAX_CLUSTER
+
+
+def wide_plan(rank: int, k_steps: int, bsz: int, sms: int = H100_SMS) -> TTBwdPlan:
+    """The wide plan: ``wide_cluster``'s clusters of ``BWD_WIDE_THREADS``
+    threads a block, as many persistent clusters as fit the SMs, at most one
+    an entry."""
+    cluster = wide_cluster(rank, k_steps)
+    smem = wide_smem_bytes(rank, k_steps, cluster)
+    clusters = max(1, min(bsz, wide_blocks_per_sm(smem) * sms // cluster))
+    return TTBwdPlan("wide", 1, wide_slot(rank, cluster), BWD_WIDE_THREADS, clusters * cluster,
+                     smem, cluster)
+
+
 @functools.lru_cache(maxsize=None)
 def bwd_plan(rank: int, k_steps: int, bsz: int, sms: int = H100_SMS) -> TTBwdPlan:
     """The backward's launch at (R, K, B): the slab plan wherever
     ``slab_entries`` finds room, with at most B / (2 ``sms``) entries a slab,
     so that a small batch still makes two blocks a SM; else the wide plan
-    (the lane groups of ``lanes_per_entry``, ``THREADS //
-    lanes_per_entry(R)`` entries a block, (K + 3) R floats an entry)."""
+    (``wide_plan``)."""
     entries = slab_entries(rank, k_steps)
     if entries:
         return slab_plan(rank, k_steps, bsz, min(entries, -(-bsz // (2 * sms))), sms)
-    entries = THREADS // lanes_per_entry(rank)
-    return TTBwdPlan("wide", entries, 0, THREADS, max(1, -(-bsz // entries)),
-                     4 * entries * (k_steps + 3) * rank)
+    return wide_plan(rank, k_steps, bsz, sms)
 
 
 def check_bwd(dtype: torch.dtype, rank: int, k_steps: int) -> None:
@@ -223,7 +287,7 @@ def tt_contract_bwd(
     against ``dout`` [B]: one launch of the backward kernel in
     ``bwd_plan``'s launch on CUDA tensors, the plain version on CPU
     tensors."""
-    global bwd_launches
+    global bwd_launches, wide_launches
     if first.device.type == "cpu":
         return ref.tt_contract_bwd(first, mid, last, dout)
     bsz, rank = first.shape
@@ -248,8 +312,9 @@ def tt_contract_bwd(
             first.data_ptr(), mid.data_ptr(), last.data_ptr(), dout.data_ptr(),
             dfirst.data_ptr(), dmid.data_ptr(), dlast.data_ptr(), bsz, k_steps, rank,
             ("slab", "wide").index(plan.kind), plan.entries, plan.stride, plan.threads,
-            plan.blocks, torch.cuda.current_stream(device).cuda_stream,
+            plan.blocks, plan.cluster, torch.cuda.current_stream(device).cuda_stream,
         )
     _build.check(lib, "tt_contract_bwd", err)
     bwd_launches += 1
+    wide_launches += plan.kind == "wide"
     return dfirst, dmid, dlast

@@ -50,6 +50,9 @@ def _tensor(seed=3, shuffle=False):
     return x.astype(np.float32)
 
 
+PEMS_SF = (963, 144, 440)
+
+
 def _jax_params(shape, rank, hidden, d_prime=None, seed=0):
     spec = jfolding(shape, d_prime)
     cfg = jnttd.NTTDConfig(rank=rank, hidden=hidden)
@@ -108,18 +111,17 @@ def test_global_norm_clip_matches_reference():
 # ---------------------------------------------------------------------------
 # one training step
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("impl", ["ref", "auto"])
-@pytest.mark.parametrize("d_prime", [2, 4, 6])
-def test_train_step_loss_and_grads_match_reference(d_prime, impl):
-    """d' = 2 is the K == 0 chain (a row dot), d' 4 and 6 run mid cores."""
-    shape = (7, 9, 5)
-    np_params = _jax_params(shape, rank=5, hidden=6, d_prime=d_prime)
+def _check_train_step(shape, rank, hidden, d_prime, impl, entries=64):
+    """One step's summed loss and every gradient of the port's training
+    route against jax.value_and_grad of the reference's loss, from the
+    reference's init on ``entries`` random positions."""
+    np_params = _jax_params(shape, rank=rank, hidden=hidden, d_prime=d_prime)
     rng = np.random.default_rng(d_prime)
-    pos = np.stack([rng.integers(0, n, 64) for n in shape], axis=1)
-    vals = rng.normal(size=64).astype(np.float32)
+    pos = np.stack([rng.integers(0, n, entries) for n in shape], axis=1)
+    vals = rng.normal(size=entries).astype(np.float32)
 
     jspec = jfolding(shape, d_prime)
-    jcfg = jnttd.NTTDConfig(rank=5, hidden=6)
+    jcfg = jnttd.NTTDConfig(rank=rank, hidden=hidden)
 
     def jloss(p):
         preds = jnttd.apply_at_positions(p, jnp.asarray(pos, jnp.int32), jspec, jcfg)
@@ -127,11 +129,26 @@ def test_train_step_loss_and_grads_match_reference(d_prime, impl):
 
     jl, jg = jax.value_and_grad(jloss)(jax.tree.map(jnp.asarray, np_params))
     tspec = tfolding(shape, d_prime)
-    tcfg = tnttd.NTTDConfig(rank=5, hidden=6, kernel_impl=tcodec.training_impl(impl))
+    tcfg = tnttd.NTTDConfig(rank=rank, hidden=hidden, kernel_impl=tcodec.training_impl(impl))
     tl, tg = tcodec._make_value_and_grad(tspec, tcfg)(
         convert.params_from_numpy(np_params, "cpu"), torch.as_tensor(pos), torch.as_tensor(vals))
     np.testing.assert_allclose(float(tl), float(jl), rtol=1e-5)
     _assert_trees_close(tg, jg, rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("impl", ["ref", "auto"])
+@pytest.mark.parametrize("d_prime", [2, 4, 6])
+def test_train_step_loss_and_grads_match_reference(d_prime, impl):
+    """d' = 2 is the K == 0 chain (a row dot), d' 4 and 6 run mid cores."""
+    _check_train_step((7, 9, 5), 5, 6, d_prime, impl)
+
+
+@pytest.mark.parametrize("impl", ["ref", "auto"])
+def test_train_step_at_the_4mb_width_matches_reference(impl):
+    """The budget rule's 4 MB pick on PEMS-SF (rank 57, hidden 114, d' 10:
+    K 8, the tt_contract backward's wide plan and the lstm_scan backward's
+    wide plan on the card), one step of 64 entries."""
+    _check_train_step(PEMS_SF, 57, 114, 10, impl)
 
 
 @pytest.mark.parametrize("factors", [
@@ -359,7 +376,6 @@ def test_best_snapshot_is_not_aliased(monkeypatch):
 # ---------------------------------------------------------------------------
 # the codec API
 # ---------------------------------------------------------------------------
-PEMS_SF = (963, 144, 440)
 
 
 @pytest.mark.parametrize("shape,budget", [

@@ -821,8 +821,12 @@ def test_tt_bwd_plans_fit_shared_memory():
     Hopper block's shared memory; a slab block also leaves room for a second
     on the SM, its threads are whole warps of which only the last's tail
     idles, and its slots hold an entry and its offset from the 16-byte grid
-    in a multiple of 4 floats; the wide plan is the lane groups, taken only
-    where not one entry's slab block fits twice a SM."""
+    in a multiple of 4 floats.  The wide plan, taken only where not one
+    entry's slab block fits twice a SM: the fewest blocks a cluster (1, 2,
+    4 or 8) that each hold a row and fit two a SM (else 8), a prefix thread
+    for every column, slots for a block's rows of a core and their offset
+    from the grid, whole clusters of persistent blocks, as many as the SMs
+    hold at once."""
     from repro_torch.kernels import tt_contract as ttt
     from repro_torch.kernels._common import MAX_SMEM_BYTES
 
@@ -836,17 +840,30 @@ def test_tt_bwd_plans_fit_shared_memory():
                 assert plan.threads <= ttt.BWD_SLAB_THREADS
                 assert plan.stride % 4 == 0 and plan.stride >= k * r * r + 3
                 assert plan.blocks <= -(-8192 // plan.entries)
-            else:
-                assert plan.kind == "wide" and ttt.slab_entries(r, k) == 0
-                assert plan.entries == ttt.THREADS // ttt.lanes_per_entry(r)
-                assert plan.threads == ttt.THREADS
+                assert plan.cluster == 1
+                continue
+            assert plan.kind == "wide" and ttt.slab_entries(r, k) == 0
+            c = plan.cluster
+            rows = ttt.wide_rows(r, c)
+            assert c in (1, 2, 4, 8) and rows * (c - 1) < r, (r, k, plan)
+            fits_two = [n for n in (1, 2, 4, 8) if ttt.wide_rows(r, n) * (n - 1) < r
+                        and 2 * (ttt.wide_smem_bytes(r, k, n) + ttt.BLOCK_RESERVED_SMEM)
+                        <= ttt.SM_SMEM_BYTES]
+            assert c == (fits_two[0] if fits_two else 8), (r, k, plan)
+            assert plan.smem_bytes == ttt.wide_smem_bytes(r, k, c)
+            assert plan.threads == ttt.BWD_WIDE_THREADS >= r and plan.threads % 32 == 0
+            assert plan.stride % 4 == 0 and plan.stride >= rows * r + 3
+            per_sm = ttt.wide_blocks_per_sm(plan.smem_bytes)
+            assert per_sm >= 1 and plan.entries == 1 and plan.blocks % c == 0
+            assert plan.blocks == c * min(8192, per_sm * ttt.H100_SMS // c)
 
 
 @pytest.mark.parametrize("b,k,r,kind,entries,threads,blocks", [
     (8192, 8, 10, "slab", 16, 160, 264), (8192, 8, 6, "slab", 32, 192, 256),
     (1001, 3, 5, "slab", 4, 32, 251), (1001, 8, 10, "slab", 4, 64, 251),
-    (4096, 8, 34, "slab", 1, 64, 396), (517, 5, 57, "wide", 8, 256, 65),
-    (256, 4, 128, "wide", 8, 256, 32),
+    (4096, 8, 34, "slab", 1, 64, 396), (517, 5, 57, "wide", 1, 256, 396),
+    (256, 4, 128, "wide", 1, 256, 396), (16384, 8, 43, "wide", 1, 256, 396),
+    (16384, 8, 57, "wide", 1, 256, 264), (8192, 8, 128, "wide", 1, 256, 392),
 ])
 def test_tt_bwd_plan_by_shape(b, k, r, kind, entries, threads, blocks):
     """The plan at chip_smoke's backward shapes.  The MEDIUM fit shape (B
@@ -854,15 +871,158 @@ def test_tt_bwd_plan_by_shape(b, k, r, kind, entries, threads, blocks):
     threads, five whole warps (no thread idles), and two persistent blocks
     on each of the H100's 132 SMs; a small B takes smaller slabs, at most B
     / 264 entries, so that its blocks still number two a SM (R 6 at B 8192,
-    B 1001); R 57 and 128 take the wide plan."""
+    B 1001).  The first rank past the slab plan at K 8 (43), the 4 MB fit's
+    (57) and (517, 5, 57) take the wide plan in clusters of one block (an
+    entry's cores in 64,144 and 110,056 bytes at K 8: three and two blocks
+    a SM); R 128 in clusters of 4 (K 4) and 8 (K 8), three blocks a SM."""
     from repro_torch.kernels import tt_contract as ttt
 
     plan = ttt.bwd_plan(r, k, b)
     assert (plan.kind, plan.entries, plan.threads, plan.blocks) == (
         kind, entries, threads, blocks)
+    assert plan.cluster == {(4, 128): 4, (8, 128): 8}.get((k, r), 1)
     if kind == "slab":
         per_sm = ttt.SM_SMEM_BYTES // (plan.smem_bytes + ttt.BLOCK_RESERVED_SMEM)
         assert per_sm >= 2 and plan.blocks == min(-(-b // entries), per_sm * ttt.H100_SMS)
+    else:
+        per_sm = ttt.wide_blocks_per_sm(plan.smem_bytes)
+        assert per_sm == (2 if (k, r) == (8, 57) else 3)
+        assert plan.blocks == per_sm * ttt.H100_SMS // plan.cluster * plan.cluster
+
+
+def _tt_bwd_wide_as_kernel(first, mid, last, dout, plan):
+    """The tt_contract backward in the wide plan's order of work
+    (csrc/tt_contract_bwd.cu: tt_contract_bwd_wide_cluster_kernel) for
+    every entry at once: block c of a cluster holds rows [c S, c S + S) of
+    every core.  Prefix: thread (p, j) of block c sums column j of its rows
+    p, p + P, ... against its rows of v_k and puts the partial in slot c P
+    + p of the block owning row j; each block adds its slots in order.
+    Suffix: lane q of a row's group of L lanes sums the row's columns q + L
+    i, i from the row's rotated start, the lanes' sums then added; each
+    block writes dmid_k's rows g v_k (x) u_{k+1}, dfirst's and dlast's."""
+    from repro_torch.kernels import tt_contract as ttt
+
+    b, k_steps, r, _ = mid.shape
+    nc, nt = plan.cluster, plan.threads
+    rows, parts = ttt.wide_rows(r, nc), nt // r
+    spans = [(c * rows, min(rows, r - c * rows)) for c in range(nc)]
+    g = dout[:, None]
+    vs = [[first[:, r0:r0 + nr]] for r0, nr in spans]
+    for k in range(k_steps):
+        slots = torch.zeros(b, nc, nc * parts, rows)
+        for c, (r0, nr) in enumerate(spans):
+            m = mid[:, k, r0:r0 + nr]
+            for p in range(parts):
+                part = torch.zeros(b, r)
+                for row in range(p, nr, parts):
+                    part = part + vs[c][k][:, row:row + 1] * m[:, row]
+                for j in range(r):
+                    slots[:, j // rows, c * parts + p, j % rows] = part[:, j]
+        for c, (r0, nr) in enumerate(spans):
+            total = torch.zeros(b, nr)
+            for i in range(nc * parts):
+                total = total + slots[:, c, i, :nr]
+            vs[c].append(total)
+    dmid = torch.empty_like(mid)
+    dfirst, dlast = torch.empty_like(first), torch.empty_like(last)
+    for c, (r0, nr) in enumerate(spans):
+        dlast[:, r0:r0 + nr] = g * vs[c][k_steps]
+    u = last
+    for k in reversed(range(k_steps)):
+        u_k = torch.empty_like(u)
+        for c, (r0, nr) in enumerate(spans):
+            lanes = 32
+            while lanes > 1 and nr * lanes > nt:
+                lanes //= 2
+            n_spans = -(-r // lanes)
+            for row in range(nr):
+                total = torch.zeros(b)
+                for q in range(lanes):
+                    acc = torch.zeros(b)
+                    for i in range(n_spans):
+                        j = q + lanes * ((i + row % n_spans) % n_spans)
+                        if j < r:
+                            acc = acc + mid[:, k, r0 + row, j] * u[:, j]
+                    total = total + acc
+                u_k[:, r0 + row] = total
+            dmid[:, k, r0:r0 + nr] = (g * vs[c][k])[:, :, None] * u[:, None, :]
+        u = u_k
+    dfirst[:] = g * u
+    return dfirst, dmid, dlast
+
+
+@pytest.mark.parametrize("b,k,r,cluster", [(3, 5, 57, 1), (2, 4, 128, 4), (2, 8, 128, 8),
+                                           (3, 2, 128, 2), (2, 16, 30, 1), (2, 8, 60, 2)])
+def test_tt_bwd_wide_sums_match_jax_grad(b, k, r, cluster):
+    """The wide plan's partial sums, slots and rotated columns, in clusters
+    of 1, 2, 4 and 8 blocks, against jax.grad."""
+    from repro_torch.kernels import tt_contract as ttt
+
+    plan = ttt.bwd_plan(r, k, 8192)
+    assert (plan.kind, plan.cluster) == ("wide", cluster)
+    arrs = _tt_bwd_case(b, k, r, seed=r + k)
+    tf, tm, tl, td = (torch.from_numpy(a) for a in arrs)
+    _close_all(_tt_bwd_wide_as_kernel(tf, tm, tl, td, plan), _jax_tt_grads(*arrs))
+
+
+@pytest.mark.parametrize("b,k,r,base", [
+    (517, 5, 57, 0), (517, 5, 57, 3), (256, 4, 128, 0), (256, 4, 128, 1),
+    (16384, 8, 43, 2), (16384, 8, 57, 1), (8192, 8, 128, 0), (999, 2, 128, 3),
+    (300, 16, 128, 1), (777, 16, 30, 2),
+])
+def test_tt_bwd_wide_reads_each_float_once(b, k, r, base):
+    """The wide plan's copies of mid and stores of dmid with mid ``base``
+    floats off the 16-byte grid: the blocks of a cluster split every core's
+    rows, each row in one block; each (entry, core, block) chunk's bulk
+    interior is 16-byte aligned in device memory and in its slot, a whole
+    number of 16 bytes, its head and tail at most 3 + 3 plain floats, the
+    chunk within its slot, so the chunks cover every float of every entry
+    once; a thread's stores of dmid walk (row, column) by increments, each
+    float of a chunk once; and the persistent clusters, cluster q taking
+    entries q, q + clusters, ..., walk every entry once."""
+    from repro_torch.kernels import tt_contract as ttt
+
+    plan = ttt.bwd_plan(r, k, b)
+    assert plan.kind == "wide"
+    nc, nt, slot = plan.cluster, plan.threads, plan.stride
+    rows = ttt.wide_rows(r, nc)
+    spans = [(c * rows, min(rows, r - c * rows)) for c in range(nc)]
+    assert sorted(row for r0, nr in spans for row in range(r0, r0 + nr)) == list(range(r))
+    clusters = plan.blocks // nc
+    walked = np.sort(np.concatenate([np.arange(q, b, clusters) for q in range(clusters)]))
+    assert np.array_equal(walked, np.arange(b))
+    per = k * r * r
+    covered = np.zeros(per, np.int64)
+    for r0, nr in spans:
+        count = nr * r
+        start = (base + np.arange(b)[:, None] * per + np.arange(k)[None, :] * r * r
+                 + r0 * r).ravel()
+        shift = start % 4
+        head = np.minimum((4 - shift) % 4, count)
+        chunks = (count - head) // 4
+        head = np.where(chunks > 0, head, count)
+        bulk = 4 * chunks
+        tail = count - head - bulk
+        assert (tail >= 0).all() and ((bulk == 0) | ((head <= 3) & (tail <= 3))).all()
+        assert ((start + head) % 4 == 0)[bulk > 0].all() and (bulk % 4 == 0).all()
+        slots = np.arange(b * k) % k * slot + shift
+        assert ((slots + head) % 4 == 0)[bulk > 0].all()
+        assert (shift + count <= slot).all()
+        for kk in range(k):
+            covered[kk * r * r + r0 * r:kk * r * r + (r0 + nr) * r] += 1
+    assert (covered == 1).all()
+    for r0, nr in spans:
+        count, seen = nr * r, np.zeros(nr * r, np.int64)
+        dr, dj = divmod(nt, r)
+        for tid in range(nt):
+            row, col = divmod(tid, r)
+            for f in range(tid, count, nt):
+                assert (row, col) == divmod(f, r)
+                seen[f] += 1
+                row, col = row + dr, col + dj
+                if col >= r:
+                    row, col = row + 1, col - r
+        assert (seen == 1).all()
 
 
 def test_tt_bwd_slab_stride_spreads_banks():
