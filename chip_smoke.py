@@ -15,9 +15,11 @@ Phases, each printing JSON lines:
    (``device.decode_simt``); the simt ``lstm_scan`` body's resources,
    which must show no spills either, and its tile of sequences and
    shared-memory bytes at H 68, 96, 114 and 256 (``device.lstm_simt``);
-   then the count of
+   the flash kernel's tf32x3 body's resources (four kernels: f32 at D 8,
+   64 and 128, bf16 at D 8), none of which may spill, and its launch plan
+   at each D (``device.flash_tf32x3``); then the count of
    tensor-core instructions (``HGMMA``) per kernel in the library's SASS
-   (``cuobjdump -sass``).
+   (``cuobjdump -sass``), which must be non-zero in both flash bodies.
 2. kernels: each CUDA kernel against its plain PyTorch version on the card,
    over the reference's test grid (R in {4, 8, 32}, T in {2, 3, 8}, f32
    and bf16, B = 33 and B = 0), at the main path's shapes, at H = 64,
@@ -43,7 +45,9 @@ Phases, each printing JSON lines:
    dims 8, 64 and 128, the serve path's shapes up to S 4096, and the edges
    of the tensor-core body (B 2 with GQA 4/1, D 64 at S 1024, ``q_offset``
    > 0 with Skv > Sq, ``kv_valid`` inside a kv tile, fully masked rows at
-   D 128); every flash case names the body that ran (``flash_body``).
+   D 128); every flash case names the body that ran (``flash_body``:
+   ``wgmma`` for bf16 at D 64 and 128, else ``tf32x3``), whose launch it
+   must have counted, and every f32 flash case its per-element reading.
    Tolerance: 1e-5 in f32, 0.1 in bf16 (rtol = atol); in bf16
    also at most 2 bf16 ulps of the case's largest plain value, a limit
    that scales with the data.  Every bf16 flash output is also held
@@ -230,7 +234,8 @@ Phases, each printing JSON lines:
    with gate values from its own probabilities; every prefill and token is
    then compared.  Times, launches and peak bytes come from a first
    kernel-route run with no hook.  ``families.hybrid``: jamba's smoke
-   config on the card in f32 (the flash kernel's simt body at D 8): both
+   config on the card in f32 (every flash launch on the kernel's tf32x3
+   body at D 8, counted apart): both
    routes within ``HYBRID_TOL`` of max|logit|, and prefill then two decode
    steps against teacher forcing within ``HYBRID_TF_TOL``, at the
    capacity factor E / k (no token dropped: a forward over S + 2 tokens
@@ -341,7 +346,11 @@ Phases, each printing JSON lines:
    the pieces combined by all-reduces of their log-sum-exps); against this
    process's decode on one device: the tokens equal, the logits within
    1e-4 of their largest magnitude, the cache still in its layout; each
-   layout's prefill ms, decode ms a token and peak memory a rank.  All
+   layout's prefill ms, decode ms a token and peak memory a rank; every
+   prefill's flash launches on the tf32x3 body.  Then one timed f32
+   prefill on one device, batch 1, a 2048-token prompt, through the flash
+   kernel and through the oracle (``prefill_f32_ms`` of each), the last
+   logits within 1e-4 of their largest and the greedy token equal.  All
    three print ``not_shown``: NCCL collectives across cards.
    dryrun (``phase_dryrun``): the dry-run's cost pass held against the
    card.  A spawned process (``dryrun_fake``, this process joins no
@@ -378,7 +387,17 @@ Phases, each printing JSON lines:
    paths' shapes, with CUDA events; the bound is computed from the shapes
    against the H100 SXM's published peaks.  At the flash timing shape the
    kernel's error must be below SDPA's and pass the per-element check,
-   and a bf16-p control must fail it.  The ``lstm_scan`` row names the
+   and a bf16-p control must fail it.  The flash kernel in f32, its
+   tf32x3 body, is timed at that shape and at phase decode's prefill (4,
+   256, 20, 128), and with q and k x 3 (logits of std ~9) at D 128, 64
+   and 8, beside its plain version, SDPA in f32 (the device kernel it ran
+   named) and two floors, 3 TF32 products a product over 495 TFLOP/s and
+   FP32 FMAs over 67 (``timing.flash_f32``, the ``flash_attention_f32``
+   row); the one profiler session requires that an f32 call runs the
+   tf32x3 kernel alone; every element must lie within f32's tolerance of
+   an f64 evaluation, and of the plain version at randn's logits, where
+   at FLASH_SHAPE a single-TF32 control (the plain version with TF32
+   matmuls) must not.  The ``lstm_scan`` row names the
    body, bucket and load route that ran, and the device kernels one call
    runs as ``torch.profiler`` sees them, which must be the register kernel
    alone; the ``tt_contract`` row likewise names its body and lanes per
@@ -448,6 +467,7 @@ BF16_ULPS = 2                 # bf16 also within 2 ulps of the case's largest |v
 # precision to which the split P.V keeps p); rounding p to bf16 fails it
 FLASH_ROW_FLOOR = 2.0**-16
 PEAK_FP32 = 67e12             # H100 SXM, FP32 outside the tensor cores
+PEAK_TF32 = 495e12            # H100 SXM, dense TF32 on the tensor cores
 PEAK_BF16 = 989e12            # H100 SXM, dense bf16 on the tensor cores
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3
 PROFILE_PAD_S = 0.05          # idle host time around each profiled call
@@ -464,6 +484,8 @@ SOURCES = {
                     "src/repro/kernels/tt_contract.py:60"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/attention.py:114"),
+    "flash_attention_f32": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                            "src/repro/kernels/attention.py:114"),
     "lstm_scan_bwd": ("src/repro_torch/kernels/csrc/lstm_bwd.cu",
                       "src/repro/kernels/lstm.py:67"),
     "tt_contract_bwd": ("src/repro_torch/kernels/csrc/tt_contract_bwd.cu",
@@ -478,6 +500,14 @@ SERVE_REQUESTS, SERVE_SLOTS, SERVE_NEW, SERVE_MAX_LEN = 8, 4, 16, 4096
 # ulps at the top of the logits.
 LOGIT_REL_TOL = 5e-2
 FLASH_SHAPE = (1, 2048, 20, 128)  # B, S, H, D of one full-width prefill
+# the f32 body's timing cases (B, S, H, D, q and k scale): FLASH_SHAPE,
+# phase decode's prefill, and at D 128, 64 and 8 logits of 3^2 = 9 times
+# randn's spread (std ~9), as trained LMs reach.  At that scale the plain
+# f32 version itself is off the exact function by more than f32's
+# tolerance (~2x on an H100), so every case is also held against an f64
+# evaluation (``flash_f64``)
+FLASH_F32_SHAPES = ((*FLASH_SHAPE, 1.0), (4, 256, 20, 128, 1.0), (*FLASH_SHAPE, 3.0),
+                    (1, 2048, 24, 64, 3.0), (1, 1024, 8, 8, 3.0))
 # phase families: the MoE, Mamba2 and hybrid layouts and the embedding
 # configs (each model's depth cut, where one is made, is in its line's
 # ``reduced``)
@@ -675,6 +705,29 @@ def flash_elementwise(torch, got, want) -> dict:
             "worst_over_limit": float(ratio.max()) if err.numel() else 0.0}
 
 
+def flash_elementwise_f32(torch, got, want) -> dict:
+    """Per-element reading of an f32 attention output against the plain
+    one (or an f64 one): how many elements lie beyond f32's tolerance,
+    1e-5 + 1e-5 of their own |want| (``compare``'s rule, element by
+    element), and the largest error in units of that limit."""
+    g, w = (got.float(), want.float()) if want.dtype != torch.float64 else (got, want)
+    limit = TOL["float32"] * (1 + w.abs())
+    err = (g - w).abs()
+    return {"beyond": int((err > limit).sum()), "elements": int(err.numel()),
+            "worst_over_limit": float((err / limit).max()) if err.numel() else 0.0}
+
+
+def flash_f64(torch, q, k, v):
+    """Causal MHA attention, the plain version's function (q scaled by
+    1/sqrt(D) before the product, softmax, P V), evaluated in f64."""
+    d = q.shape[-1]
+    s = torch.einsum("bqhd,bkhd->bhqk", q.double() * (1.0 / d**0.5), k.double())
+    keep = torch.ones(s.shape[-2:], dtype=torch.bool, device=q.device).tril()
+    s = torch.where(keep, s, -1e30)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    return torch.einsum("bhqk,bkhd->bqhd", p, v.double()) / p.sum(-1).transpose(1, 2)[..., None]
+
+
 def flash_bf16p_control(torch, q, k, v):
     """Causal attention as the plain version computes it, but with p rounded
     to bf16 before P.V (as SDPA's kernels do): the weaker design that the
@@ -722,6 +775,13 @@ def device_kernels(torch, fns, times: bool = False) -> list[list]:
     require(len(groups) == len(fns),
             f"{len(fns)} profiled calls ran {len(groups)} groups of device operations: {groups}")
     return groups
+
+
+def flash_cost(b: int, s: int, h: int, d: int, elem_bytes: int) -> tuple[int, int]:
+    """(FLOP, bytes) of causal MHA flash attention over S positions: two
+    products over the S (S + 1) / 2 visible (q, k) pairs of each head;
+    q, k, v read once and out written once."""
+    return 4 * b * h * d * (s * (s + 1) // 2), 4 * b * s * h * d * elem_bytes
 
 
 def bound(n_ops: int, n_bytes: int, peak_ops: float) -> dict:
@@ -1104,11 +1164,26 @@ def phase_device(torch):
             f"three plans, tt_contract's slab and wide plans): {bwd}")
     require(all(r["spill_store_bytes"] == r["spill_load_bytes"] == 0 for r in bwd),
             f"a backward kernel spills: {bwd}")
+    # the tf32x3 flash body: one kernel per (dtype, D) it serves, its launch
+    # plan at each D; none may spill
+    from repro_torch.kernels import attention as _attention
+
+    tf32x3 = [r for r in resources if "flash_attention_tf32x3_kernel" in r["kernel"]]
+    emit({"phase": "device.flash_tf32x3", "ptxas": tf32x3,
+          "plans": {d: dataclasses.asdict(_attention.tf32x3_plan(d))
+                    for d in _attention.HEAD_DIMS}})
+    require(len(tf32x3) == 4 and all(r["spill_store_bytes"] == r["spill_load_bytes"] == 0
+                                     for r in tf32x3),
+            f"ptxas reports {len(tf32x3)} tf32x3 flash kernels, expected 4 (f32 at D 8, 64 "
+            f"and 128, bf16 at D 8), or one spills: {tf32x3}")
     sass = sass_hgmma(path)
     if sass["tool"]:
         wgmma = {k: n for k, n in sass["hgmma"].items() if "flash_attention_wgmma" in k}
         require(len(wgmma) == 2 and all(wgmma.values()),
                 f"the wgmma flash body has no HGMMA in its SASS: {wgmma}")
+        tf32 = {k: n for k, n in sass["hgmma"].items() if "flash_attention_tf32x3" in k}
+        require(len(tf32) == 4 and all(tf32.values()),
+                f"the tf32x3 flash body has no HGMMA in its SASS: {tf32}")
     emit({"phase": "sass", **sass})
     return smi
 
@@ -1238,11 +1313,18 @@ def phase_kernels(torch, device):
         for b, sq, skv, hq, hkv, d, q_offset, causal in FLASH_CASES:
             q, k, v, kv_valid = flash_inputs(torch, gen, b, sq, skv, hq, hkv, d, dtype, device)
             kw = dict(causal=causal, q_offset=q_offset, kv_valid=kv_valid)
+            body = _attention.flash_body(dtype, d)
+            tf32x3_before = _attention.tf32x3_launches
             got = _attention.flash_attention(q, k, v, **kw)
+            require(_attention.tf32x3_launches == tf32x3_before + (body == "tf32x3"),
+                    f"flash case {(b, sq, skv, hq, hkv, d)} {dn} did not run the {body} body")
             want = ref.flash_attention(q, k, v, **kw)
-            err, ulps = record("flash_attention", dn, got, want)
+            err, ulps = record("flash_attention_f32" if body == "tf32x3" else "flash_attention",
+                               dn, got, want)
             row = {"case": [b, sq, skv, hq, hkv, d, q_offset, causal], "dtype": dn,
-                   "body": _attention.flash_body(dtype, d), "max_abs_err": err, "ulps": ulps}
+                   "body": body, "max_abs_err": err, "ulps": ulps}
+            if dtype == torch.float32:
+                row["elementwise"] = flash_elementwise_f32(torch, got, want)
             if dtype == torch.bfloat16:
                 row["elementwise"] = flash_elementwise(torch, got, want)
                 require(row["elementwise"]["beyond"] == 0,
@@ -1553,11 +1635,20 @@ def serve_route(torch, argv, route: str, hook=None) -> tuple:
         results = serve.main(argv + (["--attn-impl", "ref"] if route == "plain" else []))
     torch.cuda.synchronize()
     out = (sorted(results, key=lambda r: r.uid), time.perf_counter() - t0,
-           ops.launch_counts(), torch.cuda.max_memory_allocated())
+           launch_counts_by_body(), torch.cuda.max_memory_allocated())
     del results
     gc.collect()
     torch.cuda.empty_cache()
     return out
+
+
+def launch_counts_by_body() -> dict:
+    """``ops.launch_counts()`` and, as ``flash_attention_f32``, the launches
+    of the flash kernel's tf32x3 body alone (the f32 calls)."""
+    from repro_torch.kernels import attention as _attention
+    from repro_torch.kernels import ops
+
+    return {**ops.launch_counts(), "flash_attention_f32": _attention.tf32x3_launches}
 
 
 def serve_routes(torch, argv, routes=("kernel", "plain")) -> dict:
@@ -1775,6 +1866,10 @@ def phase_families_hybrid(torch, device) -> dict:
 
     serve = family_serve(torch, HYBRID_ARCH, HYBRID_LENS, len(HYBRID_LENS), FAMILY_SLOTS,
                          FAMILY_NEW, max(HYBRID_LENS) + FAMILY_NEW + 1, smoke=True)
+    launches = serve["runs"]["kernel"][2]
+    require(launches["flash_attention_f32"] == launches["flash_attention"] > 0,
+            f"{HYBRID_ARCH} smoke in f32: {launches['flash_attention_f32']} of "
+            f"{launches['flash_attention']} flash launches on the tf32x3 body")
     cfg = configs.get_smoke(HYBRID_ARCH)
     # teacher forcing equals prefill + decode only where no capacity drop
     # differs between them: at factor E / k every expert can take every token
@@ -1787,6 +1882,7 @@ def phase_families_hybrid(torch, device) -> dict:
                                     f"from teacher forcing by {r} (limit {HYBRID_TF_TOL})")
     emit({"phase": "families.hybrid", **serve["line"], "config": "smoke",
           "flash_body": _attention.flash_body(torch.float32, cfg.resolved_head_dim),
+          "flash_launches_tf32x3": launches["flash_attention_f32"],
           "teacher_forcing_rel": rel, "teacher_forcing_tol": HYBRID_TF_TOL,
           "teacher_forcing_capacity_factor": cfg.moe_capacity_factor,
           "reduced": ["the smoke config: one 8-sublayer block at full width is 44.2 B "
@@ -2330,13 +2426,11 @@ def flash_timing_row(torch, device, launches, errs):
             f"flash error {kernel_err} not below SDPA's {lib_err}: p is not kept in f32")
     require(readings["bf16_p_control"]["beyond"] > 0,
             f"the per-element check passes a bf16-p control: {readings['bf16_p_control']}")
-    visible = s * (s + 1) // 2  # causal: query i sees keys 0..i
-    n_ops = 4 * b * h * d * visible
-    n_bytes = 4 * b * s * h * d * 2  # q, k, v read once, out written once, bf16
+    n_ops, n_bytes = flash_cost(b, s, h, d, 2)
     return {
         "name": "flash_attention", "route": "cuda", "source": SOURCES["flash_attention"][0],
         "replaces": SOURCES["flash_attention"][1], "launches": launches["flash_attention"],
-        "max_abs_err": errs["flash_attention"]["float32"],
+        "max_abs_err": errs["flash_attention"]["bfloat16"],
         "max_abs_err_bf16": errs["flash_attention"]["bfloat16"],
         "body": _attention.flash_body(q.dtype, d), "max_abs_err_at_shape": kernel_err,
         "ms": time_ms(torch, lambda: _attention.flash_attention(q, k, v, causal=True), 20),
@@ -2351,15 +2445,18 @@ def flash_timing_row(torch, device, launches, errs):
     }
 
 
-def phase_timing(torch, device, enc, idx_np, launches, errs, simt_lstm, bwd_calls):
+def phase_timing(torch, device, enc, idx_np, launches, errs, simt_lstm, bwd_calls,
+                 flash_calls):
     """Kernel, plain and library times at the main path's shapes.
     ``simt_lstm`` is (the ``lstm_scan_simt`` row, a call of that kernel at
     the wide shape): the call is profiled with the main path's, and the row
     gains the device kernels it ran.  ``bwd_calls`` are one
     ``lstm_scan_bwd`` and one ``tt_contract_bwd`` call at the fit shape,
-    profiled in the same session.  Returns the rows and the device
-    operations of the two backward calls, (name, device microseconds)
-    pairs."""
+    and ``flash_calls`` the f32 flash kernel and SDPA at each
+    FLASH_F32_SHAPES shape (``flash_f32_calls``), profiled in the same
+    session: each f32 flash call must run the tf32x3 kernel alone.
+    Returns the rows and the device operations of the backward calls and
+    of the flash calls, (name, device microseconds) pairs."""
     from repro_torch.core import nttd
     from repro_torch.kernels import decode_tile as _decode_tile
     from repro_torch.kernels import lstm as _lstm
@@ -2436,8 +2533,15 @@ def phase_timing(torch, device, enc, idx_np, launches, errs, simt_lstm, bwd_call
     # alone; and lstm_scan's body, bucket and load route
     lstm_call, tt_call = rows[1][3], rows[2][3]
     simt_row, simt_call = simt_lstm
-    timed = device_kernels(torch, (lstm_call, tt_call, simt_call, *bwd_calls), times=True)
+    flash_fns = [fn for call in flash_calls for fn in (call["kernel"], call["library"])]
+    timed = device_kernels(torch, (lstm_call, tt_call, simt_call, *bwd_calls, *flash_fns),
+                           times=True)
     seen = [[name for name, _ in call] for call in timed]
+    flash_timed = timed[len(timed) - len(flash_fns):]
+    for call, ops_run in zip(flash_calls, flash_timed[::2]):
+        require(len(ops_run) == 1 and "flash_attention_tf32x3_kernel" in ops_run[0][0],
+                f"an f32 flash call at {call['shape']} ran {ops_run}, not the tf32x3 kernel "
+                "alone")
     require(all(len(call) == 1 for call in seen[:3])
             and "lstm_scan_register_kernel" in seen[0][0] and "tt_contract_kernel" in seen[1][0]
             and "lstm_scan_simt_kernel" in seen[2][0],
@@ -2458,7 +2562,140 @@ def phase_timing(torch, device, enc, idx_np, launches, errs, simt_lstm, bwd_call
                       device_ops_per_call=seen[1],
                       ms_bf16=time_ms(torch, lambda: ops.tt_contract(*bf, impl="cuda"), 20),
                       bound_ms_bf16=bound(ops_t, tt_bytes(b, t - 2, r, 2), PEAK_FP32)["bound_ms"])
-    return kernels, timed[3:]
+    return kernels, timed[3:3 + len(bwd_calls)], flash_timed
+
+
+def flash_f32_calls(torch, device, shapes=None, seed: int = SEED) -> list[dict]:
+    """At each (B, S, H, D, qk_scale) of ``shapes`` (default
+    FLASH_F32_SHAPES), causal MHA q, k and v in f32 from ``seed``, q and k
+    times qk_scale (the logits grow with its square), and the calls that
+    ``flash_f32_case`` times: the kernel (its tf32x3 body), the plain
+    version, SDPA on [B, H, S, D] and the f64 evaluation ``flash_f64``."""
+    from repro_torch.kernels import attention as _attention
+    from repro_torch.kernels import ref
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    calls = []
+    for b, s, h, d, qk_scale in FLASH_F32_SHAPES if shapes is None else shapes:
+        gen = torch.Generator().manual_seed(seed)
+        q, k, v = (torch.randn((b, s, h, d), generator=gen).to(device) for _ in range(3))
+        q, k = q * qk_scale, k * qk_scale
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        calls.append({
+            "shape": (b, s, h, d), "qk_scale": qk_scale,
+            "kernel": lambda q=q, k=k, v=v: _attention.flash_attention(q, k, v, causal=True),
+            "plain": lambda q=q, k=k, v=v: ref.flash_attention(q, k, v, causal=True),
+            "library": lambda qt=qt, kt=kt, vt=vt: sdpa(qt, kt, vt, is_causal=True),
+            "exact": lambda q=q, k=k, v=v: flash_f64(torch, q, k, v)})
+    return calls
+
+
+def flash_f32_case(torch, call, kernel_ms: float, library_ms: float,
+                   library_ops: list) -> dict:
+    """One ``flash_f32_calls`` call's reading: kernel ms (CUDA events, 20
+    after 2 warm-ups) beside its device ms (``kernel_ms``, measured by the
+    caller), plain ms (5), SDPA in f32 (20) beside its device ms and
+    kernels, the bound (3 TF32 products a product over 495 TFLOP/s, or the
+    bytes) and the FP32-FMA floor, and the kernel's, SDPA's and the plain
+    version's errors, element by element against f32's tolerance
+    (``flash_elementwise_f32``), against the plain version (``elementwise``)
+    and against ``flash_f64`` (``elementwise_f64``)."""
+    from repro_torch.kernels import attention as _attention
+
+    b, s, h, d = call["shape"]
+    n_ops, n_bytes = flash_cost(b, s, h, d, 4)
+    want, got = call["plain"](), call["kernel"]()
+    library = call["library"]().transpose(1, 2)
+    case = {"shape": {"B": b, "S": s, "H": h, "D": d, "dtype": "float32", "causal": True},
+            "qk_scale": call["qk_scale"], "body": _attention.flash_body(torch.float32, d),
+            "ms": time_ms(torch, call["kernel"], 20), "kernel_ms": kernel_ms,
+            "plain_ms": time_ms(torch, call["plain"], 5),
+            "library_ms": time_ms(torch, call["library"], 20),
+            "library_kernel_ms": library_ms,
+            "library_ops": [name[:80] for name in library_ops],
+            **bound(3 * n_ops, n_bytes, PEAK_TF32),
+            "fp32_floor_ms": n_ops / PEAK_FP32 * 1e3,
+            "max_abs_err": float((got - want).abs().max()),
+            "library_max_abs_err": float((library - want).abs().max()),
+            "elementwise": {key: {"max_abs_err": float((o - want).abs().max()),
+                                  **flash_elementwise_f32(torch, o, want)}
+                            for key, o in (("kernel", got), ("library", library))},
+            "ops": n_ops, "bytes": n_bytes}
+    exact = call["exact"]()
+    case["elementwise_f64"] = {key: {"max_abs_err": float((o.double() - exact).abs().max()),
+                                     **flash_elementwise_f32(torch, o.double(), exact)}
+                               for key, o in (("kernel", got), ("library", library),
+                                              ("plain", want))}
+    del exact
+    case.update(share=case["bound_ms"] / case["ms"],
+                kernel_share=case["bound_ms"] / case["kernel_ms"])
+    if (b, s, h, d) == FLASH_SHAPE and call["qk_scale"] == 1:
+        saved = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            control = call["plain"]()
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = saved
+        case["elementwise"]["single_tf32_control"] = {
+            "max_abs_err": float((control - want).abs().max()),
+            **flash_elementwise_f32(torch, control, want)}
+    return case
+
+
+def flash_f32_timing(torch, calls, profiled, launches: dict, errs) -> dict:
+    """The flash kernel in f32 (its tf32x3 body) at each FLASH_F32_SHAPES
+    case (``flash_f32_calls``, read by ``flash_f32_case``; device ms from
+    ``profiled``, ``phase_timing``'s one profiler session).  At every case
+    every element of the kernel's output must lie within f32's tolerance
+    of the f64 evaluation's, and of the plain version's where the logits
+    are randn's (qk_scale 1: at 3 the plain version is itself off the f64
+    one by more); at FLASH_SHAPE a single-TF32 control, the plain version
+    with TF32 matmuls, must not lie within it of the plain version.  Prints
+    ``timing.flash_f32`` with ``launches`` (the tf32x3 body's, by path);
+    returns the kernels-table row at FLASH_SHAPE."""
+    from repro_torch.kernels import attention as _attention
+
+    cases = []
+    for n, call in enumerate(calls):
+        kernel_ops, library_ops = profiled[2 * n], profiled[2 * n + 1]
+        case = flash_f32_case(torch, call, sum(us for _, us in kernel_ops) / 1e3,
+                              sum(us for _, us in library_ops) / 1e3,
+                              [name for name, _ in library_ops])
+        case["plan"] = dataclasses.asdict(_attention.tf32x3_plan(call["shape"][3]))
+        require(case["elementwise_f64"]["kernel"]["beyond"] == 0
+                and (call["qk_scale"] != 1 or case["elementwise"]["kernel"]["beyond"] == 0),
+                f"flash f32 at {call['shape']} x {call['qk_scale']}: {case['elementwise']} "
+                f"(against the plain version), {case['elementwise_f64']} (against f64)")
+        if "single_tf32_control" in case["elementwise"]:
+            require(case["elementwise"]["single_tf32_control"]["beyond"] > 0,
+                    "the per-element f32 check passes a single-TF32 control: "
+                    f"{case['elementwise']['single_tf32_control']}")
+        cases.append(case)
+    require(any("single_tf32_control" in c["elementwise"] for c in cases),
+            "timing.flash_f32 ran no single-TF32 control")
+    emit({"phase": "timing.flash_f32", "cases": cases, "launches": launches})
+    first = cases[0]
+    return {
+        "name": "flash_attention_f32", "route": "cuda",
+        "source": SOURCES["flash_attention_f32"][0],
+        "replaces": SOURCES["flash_attention_f32"][1], "launches": launches["decode"],
+        "max_abs_err": errs["flash_attention_f32"]["float32"],
+        "max_abs_err_bf16": errs["flash_attention_f32"]["bfloat16"],
+        "body": first["body"], "plan": first["plan"],
+        **{key: first[key] for key in ("ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+                                       "fp32_floor_ms", "share", "kernel_share",
+                                       "library_ms", "library_kernel_ms", "library_ops",
+                                       "library_max_abs_err", "elementwise", "shape", "ops",
+                                       "bytes")},
+        "max_abs_err_at_shape": first["max_abs_err"],
+        "library": "torch.nn.functional.scaled_dot_product_attention(is_causal=True) on "
+                   "[B, H, S, D] f32",
+        "elementwise_f64": first["elementwise_f64"],
+        "other_cases": [{key: c[key] for key in (
+            "shape", "qk_scale", "ms", "kernel_ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by", "fp32_floor_ms", "max_abs_err", "elementwise", "elementwise_f64")}
+            for c in cases[1:]],
+    }
 
 
 def decode_simt_timing(torch, device, launches, errs):
@@ -5101,6 +5338,7 @@ DECODE_LAYERS = 4                   # of qwen1.5-4b's 40 (every width kept)
 DECODE_BATCH, DECODE_PROMPT, DECODE_NEW = 4, 256, 8
 DECODE_RANKS = 2
 DECODE_REL_TOL = 1e-4               # logits, of their largest magnitude
+DECODE_F32_PROMPT = 2048            # the one-device run's timed f32 prefill, batch 1
 DECODE_LAYOUTS = ("batch", "long")  # the batch on 'data'; the cache's length on 'data'
 
 
@@ -5207,7 +5445,7 @@ def decode_rank(rank: int, world: int, backend: str, device_type: str, workdir: 
             cache = run.pop("cache")
             res[f"{label}/logits"], res[f"{label}/tokens"] = run.pop("logits"), run.pop("tokens")
             meta["layouts"][label] = {
-                **run, "peak_bytes": _peak(torch, device), "launches": ops.launch_counts(),
+                **run, "peak_bytes": _peak(torch, device), "launches": launch_counts_by_body(),
                 "collectives": {str(k): v for k, v in comm.get_comm_counts().items()},
                 "rows": list(range(rank * DECODE_BATCH // world, (rank + 1) * DECODE_BATCH
                                    // world)) if split else list(range(DECODE_BATCH)),
@@ -5221,12 +5459,67 @@ def decode_rank(rank: int, world: int, backend: str, device_type: str, workdir: 
         dist.destroy_process_group()
 
 
-def phase_decode(torch, device, smi, workdir) -> None:
+def decode_prefill_f32(torch, cfg, params, sync) -> dict:
+    """One timed f32 prefill of a DECODE_F32_PROMPT-token prompt from SEED,
+    batch 1, through the flash kernel (``attn_impl`` "auto": its tf32x3
+    body) and through the oracle ("ref"), each after an untimed one: per
+    route the host ms around the timed prefill (it ends in a synchronise)
+    and the launches read after each prefill, the untimed one's under
+    ``launches_untimed``; the last position's logits within DECODE_REL_TOL of
+    their largest magnitude and the greedy next token equal."""
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import model
+
+    device = params["tok"]["embed"].device
+    tokens = torch.as_tensor(np.random.default_rng(SEED).integers(
+        0, cfg.vocab, (1, DECODE_F32_PROMPT)), device=device)
+    out, logits = {}, {}
+    for impl in ("auto", "ref"):
+        c = dataclasses.replace(cfg, attn_impl=impl)
+        counts = []
+        for timed in (False, True):
+            cache = model.init_cache(c, 1, DECODE_F32_PROMPT, device=device)
+            ops.reset_launch_counts()
+            sync()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                got, _ = model.prefill(params, c, tokens=tokens, cache=cache)
+            sync()
+            ms = (time.perf_counter() - t0) * 1e3
+            counts.append(launch_counts_by_body())
+            del cache
+        logits[impl] = got[0, -1, : cfg.vocab].float()
+        del got
+        out[impl] = {"prefill_f32_ms": ms, "launches": counts[1], "launches_untimed": counts[0]}
+    top = float(logits["ref"].abs().max())
+    err = float((logits["auto"] - logits["ref"]).abs().max())
+    greedy = [int(logits[impl].argmax()) for impl in ("auto", "ref")]
+    require(err <= DECODE_REL_TOL * top,
+            f"decode.prefill_f32: logits differ by {err} (largest {top})")
+    require(greedy[0] == greedy[1], f"decode.prefill_f32: greedy tokens {greedy}")
+    for run in ("launches_untimed", "launches"):
+        require(out["auto"][run]["flash_attention"]
+                == out["auto"][run]["flash_attention_f32"] == cfg.n_layers
+                and out["ref"][run]["flash_attention"] == 0,
+                f"decode.prefill_f32: flash launches {out['auto'][run]} (kernel route), "
+                f"{out['ref'][run]} (oracle route) in {run}; one a layer, all on the tf32x3 "
+                "body")
+    return {"prompt": DECODE_F32_PROMPT, "batch": 1, "routes": out, "max_abs_err": err,
+            "max_abs_logit": top, "max_abs_err_rel": err / top, "greedy_token": greedy[0]}
+
+
+def phase_decode(torch, device, smi, workdir) -> int:
     """qwen1.5-4b's sharded decode (``decode_rank``) on DECODE_RANKS gloo
     ranks sharing ``cuda:0``, against this process's decode of the same
     layers on one device: the greedy tokens equal and the logits within
     DECODE_REL_TOL of their largest magnitude under each layout, the cache
-    still in its layout after the last token."""
+    still in its layout after the last token; every prefill's flash
+    launches on the tf32x3 body.  Then one timed f32 prefill of
+    DECODE_F32_PROMPT tokens on each route (``decode_prefill_f32``).
+    Returns the launches of the tf32x3 body on the phase's kernel-route
+    runs (one device, the ranks, the timed prefill and its warm-up)."""
     import numpy as np
 
     from repro_torch.kernels import ops
@@ -5244,7 +5537,11 @@ def phase_decode(torch, device, smi, workdir) -> None:
             lambda t: t, sync)
     want.pop("cache")
     one = {"prefill_ms": want["prefill_ms"], "decode_ms_per_token": want["decode_ms_per_token"],
-           "peak_bytes": _peak(torch, device), "launches": ops.launch_counts()}
+           "peak_bytes": _peak(torch, device), "launches": launch_counts_by_body()}
+    require(one["launches"]["flash_attention"] == one["launches"]["flash_attention_f32"]
+            == DECODE_LAYERS, f"decode: one device's flash launches {one['launches']}; the "
+                              "prefill runs the tf32x3 body once a layer")
+    prefill_f32 = decode_prefill_f32(torch, cfg, params, sync)
     del params
     ranks = run_world("decode", DECODE_RANKS, "gloo", device.type, workdir, target=decode_rank)
     top = float(np.abs(want["logits"]).max())
@@ -5268,20 +5565,28 @@ def phase_decode(torch, device, smi, workdir) -> None:
             require(m["cache_placements"] == m["cache_layout"],
                     f"decode.{label}: the cache left its layout: {m['cache_placements']} vs "
                     f"{m['cache_layout']}")
-            require(m["launches"]["flash_attention"] == DECODE_LAYERS,
-                    f"decode.{label}: flash launches {m['launches']}; the prefill runs it once "
-                    "a layer")
+            require(m["launches"]["flash_attention"] == m["launches"]["flash_attention_f32"]
+                    == DECODE_LAYERS,
+                    f"decode.{label}: flash launches {m['launches']}; the prefill runs the "
+                    "tf32x3 body once a layer")
     emit({"phase": "decode", "arch": DECODE_ARCH, "layers": DECODE_LAYERS,
           "d_model": cfg.d_model, "vocab": cfg.vocab, "compute_dtype": cfg.compute_dtype,
           "batch": DECODE_BATCH, "prompt": DECODE_PROMPT, "new_tokens": DECODE_NEW,
           "reduced": [f"n_layers 40 -> {DECODE_LAYERS} (every width kept)"],
           "world": DECODE_RANKS, "backend": "gloo", "mesh": {"data": DECODE_RANKS},
           "tol_rel": DECODE_REL_TOL, "max_abs_logit": top, "one_device": one,
-          "tokens": want["tokens"].tolist(), "layouts": report,
+          "tokens": want["tokens"].tolist(), "layouts": report, "prefill_f32": prefill_f32,
+          "prefill_f32_ms": {impl: r["prefill_f32_ms"]
+                             for impl, r in prefill_f32["routes"].items()},
           "seconds": time.perf_counter() - t0,
           "not_shown": "NCCL collectives across cards: two gloo ranks share one card, "
                        "each all-reduce copied through the host",
           "name_power_limit": smi})
+    return (one["launches"]["flash_attention_f32"]
+            + sum(r["meta"]["layouts"][label]["launches"]["flash_attention_f32"]
+                  for r in ranks for label in DECODE_LAYOUTS)
+            + sum(prefill_f32["routes"]["auto"][run]["flash_attention_f32"]
+                  for run in ("launches_untimed", "launches")))
 
 
 def pp_setup(torch, device):
@@ -5819,7 +6124,7 @@ def main() -> int:
         dist_launches = phase_dist(torch, device, smi, workdir)
         phase_tp(torch, device, smi, workdir)
         phase_fsdp(torch, device, smi, workdir)
-        phase_decode(torch, device, smi, workdir)
+        decode_f32_launches = phase_decode(torch, device, smi, workdir)
         phase_pp(torch, device, smi, workdir)
         phase_dryrun(torch, device, smi, workdir)
         phase_examples(smi, workdir)
@@ -5829,14 +6134,21 @@ def main() -> int:
 
         fit_ops = fit_step_operands(torch, device)
         (x, lw, hs, dhs), tt_ops = fit_ops
-        kernels, bwd_ops = phase_timing(torch, device, enc, idx, launches, errs, simt_lstm,
-                                        (lambda: _lstm.lstm_scan_bwd(x, *lw, hs, dhs),
-                                         lambda: _tt.tt_contract_bwd(*tt_ops)))
+        flash_calls = flash_f32_calls(torch, device)
+        kernels, bwd_ops, flash_ops = phase_timing(
+            torch, device, enc, idx, launches, errs, simt_lstm,
+            (lambda: _lstm.lstm_scan_bwd(x, *lw, hs, dhs), lambda: _tt.tt_contract_bwd(*tt_ops)),
+            flash_calls)
         for row in kernels:  # the forward kernels' launches on the fit path too
             row["launches_fit"] = fit_launches[row["name"]]
         kernels.append(decode_simt_timing(torch, device, simt_launches, errs))
         kernels.append(simt_lstm[0])
         kernels.append(flash_timing_row(torch, device, serve_launches, errs))
+        kernels.append(flash_f32_timing(
+            torch, flash_calls, flash_ops, {"decode": decode_f32_launches,
+                                            "families": family_launches["flash_attention_f32"]},
+            errs))
+        del flash_calls
         kernels.extend(bwd_timing(torch, device, fit_launches, errs, step_s, fit_ops, bwd_ops))
         kernels.append(tt_bwd_wide_row(torch, device, fit_budget_launches["tt_contract_bwd_wide"],
                                        errs))

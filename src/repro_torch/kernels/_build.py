@@ -61,9 +61,9 @@ _SIGNATURES = {
     # threads, blocks, cluster, stream (f32)
     "repro_tt_contract_bwd": [_P] * 7 + [_L] + [_I] * 8 + [_P],
     # q, k, v, out, B, Sq, Skv, Hq, Hkv, D, q_offset, kv_valid, causal, scale, dtype, stream
-    "repro_flash_attention": [_P] * 4 + [_I] * 9 + [ctypes.c_float, _I, _P],
-    # the same arguments as repro_flash_attention
     "repro_flash_attention_wgmma": [_P] * 4 + [_I] * 9 + [ctypes.c_float, _I, _P],
+    # the same
+    "repro_flash_attention_tf32x3": [_P] * 4 + [_I] * 9 + [ctypes.c_float, _I, _P],
 }
 
 
@@ -95,9 +95,27 @@ def lstm_buckets() -> tuple[int, ...]:
     return tuple(int(h) for h in re.findall(r"X\((\d+)\)", line))
 
 
+def flash_flags() -> tuple[str, ...]:
+    """``attention.tf32x3_plan`` at each head width D, as the defines that
+    ``csrc/flash_attention.cu`` instantiates its tf32x3 body from:
+    ``REPRO_TF32X3_HEAD_DIMS`` = X(D)... and per D ``REPRO_TF32X3_TK_<D>``,
+    ``_STAGES_<D>``, ``_S_PIECES_<D>``, ``_O_SHARED_<D>`` and ``_SMEM_<D>``
+    (nvcc splits a define's value at commas, so one value a define)."""
+    from repro_torch.kernels import attention  # which imports this module
+
+    flags = ["-DREPRO_TF32X3_HEAD_DIMS=" + "".join(f"X({d})" for d in attention.HEAD_DIMS)]
+    for d in attention.HEAD_DIMS:
+        p = attention.tf32x3_plan(d)
+        for key, value in (("TK", p.tile_kv), ("STAGES", p.stages), ("S_PIECES", p.s_pieces),
+                           ("O_SHARED", int(p.o_shared)), ("SMEM", p.smem_bytes)):
+            flags.append(f"-DREPRO_TF32X3_{key}_{d}={value}")
+    return tuple(flags)
+
+
 def units() -> list[tuple[str, str, tuple[str, ...]]]:
     """(name, source, extra nvcc flags) of each compile unit."""
-    out = [(name, name, ()) for name in SOURCES if name not in PER_BUCKET]
+    out = [(name, name, flash_flags() if name == "flash_attention.cu" else ())
+           for name in SOURCES if name not in PER_BUCKET]
     for hid, rank in decode_buckets():
         for dtype in DTYPES:
             out.append((f"decode_tile.cu:{dtype.strip('_')}:{hid}x{rank}", "decode_tile.cu",
@@ -112,6 +130,7 @@ def units() -> list[tuple[str, str, tuple[str, ...]]]:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(flash_flags()).encode())
     for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())

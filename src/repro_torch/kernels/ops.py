@@ -28,8 +28,8 @@ for a gradient raises.
 ``launch_counts`` / ``reset_launch_counts`` read and clear the wrappers'
 launch counters, the backward kernels' (``lstm_scan_bwd``,
 ``tt_contract_bwd``) included; the reset clears
-``decode_tile.simt_launches``, ``lstm.simt_launches`` and
-``tt_contract.wide_launches`` too.
+``decode_tile.simt_launches``, ``lstm.simt_launches``,
+``tt_contract.wide_launches`` and ``attention.tf32x3_launches`` too.
 """
 from __future__ import annotations
 
@@ -69,6 +69,7 @@ def reset_launch_counts() -> None:
     for mod in _BWD_KERNELS.values():
         mod.bwd_launches = 0
     _dt.simt_launches = _lstm.simt_launches = _tt.wide_launches = 0
+    _attention.tf32x3_launches = 0
 
 
 def tt_contract(

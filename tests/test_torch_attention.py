@@ -23,7 +23,9 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro_torch.kernels import _build
 from repro_torch.kernels import attention as tattention
+from repro_torch.kernels._common import MAX_SMEM_BYTES
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 
@@ -235,18 +237,215 @@ def test_wrapper_rejects_untiled_lengths():
         tattention.flash_attention(tq, tk, tv)
 
 
+def test_wrapper_rejects_empty_kv():
+    """No kv position leaves the kernels' tile loops nothing to start from:
+    the wrapper refuses the call on either device."""
+    q = torch.zeros((1, 128, 2, 8))
+    kv = torch.zeros((1, 0, 2, 8))
+    with pytest.raises(ValueError, match="no kv positions"):
+        tattention.flash_attention(q, kv, kv)
+
+
 def test_flash_body_selection_and_cpu_route():
-    """bf16 at the LMs' head widths runs the tensor-core body, f32 and D = 8
-    the scalar one; a CPU tensor runs the plain version and counts no
-    launch."""
+    """bf16 at the LMs' head widths runs the bf16 tensor-core body, f32 and
+    D = 8 the split-TF32 one; a CPU tensor runs the plain version and
+    counts no launch."""
     for d in (64, 128):
         assert tattention.flash_body(torch.bfloat16, d) == "wgmma"
     for d in (8, 64, 128):
-        assert tattention.flash_body(torch.float32, d) == "simt"
-    assert tattention.flash_body(torch.bfloat16, 8) == "simt"
+        assert tattention.flash_body(torch.float32, d) == "tf32x3"
+    assert tattention.flash_body(torch.bfloat16, 8) == "tf32x3"
     _, (tq, tk, tv) = _pair(_qkv(1, 128, 128, 2, 1, 64, seed=11), "bfloat16")
+    tattention.tf32x3_launches = 1
     tops.reset_launch_counts()
+    assert tattention.tf32x3_launches == 0
     got = tattention.flash_attention(tq, tk, tv, causal=True)
     assert tops.launch_counts()["flash_attention"] == 0
+    assert tattention.tf32x3_launches == 0
     torch.testing.assert_close(got, tref.flash_attention(tq, tk, tv, causal=True),
                                rtol=0, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# the tf32x3 body's arithmetic: a plain-torch replica of its order of work
+# ---------------------------------------------------------------------------
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """What a TF32 product reads of an f32: its 13 low mantissa bits
+    cleared (0xffffe000 as an int32 is -8192)."""
+    return (x.view(torch.int32) & -8192).view(torch.float32)
+
+
+def _tf32_hi(x: torch.Tensor) -> torch.Tensor:
+    """The body's hi part: x rounded to the nearest TF32 value, ties away
+    from zero (``cvt.rna.tf32.f32``): half a TF32 ulp added to the
+    magnitude's bits, then the 13 low bits cleared."""
+    return ((x.view(torch.int32) + 0x1000) & -8192).view(torch.float32)
+
+
+def _product(a: torch.Tensor, b: torch.Tensor, products: int, pieces: int = 1) -> torch.Tensor:
+    """a @ b as the body's tensor cores take it: three TF32 products of
+    the split operands, hi = _tf32_hi(x) and lo = x - hi (itself read as
+    TF32), hi.hi in ``pieces`` sums over equal slices of the reduction
+    axis, added in order, then the corrections lo.hi + hi.lo summed apart,
+    in f32; products=1: the single-TF32 control, _tf32(a) @ _tf32(b)."""
+    if products == 1:
+        return _tf32(a) @ _tf32(b)
+    a_hi, b_hi = _tf32_hi(a), _tf32_hi(b)
+    width = a.shape[-1] // pieces
+    hi = a_hi[..., :width] @ b_hi[..., :width, :]
+    for n in range(1, pieces):
+        hi = hi + a_hi[..., n * width:(n + 1) * width] @ b_hi[..., n * width:(n + 1) * width, :]
+    return hi + (_tf32(a - a_hi) @ b_hi + a_hi @ _tf32(b - b_hi))
+
+
+def _kv_tiles(q0, tile_q, tile_kv, skv, kv_valid, causal, q_offset):
+    """``kv_tiles`` of ``csrc/flash_attention.cu``: the kv tiles a q tile
+    walks."""
+    if kv_valid <= 0 or (causal and q0 + q_offset < 0):
+        return skv // tile_kv
+    limit = min(kv_valid, q0 + tile_q + q_offset) if causal else kv_valid
+    return min(skv, -(-limit // tile_kv) * tile_kv) // tile_kv
+
+
+def _flash_tf32x3_as_kernel(q, k, v, *, causal=True, q_offset=0, kv_valid=None, products=3):
+    """The tf32x3 body's function in its order of work, on the padded q
+    [B, Sq, Hq, D] and k, v [B, Skv, Hkv, D] that the wrapper receives:
+    per 64-row q tile the kv tiles of ``tf32x3_plan(D)`` that ``_kv_tiles``
+    walks; s = q k^T through ``_product`` on the unscaled inputs, hi.hi in
+    the plan's ``s_pieces``, times log2(e)/sqrt(D) in f32, masked to
+    -1e30; the online (m, l) in base 2; each tile's p v through
+    ``_product`` into a sum of its own, which joins acc once the next
+    tile's max is known, acc = (acc + pv) alpha; out = (acc + the last
+    tile's pv) / l (l == 0 -> 1)."""
+    bsz, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    plan = tattention.tf32x3_plan(d)
+    tq, tk = plan.tile_q, plan.tile_kv
+    valid = skv if kv_valid is None else kv_valid
+    scale_log2 = (torch.tensor(1.0 / d**0.5, dtype=torch.float32)
+                  * torch.tensor(1.4426950408889634, dtype=torch.float32))
+    qh = q.float().permute(0, 2, 1, 3)                          # [B, Hq, Sq, D]
+    kh = k.float().permute(0, 2, 1, 3).repeat_interleave(hq // hkv, 1)
+    vh = v.float().permute(0, 2, 1, 3).repeat_interleave(hq // hkv, 1)
+    out = torch.empty_like(qh)
+    for q0 in range(0, sq, tq):
+        qt = qh[:, :, q0:q0 + tq]
+        qpos = torch.arange(q0, q0 + tq)[:, None]
+        m = torch.full(qt.shape[:3], -1e30)
+        l = torch.zeros(qt.shape[:3])
+        acc = torch.zeros_like(qt)
+        pv = None
+        for j in range(_kv_tiles(q0, tq, tk, skv, valid, causal, q_offset)):
+            k0 = j * tk
+            kpos = torch.arange(k0, k0 + tk)[None, :]
+            keep = kpos < valid
+            if causal:
+                keep = keep & (qpos + q_offset >= kpos)
+            s = _product(qt, kh[:, :, k0:k0 + tk].transpose(-1, -2), products,
+                         plan.s_pieces) * scale_log2
+            s = torch.where(keep, s, torch.tensor(-1e30))
+            m_next = torch.maximum(m, s.amax(-1))
+            alpha = torch.exp2(m - m_next)
+            p = torch.exp2(s - m_next[..., None])
+            l = alpha * l + p.sum(-1)
+            if pv is not None:
+                acc = (acc + pv) * alpha[..., None]
+            pv = _product(p, vh[:, :, k0:k0 + tk], products)
+            m = m_next
+        out[:, :, q0:q0 + tq] = (acc + pv) / torch.where(l == 0, 1.0, l)[..., None]
+    return out.permute(0, 2, 1, 3).to(q.dtype)
+
+
+def _replica_route(monkeypatch, products: int) -> None:
+    """Route ``ops.attention``'s kernel call through the replica, so it
+    runs behind the port's own padding."""
+    def replica(q, k, v, **kw):
+        return _flash_tf32x3_as_kernel(q, k, v, products=products, **kw)
+
+    monkeypatch.setattr(tattention, "flash_attention", replica)
+
+
+def _within_1e5(got: torch.Tensor, want) -> bool:
+    """``chip_smoke.py``'s f32 check of the kernel: every element within
+    1e-5 + 1e-5 |want|."""
+    g, w = got.float().numpy(), np.asarray(want, np.float32)
+    return bool(np.all(np.abs(g - w) <= 1e-5 + 1e-5 * np.abs(w)))
+
+
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,d,q_offset,causal", KERNEL_CASES)
+def test_flash_tf32x3_replica_matches_pallas_interpret(monkeypatch, b, sq, skv, hq, hkv, d,
+                                                       q_offset, causal):
+    """Three TF32 products a product, in the body's tiles and order, hold
+    the f32 tolerance against the reference's kernel, and 1e-5 as the
+    card's check does."""
+    (jq, jk, jv), (tq, tk, tv) = _pair(_qkv(b, sq, skv, hq, hkv, d, seed=4), "float32")
+    want = jops.attention(jq, jk, jv, causal=causal, q_offset=q_offset,
+                          impl="pallas_interpret")
+    _replica_route(monkeypatch, 3)
+    got = tops.attention(tq, tk, tv, causal=causal, q_offset=q_offset, impl="cuda")
+    _close(got, want, "float32")
+    assert _within_1e5(got, want)
+
+
+def test_flash_single_tf32_replica_misses_the_tolerance(monkeypatch):
+    """The control: one TF32 product of the truncated values errs beyond
+    1e-5 where the split replica stays within it, so the tolerance sees
+    single-TF32 rounding."""
+    (jq, jk, jv), (tq, tk, tv) = _pair(_qkv(2, 128, 128, 4, 1, 128, seed=4), "float32")
+    want = jops.attention(jq, jk, jv, causal=True, impl="pallas_interpret")
+    errs = {}
+    for products in (1, 3):
+        _replica_route(monkeypatch, products)
+        got = tops.attention(tq, tk, tv, causal=True, impl="cuda")
+        errs[products] = (float(np.abs(got.numpy() - np.asarray(want)).max()),
+                          _within_1e5(got, want))
+    assert errs[3][1] and not errs[1][1], errs
+    assert errs[1][0] > 100 * errs[3][0], errs
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", tattention.HEAD_DIMS)
+def test_flash_tf32x3_plan_fits_shared_memory(dtype, d):
+    """Where the tf32x3 body runs, its plan fits a Hopper block: q_hi and
+    q_lo, at least two ring slots of k_hi, k_lo, vt_hi and vt_lo with
+    their four mbarriers, O's running sum where it is shared, and the
+    alignment slack, within 232,448 bytes, with no room for one more slot
+    below four; its tiles divide the wrapper's 128-row padding, and S's
+    pieces are whole 32-column slabs of D."""
+    if tattention.flash_body(dtype, d) != "tf32x3":
+        assert dtype == torch.bfloat16 and d in tattention.WGMMA_HEAD_DIMS
+        return
+    plan = tattention.tf32x3_plan(d)
+    slabs = -(-d // 32)
+    q_bytes = 2 * plan.tile_q * 128 * slabs
+    slot = 2 * plan.tile_kv * 128 * slabs + 2 * d * 128 * (plan.tile_kv // 32)
+    o_bytes = plan.tile_q * d * 4 if plan.o_shared else 0
+    assert plan.smem_bytes == q_bytes + plan.stages * (slot + 32) + o_bytes + 1024
+    assert plan.smem_bytes <= MAX_SMEM_BYTES
+    assert plan.smem_bytes + slot + 32 > MAX_SMEM_BYTES or plan.stages == 4
+    assert 2 <= plan.stages <= 4 and plan.threads == 256
+    assert tattention.TILE_Q % plan.tile_q == 0 and tattention.TILE_KV % plan.tile_kv == 0
+    assert plan.tile_kv % 32 == 0 and plan.tile_kv * d // 4 % 128 == 0
+    assert d % plan.s_pieces == 0 and (plan.s_pieces == 1 or d // plan.s_pieces == 32)
+    assert ({8: (64, 4, 1, False), 64: (64, 3, 2, False), 128: (32, 2, 4, True)}[d]
+            == (plan.tile_kv, plan.stages, plan.s_pieces, plan.o_shared))
+
+
+def test_flash_build_flags_carry_the_tf32x3_plans():
+    """The kernel is compiled with ``tf32x3_plan`` itself: ``_build``'s
+    defines name every head width and, per width, each field of its plan,
+    the shared bytes that the kernel's layout must reproduce included."""
+    flags = dict(f[2:].split("=") for f in _build.flash_flags())
+    assert flags.pop("REPRO_TF32X3_HEAD_DIMS") == "".join(
+        f"X({d})" for d in tattention.HEAD_DIMS)
+    want = {}
+    for d in tattention.HEAD_DIMS:
+        plan = tattention.tf32x3_plan(d)
+        want.update({f"REPRO_TF32X3_TK_{d}": str(plan.tile_kv),
+                     f"REPRO_TF32X3_STAGES_{d}": str(plan.stages),
+                     f"REPRO_TF32X3_S_PIECES_{d}": str(plan.s_pieces),
+                     f"REPRO_TF32X3_O_SHARED_{d}": str(int(plan.o_shared)),
+                     f"REPRO_TF32X3_SMEM_{d}": str(plan.smem_bytes)})
+    assert flags == want
+    assert all("," not in f for f in _build.flash_flags())  # nvcc splits a define at commas
+    assert ("flash_attention.cu", "flash_attention.cu", _build.flash_flags()) in _build.units()
